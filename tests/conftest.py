@@ -6,6 +6,12 @@ import numpy as np
 from repro.core import splaylist as sx
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skipped "
+        "without one")
+
+
 def seed_splay_state(pool, cap=256, ml=12):
     """A splay-list state seeded by inserting ``pool`` in order (the
     common differential-test fixture; ``benchmarks/sharded_refresh_probe``
