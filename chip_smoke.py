@@ -9,12 +9,14 @@ Phases:
 1. the card's name and power limit; build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print what ``-Xptxas -v`` reports;
-2. each kernel against its plain PyTorch version on the same inputs
-   (repeated in phase 6 on the main path's own inputs),
+2. each kernel against its plain PyTorch version on the same inputs,
    bit-exact on every output (the pipelined search's byte counter
    included): B1 tiered search at W=131072, L=24, q=65536; B2 pipelined
    search at W=16384 (64 tiles), W=1008 (16-lane tiles) and an odd
-   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs;
+   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs.
+   Phases 4 and 6 repeat the checks on the main path's own state and
+   inputs (F's op fold on the paper-scale state, the searches and F's
+   weighted fold on the served planes and batches);
 3. the main path at the paper's scale (Aksenov et al., arXiv:2008.01009
    §6, Fig. 12: 10^5 keys, Zipf s=1, rebalancing coin p=0.01): a
    10^5-insert prefill through ``run_ops``, ``from_state_device`` at
@@ -23,19 +25,26 @@ Phases:
    plane verdicts must equal the state walk's, the hit rate must be
    exactly 1.0, and keys outside the key space must answer 0;
 4. membership: 4 epochs of 4096 ops with 10% fresh inserts and 5%
-   deletes through ``run_serving(aggregate=False)``, then a plane-search
+   deletes, first through ``run_ops`` on the card and on a CPU copy of
+   the paper-scale state (every field, verdict and path length equal),
+   then through ``run_serving(aggregate=False)``; then a plane-search
    epoch over the inserted and deleted keys;
 5. serving at W=16384 (10^4 keys), where B2 answers the searches;
 6. timings of each kernel at the main path's shapes beside its plain
    version and its bound;
 7. one paper-scale epoch layer by layer (host clock), and once under
-   ``torch.profiler`` for the device's busy and idle share.
+   ``torch.profiler``: the device's busy time is the union of the
+   traced kernels' intervals.
 
-The launch counters are zeroed just before phase 3 and read after
-phase 5: each kernel must have run on that path.  Prints one JSON line
-per kernel table, the card's ``name, power.limit``, and as the last
-line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no result
-line, on any failed check or without a CUDA device.
+Each path reads its own launch counts: they are zeroed just before it
+(phase 3's prefill and serving run, phase 4's ``run_serving``, phase
+5's prefill and serving run) and read just after it, before any check
+or reference run.  Every kernel of a path must have run on it.  The
+kernels line reports each kernel's launches on the path it serves (B1
+and F: phase 3, the main path; B2: phase 5).  Prints that JSON line,
+the card's ``name, power.limit``, and as the last line ``{"ok": true,
+"device": {...}}``.  Exits nonzero, with no result line, on any failed
+check or without a CUDA device.
 """
 
 from __future__ import annotations
@@ -211,6 +220,17 @@ def main() -> None:
     print("[2] F 2000-key prefill + 4 mixed epochs + both contains "
           "folds: equal", flush=True)
 
+    path_launches = {}
+
+    def read_launches(path, kernels):
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        path_launches[path] = counts
+        print(f"    launches on path {path}: {counts}", flush=True)
+        for name in kernels:
+            check(counts[name] > 0, f"kernel {name} never launched on "
+                  f"path {path}")
+
     # ---- phase 3: the main path at the paper's scale -------------------
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -241,6 +261,9 @@ def main() -> None:
                          plane_search=True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t
+    read_launches("paper_serving", ("splay_search_tiered", "splay_fold"))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    max_memory_allocated {peak} B", flush=True)
     walk = sx.run_serving(st, plane0, kinds, keys, upd, aggregate=True)
     torch.cuda.synchronize()
     check(torch.equal(out[2], walk[2]),
@@ -286,10 +309,29 @@ def main() -> None:
     # a contains lane of a key deleted earlier in the same stream keeps
     # its state-walk verdict; only inserts/deletes are checked below
     upd4 = rng.random((E4, B)) < 0.01
+    # F's op fold on the main path's own state, against its plain version
+    g, c = st3, cpu_state(st3)
+    f_err4, plain_s = 0, 0.0
+    for e in range(E4):
+        g_out = sx.run_ops(g, kinds4[e], keys4[e], upd4[e])
+        t = time.perf_counter()
+        c_out = sx.run_ops(c, kinds4[e], keys4[e], upd4[e])
+        plain_s += time.perf_counter() - t
+        f_err4 = max(f_err4, state_err(g_out[0], c_out[0]),
+                     max_abs_err(g_out[1:], c_out[1:]))
+        g, c = g_out[0], c_out[0]
+    check(f_err4 == 0, f"F disagrees with its plain version on the "
+          f"paper-scale state (err {f_err4})")
+    errs["splay_fold"] = max(errs["splay_fold"], f_err4)
+    print(f"[4] F op fold of {E4}x{B} mixed ops on the paper-scale state: "
+          f"equal to the plain fold ({plain_s:.1f} s on the host CPU)",
+          flush=True)
+    ops.reset_launch_counts()
     t = time.perf_counter()
     out4 = sx.run_serving(st3, plane3, kinds4, keys4, upd4)
     torch.cuda.synchronize()
     mem_s = time.perf_counter() - t
+    read_launches("membership", ("splay_fold",))
     res4 = out4[2].cpu().numpy()
     check(bool((res4[kinds4 != sx.OP_CONTAINS] == 1).all()),
           "an insert of a fresh key or a delete of a live key failed")
@@ -313,6 +355,7 @@ def main() -> None:
     # ---- phase 5: serving at W=16384, answered by B2 --------------------
     E5, B5, N5 = 8, 2048, 10_000
     s5 = wl.zipf_workload(n=N5, ops=E5 * B5, s=1.0, p=0.01, seed=5)
+    ops.reset_launch_counts()
     st5 = sx.make(capacity=16386, max_level=24, device=dev)
     st5, _, _ = sx.run_ops(
         st5, np.full(N5, sx.OP_INSERT, np.int32),
@@ -326,18 +369,14 @@ def main() -> None:
                           plane_search=True)
     torch.cuda.synchronize()
     s5_s = time.perf_counter() - t
+    read_launches("w16384_serving", ("splay_search_pipelined",
+                                     "splay_fold"))
     walk5 = sx.run_serving(st5, plane5, *args5, aggregate=True)
     check(torch.equal(out5[2], walk5[2]), "W=16384 plane verdicts differ")
     check(bool((out5[2] == 1).all()), "W=16384 hit rate != 1.0")
     print(f"[5] serving W=16384 E={E5} B={B5}: {s5_s:.3f} s, "
           f"{E5 * B5 / s5_s:.0f} ops/s; plane == state walk", flush=True)
 
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    print(f"    launches on the main path: {launches}")
-    print(f"    max_memory_allocated {peak} B")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
 
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []
@@ -351,11 +390,13 @@ def main() -> None:
         return nq * sum(max(int(w + 1).bit_length(), 1)
                         for w in pl.widths.tolist())
 
-    def entry(name, source, replaces, ms, plain_ms, nbytes, nops):
+    def entry(name, path, source, replaces, ms, plain_ms, nbytes, nops):
         b_ms, o_ms = 1e3 * nbytes / MEM_BW, 1e3 * nops / INT_OPS
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name], ms=ms,
+            launches=path_launches[path][name], path=path,
+            launches_by_path={p: c[name] for p, c in path_launches.items()},
+            max_abs_err=errs[name], ms=ms,
             plain_ms=plain_ms, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations",
             library_ms=None))
@@ -371,7 +412,7 @@ def main() -> None:
         ssk.splay_search_tiered_plain(plane3.keys, plane3.rank_map,
                                       plane3.widths, q1))
     check(e == 0, f"B1 disagrees on the main path's inputs (err {e})")
-    entry("splay_search_tiered", "src/repro_torch/kernels/csrc/"
+    entry("splay_search_tiered", "paper_serving", "src/repro_torch/kernels/csrc/"
           "splay_search.cu", "src/repro/kernels/splay_search.py:272", ms,
           plain, search_bytes(plane3, B, 2), search_ops(plane3, B))
 
@@ -388,7 +429,7 @@ def main() -> None:
         ssk.splay_search_pipelined_plain(pl5.keys, pl5.rank_map, pl5.widths,
                                          pl5.bot_rank, q5, B5, 256))
     check(e == 0, f"B2 disagrees on the main path's inputs (err {e})")
-    entry("splay_search_pipelined", "src/repro_torch/kernels/csrc/"
+    entry("splay_search_pipelined", "w16384_serving", "src/repro_torch/kernels/csrc/"
           "splay_search.cu", "src/repro/kernels/splay_search.py:480", ms,
           plain, search_bytes(pl5, B5, 3, B5 // 256), search_ops(pl5, B5))
 
@@ -417,7 +458,7 @@ def main() -> None:
     f_plain = 1e3 * (time.perf_counter() - t)
     e = state_err(copies[-1], plain_st)
     check(e == 0, f"F disagrees on the main path's epoch fold (err {e})")
-    entry("splay_fold", "src/repro_torch/kernels/csrc/splay_fold.cu",
+    entry("splay_fold", "paper_serving", "src/repro_torch/kernels/csrc/splay_fold.cu",
           "src/repro/core/splaylist.py:629", f_ms, f_plain,
           12 * n_entries + 2 * changed, 0)
     print(f"[6] F epoch fold: {n_entries} entries, "
@@ -451,6 +492,7 @@ def main() -> None:
         split[name] = round(1e3 * (time.perf_counter() - t) / 5, 4)
     print(f"[7] one epoch, host clock ms (fold_kernel includes a state "
           f"clone; fold_entries includes find_batch): {split}", flush=True)
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -458,19 +500,33 @@ def main() -> None:
         layers["epoch"]()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    avgs = [e for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
-    dev_ms = sum(e.self_device_time_total for e in avgs) / 1e3
-    if dev_ms > 0:
-        top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"[7] traced epoch: wall {wall_ms:.3f} ms, device busy "
-              f"{dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}; "
-              f"device kernels {sum(e.count for e in avgs)}; top: " +
-              "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f}"
-                        f" ms x{e.count}" for e in top), flush=True)
+    # device activity only (kernels, copies, memsets): an op's CPU event
+    # also carries its kernels' time and would count it twice
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kev)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    if spans:
+        busy_ms = busy_us / 1e3
+        span_ms = (end - spans[0][0]) / 1e3
+        by_name = {}
+        for e in kev:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.end
+                               - e.time_range.start)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"[7] traced epoch: {len(kev)} device activities, busy "
+              f"{busy_ms:.4f} ms (union of their intervals) over a "
+              f"{span_ms:.4f} ms device span; traced wall {wall_ms:.4f} "
+              f"ms; idle share of the unprofiled epoch "
+              f"({split['epoch']} ms) {1 - busy_ms / split['epoch']:.4f};"
+              f" top: " + "; ".join(f"{k[:60]} {us / 1e3:.4f} ms x{n}"
+                                     for k, (n, us) in top), flush=True)
     else:
-        print("[7] traced epoch: the profiler recorded no device time "
-              "(device busy share not measured)", flush=True)
+        print("[7] traced epoch: the profiler recorded no device "
+              "activity (device busy share not measured)", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,6 +7,8 @@ import torch
 
 from repro_torch.kernels import fold
 from repro_torch.kernels import splay_search as ssk
+from repro_torch.kernels.splay_search import (  # noqa: F401
+    splay_search, splay_search_pipelined)
 
 _COUNTERS = (ssk.LAUNCHES, fold.LAUNCHES)
 
@@ -31,24 +33,3 @@ def reset_launch_counts() -> None:
         for name in c:
             c[name] = 0
 
-
-def splay_search(level_keys, queries, query_block: int = 256,
-                 rank_map=None, widths=None, sharded=None,
-                 pipelined: bool = None):
-    """Batched level-array search (see ``kernels/splay_search.py``):
-    ``(found, rank, level_found)`` for queries of any length against a
-    bare ``[L, W]`` matrix or an index plane struct.  ``pipelined=None``
-    takes the pipelined kernel on CUDA tensors and the plain tiered
-    descent on CPU tensors."""
-    return ssk.splay_search(level_keys, queries, query_block=query_block,
-                            rank_map=rank_map, widths=widths,
-                            sharded=sharded, pipelined=pipelined)
-
-
-def splay_search_pipelined(level_keys, queries, query_block: int = 256,
-                           rank_map=None, widths=None, bot_rank=None):
-    """The pipelined search with its per-block byte counter:
-    ``(found, rank, level_found, bytes [q_blocks])``."""
-    return ssk.splay_search_pipelined(
-        level_keys, queries, query_block=query_block, rank_map=rank_map,
-        widths=widths, bot_rank=bot_rank)
