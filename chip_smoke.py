@@ -13,8 +13,11 @@ Phases:
    bit-exact on every output (the pipelined search's byte counter
    included): B1 tiered search at W=131072, L=24, q=65536; B2 pipelined
    search at W=16384 (64 tiles), W=1008 (16-lane tiles) and an odd
-   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs.
-   Phases 4 and 6 repeat the checks on the main path's own state and
+   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs; B3
+   and B4 row gathers on float32, bfloat16 and int32 tables at d=4096
+   and an odd d=1001, q in {1, 333, 8192}, out-of-range ids included;
+   B5 full-width search at W=16384, L=24, q=2048 plus the pad sentinel.
+   Phases 4, 5 and 6 repeat the checks on the main path's own state and
    inputs (F's op fold on the paper-scale state, the searches and F's
    weighted fold on the served planes and batches);
 3. the main path at the paper's scale (Aksenov et al., arXiv:2008.01009
@@ -30,21 +33,36 @@ Phases:
    then through ``run_serving(aggregate=False)``; then a plane-search
    epoch over the inserted and deleted keys;
 5. serving at W=16384 (10^4 keys), where B2 answers the searches;
+   then the seed baseline search (B5, ``ops.splay_search_full``) over
+   the served plane for each of the 8 batches, equal to its plain
+   version and to B2's answers;
+5b. the splay vocab tier at minitron-8b width (vocab 256000, d_model
+   4096, hot_vocab 4096, bfloat16; a 2.1 GB table from a seeded
+   generator on the card): ``SplayVocabCache.observe_serving`` over 32
+   decode-stream flushes of [4, 256] Zipf token ids (5% dead lanes;
+   128 epochs, two hot-set refreshes, each equal to the numpy oracle's
+   on the same counts), then ``lookup`` of 64 decode batches of 256 ids
+   and 4 prefill chunks of 8192, each bit-equal to ``table[ids]``;
 6. timings of each kernel at the main path's shapes beside its plain
-   version and its bound;
+   version, its bound and, where one PyTorch call computes the same
+   function (``index_select`` for B3 and B4), that call;
 7. one paper-scale epoch layer by layer (host clock), and once under
    ``torch.profiler``: the device's busy time is the union of the
-   traced kernels' intervals.
+   traced kernels' intervals; the same for one vocab-tier lookup of a
+   prefill chunk and one stream flush.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
-5's prefill and serving run) and read just after it, before any check
-or reference run.  Every kernel of a path must have run on it.  The
-kernels line reports each kernel's launches on the path it serves (B1
-and F: phase 3, the main path; B2: phase 5).  Prints that JSON line,
-the card's ``name, power.limit``, and as the last line ``{"ok": true,
-"device": {...}}``.  Exits nonzero, with no result line, on any failed
-check or without a CUDA device.
+5's prefill and serving run, phase 5's full-width searches, phase 5b's
+flushes and lookups) and read just after it, before any check or
+reference run.  Every kernel of a path must have run on it; on the
+vocab tier B3 and B4 run once per lookup and F at least once per
+stream epoch.  The kernels line reports each kernel's launches on the
+path it serves (B1 and F: phase 3, the main path; B2: phase 5; B5:
+phase 5's full-width searches; B3 and B4: phase 5b).  Prints that JSON
+line, the card's ``name, power.limit``, and as the last line ``{"ok":
+true, "device": {...}}``.  Exits nonzero, with no result line, on any
+failed check or without a CUDA device.
 """
 
 from __future__ import annotations
@@ -92,6 +110,16 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def row_err(got, want) -> float:
+    """Largest absolute difference of two row blocks (0.0 when equal)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tuple(got.shape)} {got.dtype} != {tuple(want.shape)} "
+          f"{want.dtype}")
+    if not got.numel():
+        return 0.0
+    return float((got.double() - want.double()).abs().max())
+
+
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -106,16 +134,59 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and print the device's
+    busy time: the union of the intervals of the traced device
+    activities (kernels, copies, memsets; an op's CPU event also carries
+    its kernels' time and would count it twice), and its idle share of
+    ``unprofiled_ms``, the same call's host-clock time unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kev)
+    if not spans:
+        print(f"[7] traced {name}: the profiler recorded no device "
+              "activity (device busy share not measured)", flush=True)
+        return
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    busy_ms = busy_us / 1e3
+    span_ms = (end - spans[0][0]) / 1e3
+    by_name = {}
+    for e in kev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"[7] traced {name}: {len(kev)} device activities, busy "
+          f"{busy_ms:.4f} ms (union of their intervals) over a "
+          f"{span_ms:.4f} ms device span; traced wall {wall_ms:.4f} ms; "
+          f"idle share of the unprofiled call ({unprofiled_ms} ms) "
+          f"{1 - busy_ms / unprofiled_ms:.4f}; top: "
+          + "; ".join(f"{k[:60]} {us / 1e3:.4f} ms x{n}"
+                      for k, (n, us) in top), flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.configs.minitron_8b import CONFIG as minitron
     from repro_torch.core import device_index as dix
     from repro_torch.core import splaylist as sx
     from repro_torch.core import workload as wl
+    from repro_torch.core.splay_cache import SplayVocabCache
     from repro_torch.kernels import build
     from repro_torch.kernels import fold
+    from repro_torch.kernels import hot_gather as hg
     from repro_torch.kernels import ops
     from repro_torch.kernels import splay_search as ssk
 
@@ -219,6 +290,52 @@ def main() -> None:
     errs["splay_fold"] = f_err
     print("[2] F 2000-key prefill + 4 mixed epochs + both contains "
           "folds: equal", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g_err = {"gather_rows": 0.0, "gather_hot": 0.0}
+    oob = torch.as_tensor([-1, 5000, -5007, 2 ** 31 - 1], device=dev,
+                          dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for d in (4096, 1001):
+            if dtype.is_floating_point:
+                src = torch.randn((5000, d), generator=gen, device=dev,
+                                  dtype=dtype)
+            else:
+                src = torch.randint(-10 ** 6, 10 ** 6, (5000, d),
+                                    generator=gen, device=dev,
+                                    dtype=dtype)
+            for nq in (1, 333, 8192):
+                ids = torch.randint(0, 5000, (nq,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                k = min(nq, 4)
+                ids[:k] = oob[:k]
+                for name, fn in (("gather_rows", hg.gather_rows),
+                                 ("gather_hot", hg.gather_hot)):
+                    got = fn(src, ids)
+                    want = hg.gather_rows_ref(src, ids)
+                    torch.cuda.synchronize()
+                    e = row_err(got, want)
+                    check(torch.equal(got, want), f"{name} {dtype} d={d} "
+                          f"q={nq} disagrees with its plain version "
+                          f"(err {e})")
+                    g_err[name] = max(g_err[name], e)
+    errs.update(g_err)
+    print("[2] B3/B4 float32/bfloat16/int32, d=4096/1001, q=1/333/8192, "
+          "out-of-range ids: equal", flush=True)
+
+    plane, qs = fixture_plane(16384, 24, 2048, 5)
+    qs = torch.cat([qs, torch.as_tensor(
+        [ssk.NEG_INF_KEY, -1, ssk.PAD_KEY - 1, ssk.PAD_KEY], device=dev,
+        dtype=torch.int32)])
+    got = ssk._splay_search_full_arrays(plane.keys, qs, 256)
+    want = ssk.splay_search_full_plain(plane.keys,
+                                       ssk._pad_queries(qs, 256), 256)
+    torch.cuda.synchronize()
+    e = max_abs_err(got, (w[:qs.shape[0]] for w in want))
+    check(e == 0, f"B5 disagrees with its plain version (err {e})")
+    check(bool(got[0][-1]), "B5 does not report PAD_KEY found")
+    errs["splay_search_full"] = e
+    print(f"[2] B5 W=16384 L=24 q={qs.shape[0]}: equal", flush=True)
 
     path_launches = {}
 
@@ -377,6 +494,102 @@ def main() -> None:
     print(f"[5] serving W=16384 E={E5} B={B5}: {s5_s:.3f} s, "
           f"{E5 * B5 / s5_s:.0f} ops/s; plane == state walk", flush=True)
 
+    # the seed baseline search (B5) over the served plane
+    pl5 = out5[1]
+    q5s = [torch.as_tensor(args5[1][e], device=dev) for e in range(E5)]
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    full5 = [ops.splay_search_full(pl5, q) for q in q5s]
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    read_launches("full_search", ("splay_search_full",))
+    f5_err = 0
+    for q, got in zip(q5s, full5):
+        want = ssk.splay_search_full_plain(pl5.keys, ssk._pad_queries(q, 256),
+                                           256)
+        f5_err = max(f5_err, max_abs_err(got, (w[:B5] for w in want)))
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, ops.splay_search(pl5, q))),
+              "B5 and B2 disagree on the served plane")
+    check(f5_err == 0, f"B5 disagrees with its plain version on the "
+          f"served plane (err {f5_err})")
+    errs["splay_search_full"] = max(errs["splay_search_full"], f5_err)
+    print(f"[5] B5 over the served plane, {E5} x {B5}: {full_s:.3f} s; "
+          f"equal to its plain version and to B2", flush=True)
+
+    # ---- phase 5b: the splay vocab tier at minitron-8b width ------------
+    V, D, H = minitron.vocab_padded, minitron.d_model, minitron.hot_vocab
+    check(minitron.dtype == "bfloat16", "minitron-8b dtype changed")
+    torch.cuda.reset_peak_memory_stats()
+    table = torch.randn((V, D), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    cache = SplayVocabCache(V, hot_size=H, update_prob=0.01,
+                            refresh_every=64, seed=0, device=dev)
+    trng = np.random.default_rng(1)
+    E6, B6, F6 = 4, 256, 32            # engine: stream_epochs x lanes
+    flushes = []
+    for _ in range(F6):
+        toks = wl.zipf_token_ids(trng, V, (E6, B6))
+        toks[trng.random((E6, B6)) < 0.05] = -1
+        flushes.append(toks)
+    decode = [wl.zipf_token_ids(trng, V, (B6,)) for _ in range(64)]
+    prefill = [wl.zipf_token_ids(trng, V, (8192,)) for _ in range(4)]
+    batches = [torch.as_tensor(x, device=dev) for x in decode + prefill]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    flush_ms, refreshed = [], []
+    for toks in flushes:
+        prev = cache.hot_ids.copy()
+        steps = cache.steps
+        t = time.perf_counter()
+        cache.observe_serving(toks)
+        torch.cuda.synchronize()
+        flush_ms.append(1e3 * (time.perf_counter() - t))
+        if cache.steps // 64 != steps // 64:
+            refreshed.append((prev, cache.counts.copy(), cache.m,
+                              cache.hot_ids.copy(),
+                              cache.hot_rank.cpu().numpy()))
+    lookups, look_ms = [], []
+    for ids in batches:
+        t = time.perf_counter()
+        lookups.append(cache.lookup(table, ids))
+        torch.cuda.synchronize()
+        look_ms.append(1e3 * (time.perf_counter() - t))
+    read_launches("vocab_tier", ("gather_hot", "gather_rows",
+                                 "splay_fold"))
+    vc = path_launches["vocab_tier"]
+    check(vc["gather_hot"] == vc["gather_rows"] == len(batches),
+          f"B3/B4 launched {vc['gather_hot']}/{vc['gather_rows']} times "
+          f"for {len(batches)} lookups")
+    check(vc["splay_fold"] >= F6 * E6, f"F launched {vc['splay_fold']} "
+          f"times over {F6 * E6} stream epochs")
+    vocab_peak = torch.cuda.max_memory_allocated()
+    for ids, out in zip(batches, lookups):
+        check(out.shape == (ids.shape[0], D) and torch.equal(
+            out, table[ids.long()]), "a lookup differs from table[ids]")
+    check(len(refreshed) == 2, f"{len(refreshed)} hot-set refreshes")
+    for prev, counts, m, hot_ids, hot_rank in refreshed:
+        oracle = SplayVocabCache(V, hot_size=H, refresh_on_device=False,
+                                 device=dev)
+        oracle.counts, oracle.m, oracle.hot_ids = counts, m, prev
+        oracle.refresh()
+        check(np.array_equal(oracle.hot_ids, hot_ids) and np.array_equal(
+            oracle.hot_rank.cpu().numpy(), hot_rank),
+            "device hot set differs from the numpy oracle's")
+    check(len(cache.hot_ids) == H, f"hot set of {len(cache.hot_ids)}")
+    all_ids = np.concatenate(decode + prefill)
+    hit = cache.hit_rate(all_ids)
+    print(f"[5b] vocab tier V={V} d={D} hot={H} bf16: {F6} flushes of "
+          f"{E6}x{B6} ({cache.stream_epochs} epochs, m={cache.m}, "
+          f"{int((cache.counts > 0).sum())} distinct tokens): "
+          f"{np.mean(flush_ms):.3f} ms per flush (first "
+          f"{flush_ms[0]:.3f}); hot set == numpy oracle at both "
+          f"refreshes", flush=True)
+    print(f"[5b] lookups: hot-tier hit rate {hit:.4f}; "
+          f"{np.mean(look_ms[:64]):.4f} ms per decode batch of {B6}, "
+          f"{np.mean(look_ms[64:]):.4f} ms per prefill chunk of 8192; "
+          f"every lookup == table[ids]; max_memory_allocated "
+          f"{vocab_peak} B", flush=True)
 
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []
@@ -390,7 +603,8 @@ def main() -> None:
         return nq * sum(max(int(w + 1).bit_length(), 1)
                         for w in pl.widths.tolist())
 
-    def entry(name, path, source, replaces, ms, plain_ms, nbytes, nops):
+    def entry(name, path, source, replaces, ms, plain_ms, nbytes, nops,
+              library_ms=None):
         b_ms, o_ms = 1e3 * nbytes / MEM_BW, 1e3 * nops / INT_OPS
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -399,7 +613,7 @@ def main() -> None:
             max_abs_err=errs[name], ms=ms,
             plain_ms=plain_ms, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations",
-            library_ms=None))
+            library_ms=library_ms))
 
     q1 = torch.as_tensor(keys[0], device=dev)
     ms = cuda_ms(torch, lambda: ssk._splay_search_arrays(
@@ -416,8 +630,7 @@ def main() -> None:
           "splay_search.cu", "src/repro/kernels/splay_search.py:272", ms,
           plain, search_bytes(plane3, B, 2), search_ops(plane3, B))
 
-    q5 = torch.as_tensor(args5[1][0], device=dev)
-    pl5 = out5[1]
+    q5 = q5s[0]
     ms = cuda_ms(torch, lambda: ssk._splay_search_pipelined_arrays(
         pl5.keys, q5, 256, pl5.rank_map, pl5.widths, pl5.bot_rank), 50)
     plain = cuda_ms(torch, lambda: ssk.splay_search_pipelined_plain(
@@ -432,6 +645,54 @@ def main() -> None:
     entry("splay_search_pipelined", "w16384_serving", "src/repro_torch/kernels/csrc/"
           "splay_search.cu", "src/repro/kernels/splay_search.py:480", ms,
           plain, search_bytes(pl5, B5, 3, B5 // 256), search_ops(pl5, B5))
+
+    # B5: one batch over the served W=16384 plane; its compares are the
+    # full width of every row a block runs (all rows until the block's
+    # lanes are all found, then the bottom row)
+    ms = cuda_ms(torch, lambda: ssk._splay_search_full_arrays(
+        pl5.keys, q5, 256), 10)
+    q5p = ssk._pad_queries(q5, 256)
+    plain = cuda_ms(torch, lambda: ssk.splay_search_full_plain(
+        pl5.keys, q5p, 256), 3, 1)
+    f_got = ssk._splay_search_full_arrays(pl5.keys, q5, 256)
+    f_want = ssk.splay_search_full_plain(pl5.keys, q5p, 256)
+    e = max_abs_err(f_got, (w[:B5] for w in f_want))
+    check(e == 0, f"B5 disagrees on the main path's inputs (err {e})")
+    n_lv, w5 = pl5.keys.shape
+    lv_b = f_want[2].view(-1, 256)
+    rows_run = torch.where(f_want[0].view(-1, 256).all(1),
+                           torch.clamp(lv_b.max(1).values + 2, max=n_lv),
+                           n_lv)
+    entry("splay_search_full", "full_search", "src/repro_torch/kernels/"
+          "csrc/splay_search.cu", "src/repro/kernels/splay_search.py:1284",
+          ms, plain, 4 * n_lv * w5 + 13 * B5,
+          int(rows_run.sum()) * 256 * w5)
+
+    # B4 and B3: one prefill chunk (q=8192, d=4096, bfloat16) of the vocab
+    # tier, on the operands hot_gather hands them; bytes: the ids, each
+    # distinct row read once, every output row written once
+    pids = batches[-1]
+    r = cache.hot_rank[pids.long()]
+    cold = torch.where(r >= 0, 0, pids)
+    ranks = torch.clamp(r, min=0)
+    hot_buf = cache.hot_buffer(table)
+    row_b = D * table.element_size()
+    for name, fn, src, idx in (("gather_rows", hg.gather_rows, table, cold),
+                               ("gather_hot", hg.gather_hot, hot_buf,
+                                ranks)):
+        idx_l = idx.long()
+        ms = cuda_ms(torch, lambda: fn(src, idx), 50)
+        plain = cuda_ms(torch, lambda: hg.gather_rows_ref(src, idx), 20)
+        lib = cuda_ms(torch, lambda: torch.index_select(src, 0, idx_l), 50)
+        e = row_err(fn(src, idx), torch.index_select(src, 0, idx_l))
+        check(e == 0.0, f"{name} disagrees with index_select (err {e})")
+        n_rows = int(torch.unique(idx).numel())
+        entry(name, "vocab_tier", "src/repro_torch/kernels/csrc/"
+              "hot_gather.cu", "src/repro/kernels/hot_gather.py:"
+              + ("27" if name == "gather_rows" else "56"), ms, plain,
+              4 * idx.numel() + (n_rows + idx.numel()) * row_b, 0, lib)
+        print(f"[6] {name} q={idx.numel()} d={D} bf16: {n_rows} distinct "
+              f"rows", flush=True)
 
     # F: one serving epoch's aggregated fold on the paper-scale state
     entries = sx.fold_entries(st3, keys[0], upd[0], aggregate=True)[0]
@@ -492,41 +753,20 @@ def main() -> None:
         split[name] = round(1e3 * (time.perf_counter() - t) / 5, 4)
     print(f"[7] one epoch, host clock ms (fold_kernel includes a state "
           f"clone; fold_entries includes find_batch): {split}", flush=True)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        layers["epoch"]()
+    traced(torch, "epoch", layers["epoch"], split["epoch"])
+
+    # the vocab tier: one prefill-chunk lookup and one stream flush
+    tier = {"lookup": lambda: cache.lookup(table, batches[-1]),
+            "flush": lambda: cache.observe_serving(flushes[0])}
+    for name, fn in tier.items():
+        fn()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t)
-    # device activity only (kernels, copies, memsets): an op's CPU event
-    # also carries its kernels' time and would count it twice
-    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kev)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:
-        busy_us += max(b - max(a, end), 0.0)
-        end = max(end, b)
-    if spans:
-        busy_ms = busy_us / 1e3
-        span_ms = (end - spans[0][0]) / 1e3
-        by_name = {}
-        for e in kev:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.end
-                               - e.time_range.start)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"[7] traced epoch: {len(kev)} device activities, busy "
-              f"{busy_ms:.4f} ms (union of their intervals) over a "
-              f"{span_ms:.4f} ms device span; traced wall {wall_ms:.4f} "
-              f"ms; idle share of the unprofiled epoch "
-              f"({split['epoch']} ms) {1 - busy_ms / split['epoch']:.4f};"
-              f" top: " + "; ".join(f"{k[:60]} {us / 1e3:.4f} ms x{n}"
-                                     for k, (n, us) in top), flush=True)
-    else:
-        print("[7] traced epoch: the profiler recorded no device "
-              "activity (device busy share not measured)", flush=True)
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        traced(torch, f"vocab-tier {name}", fn,
+               round(1e3 * (time.perf_counter() - t) / 5, 4))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,9 @@
+"""minitron-8b [dense]: 32L d_model=4096 32H (GQA kv=8) d_ff=16384
+vocab=256000 — pruned nemotron [arXiv:2407.14679; hf].  Runs the splay
+vocab tier (``splay_vocab_tier=True``, ``hot_vocab=4096``)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv=8, d_ff=16384,
+    vocab=256000, tie_embeddings=False, splay_vocab_tier=True)

@@ -2,8 +2,8 @@
 
 The port's own copy of the numpy generators it drives: the op-stream
 record, the Bernoulli rebalancing coins, the bounded Zipf(s) stream of
-Figure 12 and the splay-shaped level-array fixture the kernel checks
-use.  Pure numpy, so the arrays feed either package unchanged.
+Figure 12, the Zipf token ids of the vocab tier and the splay-shaped
+level-array fixture the kernel checks use.  Pure numpy, so the arrays feed either package unchanged.
 """
 
 from __future__ import annotations
@@ -44,6 +44,19 @@ def zipf_workload(n: int, ops: int, s: float = 1.0, p: float = 1.0,
     return OpStream(np.zeros(ops, np.int32), keys, _coins(rng, ops, p),
                     np.sort(perm))
 
+
+def zipf_token_ids(rng: np.random.Generator, vocab: int, shape,
+                   s: float = 1.0) -> np.ndarray:
+    """Zipf(s)-distributed token ids (id = frequency rank), as a decode
+    stream or an LM batch draws them.  The support is capped at 2^17 ids
+    for sampling speed, so the draws equal the reference's for any
+    vocabulary."""
+    v = min(vocab, 1 << 17)
+    ranks = np.arange(1, v + 1, dtype=np.float64)
+    probs = ranks ** (-s)
+    probs /= probs.sum()
+    draws = rng.choice(v, size=int(np.prod(shape)), p=probs)
+    return draws.reshape(shape).astype(np.int32)
 
 
 def zipf_level_fixture(width: int, alpha: float, nq: int, seed: int = 0):

@@ -1,5 +1,5 @@
 // Kernels B1 and B2: the batched rank-windowed splay descent over the
-// level-array plane.
+// level-array plane; kernel B5: the seed baseline's full-width count.
 //
 // B1 splay_search_tiered replaces the Pallas _kernel_tiered
 // (src/repro/kernels/splay_search.py:272).  One thread per query, one
@@ -28,7 +28,21 @@
 // model, not bytes this kernel moved.  cp.async/TMA staging is later
 // work.
 //
-// Both kernels keep the reference's arithmetic: (lo + hi) / 2 probes
+// B5 splay_search_full replaces the Pallas _kernel_full
+// (src/repro/kernels/splay_search.py:1284), the seed baseline.  The TPU
+// kernel holds the whole [L, W] matrix as one VMEM block and compares a
+// query block against each row at once.  Here one block of QB threads
+// per query block walks the rows top-down and stages each row through
+// shared memory in 8 KB chunks; every thread counts row <= q over the
+// chunk for its own query (all threads read the same word: a broadcast).
+// cnt - 1 on the bottom row is the rank; a hit is row[cnt - 1] == q.  A
+// block whose lanes are all found skips its remaining rows except the
+// bottom one (a block-wide vote, as the reference's per-block rule).
+// Bound: operations, L * W compares per query; only q / QB blocks run,
+// so at q = 2048 eight SMs do all of it.  Splitting the width across
+// blocks would need a cross-block count and is redesign work.
+//
+// B1 and B2 keep the reference's arithmetic: (lo + hi) / 2 probes
 // (lo + hi >= 0 whenever a lane is active, so truncation equals floor),
 // clamped reads, and an explicit floor division in the cover, where the
 // reference floors a negative quotient and C would truncate it.
@@ -200,6 +214,49 @@ __global__ void pipelined_kernel(const int* __restrict__ keys,
   if (threadIdx.x == 0) bytes_out[blockIdx.x] = fetched * 4;
 }
 
+constexpr int kFullChunk = 2048;  // ints of a row staged per pass (8 KB)
+
+__global__ void full_kernel(const int* __restrict__ keys,
+                            const int* __restrict__ queries, int L, int W,
+                            bool* __restrict__ found_out,
+                            int* __restrict__ rank_out,
+                            int* __restrict__ level_out) {
+  __shared__ __align__(16) int s_row[kFullChunk];
+  const int gidx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = queries[gidx];
+  bool found = false;
+  int level = L, rank = 0;
+  for (int r = 0; r < L; ++r) {
+    // block-uniform: every thread votes, so the skip never diverges
+    if (__syncthreads_and(found) && r != L - 1) continue;
+    const int* row = keys + static_cast<int64_t>(r) * W;
+    int cnt = 0;
+    for (int base = 0; base < W; base += kFullChunk) {
+      const int n = min(kFullChunk, W - base);
+      __syncthreads();  // the previous chunk's reads are done
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        s_row[j] = __ldg(row + base + j);
+      }
+      __syncthreads();
+      const int4* s4 = reinterpret_cast<const int4*>(s_row);
+      int j = 0;
+#pragma unroll 8
+      for (; j < n / 4; ++j) {
+        const int4 v = s4[j];
+        cnt += (v.x <= q) + (v.y <= q) + (v.z <= q) + (v.w <= q);
+      }
+      for (j *= 4; j < n; ++j) cnt += s_row[j] <= q;
+    }
+    const bool hit = cnt > 0 && __ldg(row + cnt - 1) == q;
+    if (hit && !found) level = r;
+    found = found || hit;
+    if (r == L - 1) rank = cnt - 1;
+  }
+  found_out[gidx] = found;
+  rank_out[gidx] = rank;
+  level_out[gidx] = level;
+}
+
 }  // namespace
 
 extern "C" int splay_search_tiered(const int* keys, const int* rank_map,
@@ -225,6 +282,16 @@ extern "C" int splay_search_pipelined(const int* keys, const int* rank_map,
                      static_cast<cudaStream_t>(stream)>>>(
       keys, rank_map, bot_rank, widths, queries, L, W, n_live, tile, found,
       rank, level, bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int splay_search_full(const int* keys, const int* queries, int L,
+                                 int W, int n_blocks, int query_block,
+                                 bool* found, int* rank, int* level,
+                                 void* stream) {
+  full_kernel<<<n_blocks, query_block, 0,
+                static_cast<cudaStream_t>(stream)>>>(keys, queries, L, W,
+                                                     found, rank, level);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,9 @@ the row above bounds (rows are nested).  Two descents compute the same
   exceeds 64 take the tiered descent and report its whole-row byte
   model, exactly as the reference does.
 
+A third, the seed baseline (B5), counts ``row <= q`` across every row's
+full width instead of descending — :func:`splay_search_full_plain`.
+
 The internal entry points pick by the tensors' device: CUDA tensors
 launch the kernel, CPU tensors run the plain version.  ``splay_search``
 with ``pipelined=None`` takes the pipelined descent on CUDA tensors and
@@ -46,7 +49,8 @@ _MAX_PIPE_TILES = 64
 _TIERED_BLOCK = 256
 
 # launches of the CUDA kernels (plain CPU runs do not count)
-LAUNCHES = {"splay_search_tiered": 0, "splay_search_pipelined": 0}
+LAUNCHES = {"splay_search_tiered": 0, "splay_search_pipelined": 0,
+            "splay_search_full": 0}
 
 
 def rank_windows(level_keys: torch.Tensor) -> torch.Tensor:
@@ -390,15 +394,108 @@ def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
 
 
 # ---------------------------------------------------------------------------
+# B5: seed baseline, full-width count per row
+# ---------------------------------------------------------------------------
+
+def splay_search_full_plain(level_keys, queries, query_block: int):
+    """Plain version of B5 (``queries`` padded to the block multiple).
+    Row by row, top-down: ``cnt = #(row <= q)``; a hit when
+    ``row[cnt - 1] == q``; the bottom row's ``cnt - 1`` is the rank.  A
+    block whose lanes are all found skips its remaining rows except the
+    bottom one.  Returns ``(found bool, rank int32, level_found
+    int32)``."""
+    n_levels, width = level_keys.shape
+    dev = level_keys.device
+    nq_p = queries.shape[0]
+    found = torch.zeros((nq_p,), dtype=torch.bool, device=dev)
+    level = torch.full((nq_p,), n_levels, dtype=torch.int32, device=dev)
+    rank = torch.zeros((nq_p,), dtype=torch.int32, device=dev)
+    for r in range(n_levels):
+        bottom = r == n_levels - 1
+        run = found.view(-1, query_block).all(1).logical_not() | bottom
+        run = run.repeat_interleave(query_block)
+        row = level_keys[r]
+        cnt = (row[None, :] <= queries[:, None]).sum(1).to(torch.int32)
+        pred = row[torch.clamp(cnt - 1, min=0).long()]
+        hit = run & (cnt > 0) & (pred == queries)
+        level = torch.where(hit & ~found, r, level)
+        found = found | hit
+        if bottom:
+            rank = cnt - 1
+    return found, rank, level
+
+
+def _full_kernel(level_keys, queries, query_block: int):
+    if query_block > 1024:
+        raise ValueError(f"query_block {query_block} exceeds the 1024 "
+                         "threads of a CUDA block")
+    lib = build.load("splay_search")
+    fn = lib.splay_search_full
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    n_levels, width = level_keys.shape
+    nq_p = queries.shape[0]
+    dev = level_keys.device
+    found = torch.empty((nq_p,), dtype=torch.bool, device=dev)
+    rank = torch.empty((nq_p,), dtype=torch.int32, device=dev)
+    level = torch.empty((nq_p,), dtype=torch.int32, device=dev)
+    p = build.ptr
+    code = fn(p(level_keys), p(queries), n_levels, width,
+              nq_p // query_block, query_block, p(found), p(rank), p(level),
+              build.stream_of(level_keys))
+    build.check(lib, code, "splay_search_full launch")
+    LAUNCHES["splay_search_full"] += 1
+    return found, rank, level
+
+
+def _splay_search_full_arrays(level_keys, queries, query_block: int =
+                              DEFAULT_QUERY_BLOCK):
+    """B5 over a bare matrix: CUDA tensors launch the kernel, CPU
+    tensors run the plain version."""
+    nq = queries.shape[0]
+    dev = level_keys.device
+    if nq == 0:
+        z = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return torch.zeros((0,), dtype=torch.bool, device=dev), z, z
+    level_keys, queries = _operands(level_keys, queries)
+    qp = _pad_queries(queries, query_block)
+    if dev.type == "cpu":
+        f, r, lv = splay_search_full_plain(level_keys, qp, query_block)
+    else:
+        f, r, lv = _full_kernel(level_keys, qp, query_block)
+    return f[:nq], r[:nq], lv[:nq]
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
-def _unpack(level_keys, rank_map, widths, bot_rank):
+def _plane_tensors(plane, queries):
+    """An index plane struct with torch fields as it is; a host one
+    (``level_arrays.LevelArrays``, numpy fields) moved to the queries'
+    device, or to the card when the queries are not a tensor."""
+    if torch.is_tensor(plane.keys):
+        return plane
+    dev = queries.device if torch.is_tensor(queries) else _cuda()
+    return plane._replace(**{
+        f: torch.as_tensor(getattr(plane, f), device=dev)
+        for f in ("keys", "rank_map", "widths")})
+
+
+def _cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass CPU query "
+                           "tensors to search a host plane on the CPU")
+    return torch.device("cuda")
+
+
+def _unpack(level_keys, rank_map, widths, bot_rank, queries=None):
     """A bare matrix passes through; an index plane struct contributes
     its keys and whichever companions the caller did not pass."""
     if not hasattr(level_keys, "rank_map"):
         return level_keys, rank_map, widths, bot_rank
-    plane = level_keys
+    plane = _plane_tensors(level_keys, queries)
     _reject_segmented(plane.keys)
     return (plane.keys,
             plane.rank_map if rank_map is None else rank_map,
@@ -432,7 +529,7 @@ def splay_search(level_keys, queries, query_block: int =
         raise NotImplementedError("the width-sharded search arrives with "
                                   "the multi-device slice")
     level_keys, rank_map, widths, bot_rank = _unpack(level_keys, rank_map,
-                                                     widths, None)
+                                                     widths, None, queries)
     queries = _as_queries(queries, level_keys.device)
     _check_query_block(query_block, queries.shape[0])
     if pipelined is None:
@@ -456,9 +553,29 @@ def splay_search_pipelined(level_keys, queries, query_block: int =
     64-tile budget take the tiered descent (bytes then report its
     whole-row model)."""
     level_keys, rank_map, widths, bot_rank = _unpack(level_keys, rank_map,
-                                                     widths, bot_rank)
+                                                     widths, bot_rank,
+                                                     queries)
     queries = _as_queries(queries, level_keys.device)
     _check_query_block(query_block, queries.shape[0])
     return _splay_search_pipelined_arrays(
         level_keys, queries, query_block=query_block, rank_map=rank_map,
         widths=widths, bot_rank=bot_rank)
+
+
+def splay_search_full(level_keys, queries, query_block: int =
+                      DEFAULT_QUERY_BLOCK):
+    """The seed baseline search (B5): the same triple as
+    :func:`splay_search` from a full-width count of every row (O(L·W)
+    compares per query), over a bare ``[n_levels, width]`` matrix or an
+    index plane struct (``DeviceLevelArrays``, or a host
+    ``LevelArrays``, moved to the queries' device or the card).  Queries
+    of any length.  Unlike the descents it reports a query equal to
+    ``PAD_KEY`` as found (it equals the pad lanes), as the reference's
+    baseline and oracle do.  A segmented plane raises."""
+    if hasattr(level_keys, "rank_map"):
+        level_keys = _plane_tensors(level_keys, queries).keys
+        _reject_segmented(level_keys)
+    queries = _as_queries(queries, level_keys.device)
+    _check_query_block(query_block, queries.shape[0])
+    return _splay_search_full_arrays(level_keys, queries,
+                                     query_block=query_block)

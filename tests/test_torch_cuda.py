@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (B1 tiered search, B2
-pipelined search, F update fold) held against its plain PyTorch version
-on the same inputs, bit-exact, and the epoch loop on the card against
-the CPU loop.  Needs an NVIDIA GPU and nvcc; skips without a card.
+pipelined search, B5 full-width search, F update fold, B3/B4 row
+gathers) held against its plain PyTorch version on the same inputs,
+bit-exact, and the epoch loop and the vocab cache on the card against
+their CPU runs.  Needs an NVIDIA GPU and nvcc; skips without a card.
 Imports no JAX (the card's machine has none): run it with
 ``--noconftest``, as the README says."""
 
@@ -10,9 +11,12 @@ import pytest
 import torch
 
 from repro_torch.core import device_index as tdix
+from repro_torch.core import splay_cache as tsc
 from repro_torch.core import splaylist as tsx
 from repro_torch.core import workload as twl
 from repro_torch.kernels import fold
+from repro_torch.kernels import hot_gather as thg
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import splay_search as tssk
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +122,82 @@ def test_serving_on_card_matches_cpu():
         plane_search=True)
     _equal(g, w)
     assert (g[2] == 1).all()
+
+
+@pytest.mark.parametrize("width,levels,nq", [
+    (16384, 10, 2048), (1031, 8, 257), (64, 5, 1)])
+def test_full_kernel_matches_plain(width, levels, nq):
+    plane, qs = _plane(width, levels, nq)
+    qs = torch.cat([qs, torch.as_tensor([tssk.PAD_KEY], device="cuda",
+                                        dtype=torch.int32)])
+    before = tssk.LAUNCHES["splay_search_full"]
+    got = tssk._splay_search_full_arrays(plane.keys, qs, 256)
+    assert tssk.LAUNCHES["splay_search_full"] == before + 1
+    want = tssk.splay_search_full_plain(plane.keys,
+                                        tssk._pad_queries(qs, 256), 256)
+    _equal(got, [t[:qs.shape[0]] for t in want])
+    assert bool(got[0][-1])                    # PAD_KEY: found, as the oracle
+
+
+def _table(n, d, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn((n, d), generator=g, device="cuda").to(dtype)
+    return torch.randint(-100, 100, (n, d), generator=g,
+                         device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+@pytest.mark.parametrize("n,d,q", [(500, 37, 333), (4096, 64, 8192),
+                                   (97, 8, 1), (300, 4096, 257)])
+def test_gather_kernels_match_plain(dtype, n, d, q):
+    """B3 and B4 on every copy width (16-byte vectors down to single
+    bytes: the row length in bytes sets it), out-of-range ids included."""
+    table = _table(n, d, dtype, seed=n + d)
+    rng = np.random.default_rng(q)
+    ids = rng.integers(0, n, q).astype(np.int32)
+    ids[:min(q, 4)] = [-1, n, -n - 5, 2 ** 31 - 1][:min(q, 4)]
+    ids = torch.as_tensor(ids, device="cuda")
+    for entry, fn in (("gather_rows", thg.gather_rows),
+                      ("gather_hot", thg.gather_hot)):
+        before = thg.LAUNCHES[entry]
+        got = fn(table, ids)
+        assert thg.LAUNCHES[entry] == before + 1
+        want = thg.gather_rows_ref(table, ids)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want), entry
+
+
+def test_hot_gather_matches_table():
+    table = _table(3000, 129, torch.bfloat16, seed=3)
+    rng = np.random.default_rng(4)
+    hot_ids = rng.choice(3000, 256, replace=False)
+    hot_rank = np.full(3000, -1, np.int32)
+    hot_rank[hot_ids] = np.arange(256)
+    buf = table[torch.as_tensor(hot_ids, device="cuda")]
+    ids = torch.as_tensor(twl.zipf_token_ids(rng, 3000, (4096,)),
+                          device="cuda")
+    out = tops.hot_gather(table, buf, torch.as_tensor(hot_rank,
+                                                      device="cuda"), ids)
+    assert torch.equal(out, table[ids.long()])
+
+
+def test_vocab_cache_on_card_matches_cpu():
+    """observe_serving and lookup on the card against the CPU cache."""
+    caches = [tsc.SplayVocabCache(700, hot_size=32, update_prob=0.2,
+                                  refresh_every=8, seed=5, device=dev)
+              for dev in ("cuda", "cpu")]
+    rng = np.random.default_rng(6)
+    for _ in range(4):
+        toks = twl.zipf_token_ids(rng, 700, (4, 64))
+        toks[rng.random((4, 64)) < 0.05] = -1
+        for c in caches:
+            c.observe_serving(toks)
+        np.testing.assert_array_equal(caches[0].counts, caches[1].counts)
+        np.testing.assert_array_equal(caches[0].hot_ids, caches[1].hot_ids)
+        assert torch.equal(caches[0].hot_rank.cpu(), caches[1].hot_rank)
+    table = _table(700, 64, torch.bfloat16, seed=7)
+    ids = torch.as_tensor(twl.zipf_token_ids(rng, 700, (8, 256)),
+                          device="cuda")
+    assert torch.equal(caches[0].lookup(table, ids), table[ids.long()])

@@ -2,7 +2,11 @@
 ``repro.core.device_index`` on the same states — full builds and
 epoch-by-epoch incremental refreshes over insert, delete, height-churn,
 post-rebuild (stale slot map), overflow and transient-empty streams.
-Every field bit-equal; ``slots`` on live lanes only."""
+Every field bit-equal; ``slots`` on live lanes only.  The host level
+arrays (``core/level_arrays.py``) against ``repro.core.level_arrays``:
+builds, ``from_state`` and the shape-keeping ``refresh``."""
+
+import random
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,9 +14,13 @@ import pytest
 import torch
 
 from repro.core import device_index as dix
+from repro.core import level_arrays as jla
 from repro.core import splaylist as sx
+from repro_torch.core import convert
 from repro_torch.core import device_index as tdix
+from repro_torch.core import level_arrays as tla
 from repro_torch.core import splaylist as tsx
+from repro_torch.kernels import ops as tops
 from torch_parity import (assert_arrays_equal, assert_plane_equal,
                           to_jax_state)
 
@@ -168,3 +176,90 @@ def test_plane_helpers():
     assert tdix.plane_is_segmented(seg)
     assert dix.plane_is_segmented(dix.DeviceLevelArrays(
         *(jnp.asarray(t.numpy()) for t in seg)))
+
+
+# ---------------------------------------------------------------------------
+# host level arrays (core/level_arrays.py)
+# ---------------------------------------------------------------------------
+
+def _assert_la_equal(a, b, msg=""):
+    for f in jla.LevelArrays._fields:
+        assert_arrays_equal(getattr(a, f), torch.as_tensor(getattr(b, f)),
+                            f"{msg} {f}")
+
+
+@pytest.mark.parametrize("n,hmax,min_levels", [
+    (0, 1, 2), (1, 1, 2), (57, 4, 2), (300, 6, 3),
+    (123, 1, 8),          # empty top rows (min_levels >> max height)
+    (500, 7, 2),
+])
+def test_level_arrays_build_matches_jax(n, hmax, min_levels):
+    rng = np.random.default_rng(n + hmax)
+    keys = rng.choice(10 ** 6, n, replace=False).astype(np.int32)
+    heights = rng.integers(0, hmax, n).astype(np.int32)
+    a = jla.build(keys, heights, min_levels=min_levels)
+    b = tla.build(keys, heights, min_levels=min_levels)
+    _assert_la_equal(a, b)
+    _assert_la_equal(jla.from_heights(keys, heights, width=n + 9),
+                     tla.from_heights(keys, heights, width=n + 9), "width")
+    c = convert.level_arrays_from_numpy(a)
+    _assert_la_equal(a, c, "from_numpy")
+
+
+def _la_state(pool, n_ops, seed, cap, ml=16):
+    """The reference test's skewed stream, run through the port."""
+    rng = random.Random(seed)
+    stream = [(sx.OP_INSERT, k, True) for k in pool]
+    for _ in range(n_ops):
+        k = pool[0] if rng.random() < 0.4 else rng.choice(pool)
+        stream.append((sx.OP_CONTAINS, k, True))
+    st = tsx.make(cap, ml, device="cpu")
+    kinds, keys, upd = (np.asarray(x) for x in zip(*stream))
+    return tsx.run_ops(st, kinds.astype(np.int32), keys.astype(np.int32),
+                       upd.astype(bool))[0]
+
+
+def _refresh_la_both(ts, jprev, tprev, min_levels, msg):
+    a = jla.refresh(to_jax_state(ts), jprev, min_levels=min_levels)
+    b = tla.refresh(ts, tprev, min_levels=min_levels)
+    _assert_la_equal(a, b, msg)
+    return a, b
+
+
+@pytest.mark.parametrize("case", ["heights_only", "membership",
+                                  "transient_empty"])
+def test_level_arrays_from_state_and_refresh_match_jax(case):
+    """``from_state`` on the same state, then ``refresh`` after an epoch
+    that moves heights only (no argsort, shape kept), one that inserts
+    (full rebuild) and a delete-everything epoch (shape kept) and its
+    refill — the cases of ``test_level_arrays.py``."""
+    pool = list(range(0, {"heights_only": 160, "membership": 100,
+                          "transient_empty": 50}[case], 2))
+    ts = _la_state(pool, 800 if case == "heights_only" else 200,
+                   {"heights_only": 11, "membership": 3,
+                    "transient_empty": 5}[case],
+                   128 if case == "transient_empty" else 512)
+    ml = {"heights_only": 16, "membership": 4, "transient_empty": 6}[case]
+    a = jla.from_state(to_jax_state(ts), min_levels=ml)
+    b = tla.from_state(ts, min_levels=ml)
+    _assert_la_equal(a, b, "from_state")
+    if case == "heights_only":
+        qs = np.asarray(pool[:5] * 40, np.int32)
+        ts = tsx.run_contains_batch(ts, qs, np.ones(len(qs), bool))[0]
+        a2, b2 = _refresh_la_both(ts, a, b, 16, "refresh")
+        assert b2.keys.shape == b.keys.shape
+    elif case == "membership":
+        ts = _ops(ts, sx.OP_INSERT, [1, 3, 5])
+        a2, b2 = _refresh_la_both(ts, a, b, 4, "refresh")
+        assert {1, 3, 5} <= set(b2.keys[-1].tolist())
+    else:
+        ts = _ops(ts, sx.OP_DELETE, pool)
+        a2, b2 = _refresh_la_both(ts, a, b, 2, "empty")
+        assert b2.keys.shape == b.keys.shape and (b2.widths == 0).all()
+        ts = _ops(ts, sx.OP_INSERT, pool[:4])
+        _refresh_la_both(ts, a2, b2, 2, "refill")
+    # the host plane searches like the device plane built from it
+    qs = torch.as_tensor(np.asarray(pool, np.int32))
+    for x, y in zip(tops.splay_search(b, qs),
+                    tops.splay_search(torch.as_tensor(b.keys), qs)):
+        assert torch.equal(x, y)

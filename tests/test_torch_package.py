@@ -9,12 +9,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch
 from repro_torch.core import convert
 from repro_torch.core import splaylist as tsx
+from repro_torch.core.splay_cache import SplayVocabCache
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -32,7 +34,10 @@ def _forbidden(name: str) -> bool:
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.splay_search" in mods
+    for m in ("kernels.splay_search", "kernels.hot_gather",
+              "core.splay_cache", "core.level_arrays", "core.convert",
+              "configs.base", "configs.minitron_8b"):
+        assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -74,3 +79,7 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
         convert.state_from_numpy(tsx.to_numpy(st))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.plane_from_numpy({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SplayVocabCache(16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.table_from_numpy(np.zeros((2, 2), np.float32))

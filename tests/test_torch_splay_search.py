@@ -1,8 +1,9 @@
-"""PyTorch port, search kernels: the plain versions of B1 (tiered) and
-B2 (pipelined) against the JAX Pallas kernels in interpret mode on the
-same planes and queries — found, rank, level_found and the per-block
-byte counter bit-exact — plus the window helpers, the query-block
-validation, the dispatch rules and the torch oracle."""
+"""PyTorch port, search kernels: the plain versions of B1 (tiered), B2
+(pipelined) and B5 (the seed baseline's full-width count) against the
+JAX Pallas kernels in interpret mode on the same planes and queries —
+found, rank, level_found and the per-block byte counter bit-exact —
+plus the window helpers, the query-block validation, the dispatch rules
+and the torch oracle."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,7 @@ from repro.core import workload as wl
 from repro.kernels import ref as jref
 from repro.kernels import splay_search as ssk
 from repro_torch.core import convert
+from repro_torch.core import level_arrays as tla
 from repro_torch.core import workload as twl
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -193,3 +195,103 @@ def test_ref_oracle_and_dispatch():
     seg.keys[-1, 3] = tssk.PAD_KEY
     with pytest.raises(ValueError, match="segmented"):
         tops.splay_search(seg, torch.as_tensor(qs))
+
+
+# ---------------------------------------------------------------------------
+# B5: the seed baseline's full-width count
+# ---------------------------------------------------------------------------
+
+def _full_both(keys, qs, qb, plane=None):
+    """The JAX ``_kernel_full`` in interpret mode against the port's
+    plain B5 over the same matrix; ``plane`` (a port plane struct) is
+    searched through the port's public entry point too."""
+    a = ssk._splay_search_full_arrays(jnp.asarray(keys), jnp.asarray(qs),
+                                      query_block=qb, interpret=True)
+    b = tssk.splay_search_full(torch.as_tensor(np.array(keys)),
+                               torch.as_tensor(qs), query_block=qb)
+    for name, x, y in zip(("found", "rank", "level"), a, b):
+        assert_arrays_equal(x, y, name)
+    if plane is not None:
+        for x, y in zip(b, tops.splay_search_full(
+                plane, torch.as_tensor(qs), query_block=qb)):
+            assert torch.equal(x, y)
+    return b
+
+
+def _sweep_matrix(n, levels, nq):
+    """The random plane and half-hit batch of ``test_kernels.py``'s
+    sweep, built by the port's host level arrays."""
+    rng = np.random.default_rng(n + levels)
+    keys = np.sort(rng.choice(10 * n, n, replace=False)).astype(np.int32)
+    heights = rng.integers(0, levels, n).astype(np.int32)
+    plane = tla.build(keys, heights, min_levels=levels)
+    qs = np.concatenate([rng.choice(keys, nq // 2),
+                         rng.integers(0, 10 * n, nq - nq // 2)])
+    return plane, qs.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,levels,nq,qb", [
+    (128, 2, 64, 32),
+    (1000, 4, 256, 64),
+    (5000, 6, 512, 256),
+    (777, 3, 130, 64),          # non-divisible query count (padding)
+])
+def test_full_plain_matches_pallas_sweep(n, levels, nq, qb):
+    plane, qs = _sweep_matrix(n, levels, nq)
+    _full_both(plane.keys, _queries(plane.keys, qs), qb, plane)
+
+
+@pytest.mark.parametrize("alpha", [0.6, 1.0, 1.4])
+@pytest.mark.parametrize("nq", [512, 333])   # block multiple and not
+def test_full_plain_matches_pallas_zipf(alpha, nq):
+    """The splay-shaped Zipf fixture at W = 4096 with absent keys mixed
+    in; the hot batch lets whole blocks resolve and skip rows."""
+    keys, heights, qs = twl.zipf_level_fixture(4096, alpha, nq,
+                                               seed=int(alpha * 10) + nq)
+    rng = np.random.default_rng(int(alpha * 10) + nq + 1)
+    qs[::17] = rng.integers(0, 20 * 4096, len(qs[::17])).astype(np.int32)
+    plane = tla.build(keys, heights, min_levels=6)
+    f, r, lv = _full_both(plane.keys, qs, 256, plane)
+    # equal to the oracle and to the tiered descent (the reference's
+    # test_tiered_matches_seed_baseline)
+    for x, y in zip((f, r, lv), tref.splay_search_ref(
+            torch.as_tensor(plane.keys), torch.as_tensor(qs))):
+        assert torch.equal(x, y)
+    for x, y in zip((f, r, lv), tops.splay_search(plane,
+                                                  torch.as_tensor(qs))):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("nq", [0, 1, 7, 255, 256, 257])
+def test_full_unpadded_and_sentinel_queries(nq):
+    """Any query count; the int32 extremes and the pad sentinel, which
+    B5 (like the oracle) reports found."""
+    plane, _ = _sweep_matrix(700, 3, 1)
+    rng = np.random.default_rng(nq)
+    qs = rng.choice(plane.keys[-1][:700], nq).astype(np.int32)
+    f, r, lv = _full_both(plane.keys, qs, 256)
+    assert f.shape == r.shape == lv.shape == (nq,)
+    pad = np.asarray([ssk.PAD_KEY], np.int32)
+    f, r, lv = _full_both(plane.keys, np.concatenate([qs, pad]), 64)
+    assert bool(f[-1]) and int(r[-1]) == plane.keys.shape[1] - 1
+
+
+def test_full_entry_points_and_degenerate_planes():
+    jp, tp, qs = _fixture_planes(256, 9, 100, seed=13)
+    qs = _queries(np.asarray(jp.keys), qs)
+    a = ssk.splay_search_full(jp, jnp.asarray(qs), interpret=True)
+    b = tssk.splay_search_full(tp, torch.as_tensor(qs))
+    for name, x, y in zip(("found", "rank", "level"), a, b):
+        assert_arrays_equal(x, y, name)
+    for keys, heights in (([], []), ([42], [3])):
+        jp, tp = _planes(keys, heights, 64, 5)
+        _full_both(np.asarray(jp.keys),
+                   np.asarray([ssk.NEG_INF_KEY, 0, 41, 42, 43,
+                               ssk.PAD_KEY - 1], np.int32), 4)
+    seg = tp._replace(keys=tp.keys.clone())
+    seg.keys[-1, 0] = tssk.PAD_KEY
+    seg.keys[-1, 1] = 5
+    with pytest.raises(ValueError, match="segmented"):
+        tops.splay_search_full(seg, torch.as_tensor(qs))
+    with pytest.raises(ValueError):
+        tops.splay_search_full(tp, torch.as_tensor(qs), query_block=0)
