@@ -13,9 +13,11 @@ Phases:
    bit-exact on every output (the pipelined search's byte counter
    included): B1 tiered search at W=131072, L=24, q=65536; B2 pipelined
    search at W=16384 (64 tiles), W=1008 (16-lane tiles) and an odd
-   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs; B3
-   and B4 row gathers on float32, bfloat16 and int32 tables at d=4096
-   and an odd d=1001, q in {1, 333, 8192}, out-of-range ids included;
+   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs; B3,
+   B4 and the fused two-tier gather on float32, bfloat16, int32 and
+   uint8 tables at d=4096 (TMA bulk copies) and d=1001 and 37 (vector
+   words), q in {0, 1, 333, 8192} with out-of-range ids, int64 ids, and
+   all-hot and all-cold batches, printing each case's copy path;
    B5 full-width search at W=16384, L=24, q=2048 plus the pad sentinel.
    Phases 4, 5 and 6 repeat the checks on the main path's own state and
    inputs (F's op fold on the paper-scale state, the searches and F's
@@ -42,27 +44,35 @@ Phases:
    decode-stream flushes of [4, 256] Zipf token ids (5% dead lanes;
    128 epochs, two hot-set refreshes, each equal to the numpy oracle's
    on the same counts), then ``lookup`` of 64 decode batches of 256 ids
-   and 4 prefill chunks of 8192, each bit-equal to ``table[ids]``;
+   and 4 prefill chunks of 8192, each one launch of the fused gather
+   and bit-equal to ``table[ids]``;
 6. timings of each kernel at the main path's shapes beside its plain
    version, its bound and, where one PyTorch call computes the same
-   function (``index_select`` for B3 and B4), that call;
+   function (``index_select`` for B3, B4 and the fused gather), that
+   call; the fused gather at q=8192 and q=256 also beside the
+   reference's composition (B3 + B4 + a where-merge); an L2 probe of
+   the hot buffer (an all-hot chunk right after an all-cold one);
 7. one paper-scale epoch layer by layer (host clock), and once under
    ``torch.profiler``: the device's busy time is the union of the
    traced kernels' intervals; the same for one vocab-tier lookup of a
-   prefill chunk and one stream flush.
+   prefill chunk, the same chunk through the reference's composition,
+   and one stream flush.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
 5's prefill and serving run, phase 5's full-width searches, phase 5b's
-flushes and lookups) and read just after it, before any check or
-reference run.  Every kernel of a path must have run on it; on the
-vocab tier B3 and B4 run once per lookup and F at least once per
-stream epoch.  The kernels line reports each kernel's launches on the
-path it serves (B1 and F: phase 3, the main path; B2: phase 5; B5:
-phase 5's full-width searches; B3 and B4: phase 5b).  Prints that JSON
-line, the card's ``name, power.limit``, and as the last line ``{"ok":
-true, "device": {...}}``.  Exits nonzero, with no result line, on any
-failed check or without a CUDA device.
+flushes and lookups, phase 6's timed composition) and read just after
+it, before any check or reference run.  Every kernel of a path must
+have run on it; on the vocab tier the fused gather runs once per
+lookup, B4 builds the hot buffer, and F runs at least once per stream
+epoch.  The kernels line reports each kernel's launches on the path it
+serves (B1 and F: phase 3, the main path; B2: phase 5; B5: phase 5's
+full-width searches; B4 and the fused gather: phase 5b; B3, whose only
+caller in the reference is the composition: phase 6's timed
+composition).  Prints that JSON line, the card's ``name,
+power.limit``, and as the last line ``{"ok": true, "device":
+{...}}``.  Exits nonzero, with no result line, on any failed check or
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -134,6 +144,34 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``rounds`` times between two events.  The host's cost
+    of a call (tens of microseconds for a Python wrapper, as long as a
+    gather of a few MB runs) stays out of it; :func:`cuda_ms` measures
+    the longer of the two."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(rounds):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (reps * rounds)
+
+
 def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
     """Run ``fn`` once under ``torch.profiler`` and print the device's
     busy time: the union of the intervals of the traced device
@@ -189,6 +227,7 @@ def main() -> None:
     from repro_torch.kernels import hot_gather as hg
     from repro_torch.kernels import ops
     from repro_torch.kernels import splay_search as ssk
+    from repro_torch.kernels.ref import take_index
 
     dev = torch.device("cuda")
     card = card_line()
@@ -291,37 +330,83 @@ def main() -> None:
     print("[2] F 2000-key prefill + 4 mixed epochs + both contains "
           "folds: equal", flush=True)
 
+    # B3, B4 and the fused two-tier gather on every dtype and copy path
+    # (d=4096 rows take TMA bulk copies, d=1001 and 37 the vector words),
+    # out-of-range ids, int64 ids with high bits set (they keep their low
+    # 32 bits), and all-hot and all-cold batches for the fused gather
     gen = torch.Generator(device=dev).manual_seed(0)
-    g_err = {"gather_rows": 0.0, "gather_hot": 0.0}
+    g_err = {"gather_rows": 0.0, "gather_hot": 0.0, "hot_gather": 0.0}
     oob = torch.as_tensor([-1, 5000, -5007, 2 ** 31 - 1], device=dev,
                           dtype=torch.int32)
-    for dtype in (torch.float32, torch.bfloat16, torch.int32):
-        for d in (4096, 1001):
+
+    def gather_case(name, got, want, what):
+        torch.cuda.synchronize()
+        e = row_err(got, want)
+        check(torch.equal(got, want), f"{name} {what} disagrees with its "
+              f"plain version (err {e})")
+        g_err[name] = max(g_err[name], e)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        for d in (4096, 1001, 37):
             if dtype.is_floating_point:
                 src = torch.randn((5000, d), generator=gen, device=dev,
                                   dtype=dtype)
             else:
-                src = torch.randint(-10 ** 6, 10 ** 6, (5000, d),
-                                    generator=gen, device=dev,
-                                    dtype=dtype)
-            for nq in (1, 333, 8192):
+                lo, hi = (0, 256) if dtype == torch.uint8 else (-10 ** 6,
+                                                                10 ** 6)
+                src = torch.randint(lo, hi, (5000, d), generator=gen,
+                                    device=dev, dtype=dtype)
+            hot_ids = torch.randperm(5000, generator=gen, device=dev)[:512]
+            hot_rank = torch.full((5000,), -1, dtype=torch.int32, device=dev)
+            hot_rank[hot_ids] = torch.arange(512, dtype=torch.int32,
+                                             device=dev)
+            hot_buf = hg.gather_rows_ref(src, hot_ids)
+            cold_ids = torch.nonzero(hot_rank < 0).flatten()
+            batches2 = {}
+            for nq in (0, 1, 333, 8192):
                 ids = torch.randint(0, 5000, (nq,), generator=gen,
                                     device=dev, dtype=torch.int32)
                 k = min(nq, 4)
                 ids[:k] = oob[:k]
+                batches2[f"q={nq}"] = ids
+            pick = torch.randint(0, 512, (8192,), generator=gen, device=dev)
+            batches2["all-hot"] = hot_ids[pick].to(torch.int32)
+            pick = torch.randint(0, cold_ids.numel(), (8192,),
+                                 generator=gen, device=dev)
+            batches2["all-cold"] = cold_ids[pick].to(torch.int32)
+            high = torch.randint(-2 ** 20, 2 ** 20, (8192,), generator=gen,
+                                 device=dev, dtype=torch.int64) << 32
+            batches2["int64"] = batches2["q=8192"].long() + high
+            paths = {}
+            for case, ids in batches2.items():
+                ids32 = ids.to(torch.int32)
+                want = hg.gather_rows_ref(src, ids32)
+                what = f"{dtype} d={d} {case}"
+                for name in hg.LAST_PATH:
+                    hg.LAST_PATH[name] = None
                 for name, fn in (("gather_rows", hg.gather_rows),
                                  ("gather_hot", hg.gather_hot)):
-                    got = fn(src, ids)
-                    want = hg.gather_rows_ref(src, ids)
-                    torch.cuda.synchronize()
-                    e = row_err(got, want)
-                    check(torch.equal(got, want), f"{name} {dtype} d={d} "
-                          f"q={nq} disagrees with its plain version "
-                          f"(err {e})")
-                    g_err[name] = max(g_err[name], e)
+                    gather_case(name, fn(src, ids), want, what)
+                got = hg.hot_gather(src, hot_buf, hot_rank, ids)
+                gather_case("hot_gather", got, hg.hot_gather_ref(
+                    src, hot_buf, hot_rank, ids32), what)
+                check(torch.equal(got, want), f"hot_gather {what} differs "
+                      "from table[ids]")
+                taken = {hg.LAST_PATH[n] for n in
+                         ("gather_rows", "gather_hot", "hot_gather")}
+                check(ids.numel() == 0 or taken == {
+                    "bulk" if d == 4096 else hg.copy_path(
+                        d * src.element_size(), src, hot_buf)},
+                      f"{what}: copy paths {taken}")
+                paths.setdefault(
+                    "/".join(str(hg.LAST_PATH[n]) for n in
+                             ("gather_rows", "gather_hot", "hot_gather")),
+                    []).append(case)
+            print(f"[2] B4/B3/fused {str(dtype)[6:]} d={d}: equal; copy "
+                  "paths " + "; ".join(f"{k} on {', '.join(v)}"
+                                       for k, v in paths.items()),
+                  flush=True)
     errs.update(g_err)
-    print("[2] B3/B4 float32/bfloat16/int32, d=4096/1001, q=1/333/8192, "
-          "out-of-range ids: equal", flush=True)
 
     plane, qs = fixture_plane(16384, 24, 2048, 5)
     qs = torch.cat([qs, torch.as_tensor(
@@ -555,12 +640,13 @@ def main() -> None:
         lookups.append(cache.lookup(table, ids))
         torch.cuda.synchronize()
         look_ms.append(1e3 * (time.perf_counter() - t))
-    read_launches("vocab_tier", ("gather_hot", "gather_rows",
+    read_launches("vocab_tier", ("hot_gather", "gather_rows",
                                  "splay_fold"))
     vc = path_launches["vocab_tier"]
-    check(vc["gather_hot"] == vc["gather_rows"] == len(batches),
-          f"B3/B4 launched {vc['gather_hot']}/{vc['gather_rows']} times "
-          f"for {len(batches)} lookups")
+    check(vc["hot_gather"] == len(batches), f"the fused gather launched "
+          f"{vc['hot_gather']} times for {len(batches)} lookups")
+    lookup_path = hg.LAST_PATH["hot_gather"]
+    check(lookup_path == "bulk", f"lookups took the {lookup_path} path")
     check(vc["splay_fold"] >= F6 * E6, f"F launched {vc['splay_fold']} "
           f"times over {F6 * E6} stream epochs")
     vocab_peak = torch.cuda.max_memory_allocated()
@@ -588,8 +674,9 @@ def main() -> None:
     print(f"[5b] lookups: hot-tier hit rate {hit:.4f}; "
           f"{np.mean(look_ms[:64]):.4f} ms per decode batch of {B6}, "
           f"{np.mean(look_ms[64:]):.4f} ms per prefill chunk of 8192; "
-          f"every lookup == table[ids]; max_memory_allocated "
-          f"{vocab_peak} B", flush=True)
+          f"every lookup == table[ids]; copy path {lookup_path}; "
+          f"{vc['gather_rows']} hot-buffer build(s) through B4; "
+          f"max_memory_allocated {vocab_peak} B", flush=True)
 
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []
@@ -603,17 +690,20 @@ def main() -> None:
         return nq * sum(max(int(w + 1).bit_length(), 1)
                         for w in pl.widths.tolist())
 
-    def entry(name, path, source, replaces, ms, plain_ms, nbytes, nops,
-              library_ms=None):
+    def bound(nbytes, nops):
         b_ms, o_ms = 1e3 * nbytes / MEM_BW, 1e3 * nops / INT_OPS
+        return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+    def entry(name, path, source, replaces, ms, plain_ms, nbytes, nops,
+              library_ms=None, **extra):
+        bound_ms, bound_by = bound(nbytes, nops)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_launches[path][name], path=path,
             launches_by_path={p: c[name] for p, c in path_launches.items()},
             max_abs_err=errs[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=max(b_ms, o_ms),
-            bound_by="bytes" if b_ms >= o_ms else "operations",
-            library_ms=library_ms))
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, **extra))
 
     q1 = torch.as_tensor(keys[0], device=dev)
     ms = cuda_ms(torch, lambda: ssk._splay_search_arrays(
@@ -668,31 +758,147 @@ def main() -> None:
           ms, plain, 4 * n_lv * w5 + 13 * B5,
           int(rows_run.sum()) * 256 * w5)
 
-    # B4 and B3: one prefill chunk (q=8192, d=4096, bfloat16) of the vocab
-    # tier, on the operands hot_gather hands them; bytes: the ids, each
-    # distinct row read once, every output row written once
+    # B4, B3 and the fused gather on the vocab tier's lookups; bytes: the
+    # ids, each distinct row read once (a hot row is a table row), every
+    # output row written once, and for the fused gather one hot-rank entry
+    # per distinct id.  B4 and B3 run on the operands the reference's
+    # composition (ops.hot_gather: B3 + B4 + a where-merge) hands them,
+    # one prefill chunk (q=8192, d=4096, bfloat16).  Times are device
+    # times per call from CUDA-graph replays (graph_ms); eager_ms is the
+    # event-timed loop of eager calls (cuda_ms), as the other kernels are
+    # timed, which also counts the host's launch cost.
+    hot_buf = cache.hot_buffer(table)
+    hot_rank = cache.hot_rank
+    row_b = D * table.element_size()
+
+    def composition(ids):
+        r = hot_rank[take_index(ids, hot_rank.shape[0])]
+        is_hot = r >= 0
+        hot_out = hg.gather_hot(hot_buf, torch.clamp(r, min=0))
+        cold_out = hg.gather_rows(table, torch.where(is_hot, 0, ids))
+        return torch.where(is_hot[:, None], hot_out, cold_out)
+
+    def distinct_rows(src_rows, idx):
+        return int(torch.unique(take_index(idx, src_rows)).numel())
+
     pids = batches[-1]
-    r = cache.hot_rank[pids.long()]
+    r = hot_rank[pids.long()]
     cold = torch.where(r >= 0, 0, pids)
     ranks = torch.clamp(r, min=0)
-    hot_buf = cache.hot_buffer(table)
-    row_b = D * table.element_size()
-    for name, fn, src, idx in (("gather_rows", hg.gather_rows, table, cold),
-                               ("gather_hot", hg.gather_hot, hot_buf,
-                                ranks)):
+    ops.reset_launch_counts()
+    comp_eager = cuda_ms(torch, lambda: composition(pids), 50)
+    read_launches("composition", ("gather_hot", "gather_rows"))
+    for name, fn, src, idx, path in (
+            ("gather_rows", hg.gather_rows, table, cold, "vocab_tier"),
+            ("gather_hot", hg.gather_hot, hot_buf, ranks, "composition")):
         idx_l = idx.long()
-        ms = cuda_ms(torch, lambda: fn(src, idx), 50)
-        plain = cuda_ms(torch, lambda: hg.gather_rows_ref(src, idx), 20)
-        lib = cuda_ms(torch, lambda: torch.index_select(src, 0, idx_l), 50)
+        eager = cuda_ms(torch, lambda: fn(src, idx), 50)
+        ms = graph_ms(torch, lambda: fn(src, idx))
+        plain = graph_ms(torch, lambda: hg.gather_rows_ref(src, idx))
+        lib = graph_ms(torch, lambda: torch.index_select(src, 0, idx_l))
         e = row_err(fn(src, idx), torch.index_select(src, 0, idx_l))
         check(e == 0.0, f"{name} disagrees with index_select (err {e})")
-        n_rows = int(torch.unique(idx).numel())
-        entry(name, "vocab_tier", "src/repro_torch/kernels/csrc/"
+        n_rows = distinct_rows(src.shape[0], idx)
+        entry(name, path, "src/repro_torch/kernels/csrc/"
               "hot_gather.cu", "src/repro/kernels/hot_gather.py:"
               + ("27" if name == "gather_rows" else "56"), ms, plain,
-              4 * idx.numel() + (n_rows + idx.numel()) * row_b, 0, lib)
+              4 * idx.numel() + (n_rows + idx.numel()) * row_b, 0, lib,
+              eager_ms=eager, copy_path=hg.LAST_PATH[name])
         print(f"[6] {name} q={idx.numel()} d={D} bf16: {n_rows} distinct "
-              f"rows", flush=True)
+              f"rows; {ms:.4f} ms (eager loop {eager:.4f}), plain "
+              f"{plain:.4f}, index_select {lib:.4f} ms; copy path "
+              f"{hg.LAST_PATH[name]}", flush=True)
+
+    # the fused gather on a prefill chunk and a decode batch, beside its
+    # plain version, the reference's composition and index_select(table,
+    # 0, ids) (the same function: the hot buffer holds table rows)
+    fused = {}
+    for ids in (pids, batches[0]):
+        ids_l = ids.long()
+        nq = ids.numel()
+        eager = cuda_ms(torch, lambda: hg.hot_gather(table, hot_buf,
+                                                     hot_rank, ids), 50)
+        ms = graph_ms(torch, lambda: hg.hot_gather(table, hot_buf, hot_rank,
+                                                   ids))
+        plain = graph_ms(torch, lambda: hg.hot_gather_ref(
+            table, hot_buf, hot_rank, ids))
+        comp = graph_ms(torch, lambda: composition(ids))
+        lib = graph_ms(torch, lambda: torch.index_select(table, 0, ids_l))
+        got = hg.hot_gather(table, hot_buf, hot_rank, ids)
+        check(torch.equal(got, torch.index_select(table, 0, ids_l)),
+              f"the fused gather q={nq} differs from index_select")
+        check(torch.equal(composition(ids), got),
+              f"the composition q={nq} differs from the fused gather")
+        n_ids = distinct_rows(V, ids)
+        nbytes = ids.numel() * ids.element_size() + 4 * n_ids \
+            + (n_ids + nq) * row_b
+        b_ms, _ = bound(nbytes, 0)
+        fused[nq] = dict(ms=ms, eager_ms=eager, plain_ms=plain,
+                         composition_ms=comp, library_ms=lib, bound_ms=b_ms,
+                         nbytes=nbytes)
+        hit = float((hot_rank[ids_l] >= 0).float().mean())
+        print(f"[6] hot_gather (fused) q={nq} d={D} bf16: {n_ids} distinct "
+              f"rows, hit rate {hit:.4f}; {ms:.4f} ms (eager loop "
+              f"{eager:.4f}), plain {plain:.4f} ms, the reference's "
+              f"composition "
+              f"{comp:.4f} ms (eager loop {comp_eager:.4f} at q=8192), "
+              f"index_select {lib:.4f} ms, bound {b_ms:.4f} ms; copy path "
+              f"{hg.LAST_PATH['hot_gather']}", flush=True)
+    f8 = fused[pids.numel()]
+    entry("hot_gather", "vocab_tier", "src/repro_torch/kernels/csrc/"
+          "hot_gather.cu", "src/repro/kernels/ops.py:148 (over "
+          "src/repro/kernels/hot_gather.py:27 and :56)", f8["ms"],
+          f8["plain_ms"], f8["nbytes"], 0, f8["library_ms"],
+          eager_ms=f8["eager_ms"], composition_ms=f8["composition_ms"],
+          copy_path=hg.LAST_PATH["hot_gather"],
+          q256={k: v for k, v in fused[batches[0].numel()].items()
+                if k != "nbytes"})
+
+    # L2 residency of the hot buffer: an all-hot chunk (q=8192 ids drawn
+    # uniformly over the 4096 hot ids) right after an all-cold chunk of
+    # 8192 distinct rows, so each starts after 67 MB of output and 67 MB
+    # of cold rows went through L2; by difference of the pair and the
+    # cold chunk alone.  The same with index_select over the hot buffer's
+    # rows in place of the fused gather, and beside both, the card's own
+    # write and copy rates (zero_ and copy_ of a 67 MB block)
+    hot_ids_t = torch.as_tensor(cache.hot_ids, device=dev)
+    l2_gen = torch.Generator(device=dev).manual_seed(3)
+    hot_chunk = hot_ids_t[torch.randint(0, H, (8192,), generator=l2_gen,
+                                        device=dev)].to(torch.int32)
+    cold_pool = torch.nonzero(hot_rank < 0).flatten()
+    cold_chunk = cold_pool[torch.randperm(
+        cold_pool.numel(), generator=l2_gen, device=dev)[:8192]].to(
+            torch.int32)
+    hot_ranks_l = hot_rank[hot_chunk.long()].long()
+
+    def cold_call():
+        hg.hot_gather(table, hot_buf, hot_rank, cold_chunk)
+
+    cold_only = graph_ms(torch, cold_call)
+    l2 = {}
+    for name, fn in (
+            ("fused", lambda: hg.hot_gather(table, hot_buf, hot_rank,
+                                            hot_chunk)),
+            ("index_select", lambda: torch.index_select(hot_buf, 0,
+                                                        hot_ranks_l))):
+        def pair():
+            cold_call()
+            fn()
+        l2[name] = (graph_ms(torch, pair) - cold_only, graph_ms(torch, fn))
+    block = torch.empty((8192, D), dtype=table.dtype, device=dev)
+    zero_ms = graph_ms(torch, lambda: block.zero_())
+    copy_ms = graph_ms(torch, lambda: block.copy_(table[:8192]))
+    n_hot_rows = int(torch.unique(hot_chunk).numel())
+    print(f"[6] L2 probe (all-hot chunk, {n_hot_rows} distinct hot rows): "
+          f"after an all-cold chunk (by difference; cold chunk alone "
+          f"{cold_only:.4f} ms) fused {l2['fused'][0]:.4f} ms, index_select "
+          f"{l2['index_select'][0]:.4f} ms; alone fused {l2['fused'][1]:.4f}"
+          f" ms, index_select {l2['index_select'][1]:.4f} ms; write-only "
+          f"bound {bound(8192 * row_b, 0)[0]:.4f} ms, with the rows from "
+          f"HBM {bound((8192 + n_hot_rows) * row_b, 0)[0]:.4f} ms; the card's"
+          f" zero_ of 67.1 MB {zero_ms:.4f} ms, copy_ of 67.1 MB "
+          f"{copy_ms:.4f} ms", flush=True)
+    del block
 
     # F: one serving epoch's aggregated fold on the paper-scale state
     entries = sx.fold_entries(st3, keys[0], upd[0], aggregate=True)[0]
@@ -755,8 +961,11 @@ def main() -> None:
           f"clone; fold_entries includes find_batch): {split}", flush=True)
     traced(torch, "epoch", layers["epoch"], split["epoch"])
 
-    # the vocab tier: one prefill-chunk lookup and one stream flush
+    # the vocab tier: one prefill-chunk lookup (one fused gather), the
+    # same chunk through the reference's composition, and one stream flush
     tier = {"lookup": lambda: cache.lookup(table, batches[-1]),
+            "lookup as the reference composes it":
+                lambda: composition(batches[-1]),
             "flush": lambda: cache.observe_serving(flushes[0])}
     for name, fn in tier.items():
         fn()

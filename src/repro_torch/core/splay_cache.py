@@ -6,10 +6,13 @@ token stream gives each id a height calibrated to its frequency
 (height >= h*  <=>  freq >= m/2^(k-h*), Lemma 2).  The cache maps
 heights to memory tiers:
 
-    tier 0 (height >= h*):   the hot buffer, gathered by kernel B3
-                             (``kernels/hot_gather.py``), small enough
-                             to stay in the card's L2;
-    tier 1 (the rest):       the full table in device memory, kernel B4.
+    tier 0 (height >= h*):   the hot buffer, built by kernel B4
+                             (``kernels/hot_gather.py gather_rows``),
+                             small enough to stay in the card's L2;
+    tier 1 (the rest):       the full table in device memory.
+
+A lookup reads both tiers in one launch of the fused two-tier gather
+(``ops.hot_gather``).
 
 Refresh is relaxed like the paper's rebalancing: hit counting runs on a
 Bernoulli(``update_prob``) subsample of batches, and the hot set is
@@ -36,7 +39,7 @@ import torch
 from repro_torch.core import device_index as dix
 from repro_torch.core import splaylist as sx
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import take_index
+from repro_torch.kernels.hot_gather import gather_rows
 
 
 def _int_log2_floor(q: np.ndarray) -> np.ndarray:
@@ -241,32 +244,35 @@ class SplayVocabCache:
     # -- device side ---------------------------------------------------------
 
     def hot_buffer(self, table: torch.Tensor) -> torch.Tensor:
-        """Gathered hot rows.  On the device path the buffer has a fixed
+        """Gathered hot rows, one launch of B4 (``gather_rows``) per
+        hot-set rebuild.  On the device path the buffer has a fixed
         ``[hot_size, d]`` shape (pad rows point at row 0 and are never
         addressed — ``hot_rank`` is -1 for absent ids)."""
         if self._hot_buf is None:
             if self._hot_ids_dev is not None:
-                self._hot_buf = table[torch.clamp(self._hot_ids_dev,
-                                                  min=0).long()]
+                rows = torch.clamp(self._hot_ids_dev, min=0)
             elif len(self.hot_ids):
-                self._hot_buf = table[torch.as_tensor(
-                    self.hot_ids, device=table.device).long()]
+                rows = torch.as_tensor(self.hot_ids)
             else:
                 self._hot_buf = torch.zeros((1, table.shape[1]),
                                             dtype=table.dtype,
                                             device=table.device)
+                return self._hot_buf
+            self._hot_buf = gather_rows(table, rows.to(table.device))
         return self._hot_buf
 
     def lookup(self, table: torch.Tensor, ids) -> torch.Tensor:
-        """Two-tier gather through kernels B3 and B4 (``ops.hot_gather``);
+        """Two-tier gather, one launch of the fused kernel
+        (``ops.hot_gather``); with no hot set, B4 (``gather_rows``).
         ``ids`` of any shape -> ``[*ids.shape, d]``."""
         ids = torch.as_tensor(ids, device=table.device)
+        flat = ids.reshape(-1)
         if len(self.hot_ids) == 0:
-            return table[take_index(ids, table.shape[0])]
-        shape = ids.shape
-        out = kops.hot_gather(table, self.hot_buffer(table), self.hot_rank,
-                              ids.reshape(-1))
-        return out.reshape(*shape, table.shape[1])
+            out = gather_rows(table, flat)
+        else:
+            out = kops.hot_gather(table, self.hot_buffer(table),
+                                  self.hot_rank, flat)
+        return out.reshape(*ids.shape, table.shape[1])
 
     def hit_rate(self, ids: np.ndarray) -> float:
         if len(self.hot_ids) == 0:

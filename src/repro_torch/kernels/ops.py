@@ -1,6 +1,6 @@
-"""Entry points over the port's kernels (the searches and the composed
-two-tier ``hot_gather``), plus the execution-mode label and the
-kernels' launch counters."""
+"""Entry points over the port's kernels (the searches and the two-tier
+``hot_gather``, one launch of the fused gather on the card), plus the
+execution-mode label and the kernels' launch counters."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import torch
 from repro_torch.kernels import fold
 from repro_torch.kernels import hot_gather as hg
 from repro_torch.kernels import splay_search as ssk
-from repro_torch.kernels.ref import take_index
+from repro_torch.kernels.hot_gather import hot_gather  # noqa: F401
 from repro_torch.kernels.splay_search import (  # noqa: F401
     splay_search, splay_search_full, splay_search_pipelined)
 
@@ -36,14 +36,3 @@ def reset_launch_counts() -> None:
         for name in c:
             c[name] = 0
 
-
-def hot_gather(table, hot_buf, hot_rank, ids):
-    """Two-tier gather: ``out[i] = hot_buf[hot_rank[ids[i]]]`` where that
-    rank is >= 0, else ``table[ids[i]]``.  Composed as the reference
-    composes it: B3 over every id's clamped rank, B4 over the cold ids
-    (hot ones read row 0), and a merge."""
-    r = hot_rank[take_index(ids, hot_rank.shape[0])]
-    is_hot = r >= 0
-    hot_out = hg.gather_hot(hot_buf, torch.clamp(r, min=0))
-    cold_out = hg.gather_rows(table, torch.where(is_hot, 0, ids))
-    return torch.where(is_hot[:, None], hot_out, cold_out)

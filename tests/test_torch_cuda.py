@@ -1,10 +1,10 @@
 """PyTorch port on the card: each CUDA kernel (B1 tiered search, B2
 pipelined search, B5 full-width search, F update fold, B3/B4 row
-gathers) held against its plain PyTorch version on the same inputs,
-bit-exact, and the epoch loop and the vocab cache on the card against
-their CPU runs.  Needs an NVIDIA GPU and nvcc; skips without a card.
-Imports no JAX (the card's machine has none): run it with
-``--noconftest``, as the README says."""
+gathers and the fused two-tier gather) held against its plain PyTorch
+version on the same inputs, bit-exact, and the epoch loop and the vocab
+cache on the card against their CPU runs.  Needs an NVIDIA GPU and
+nvcc; skips without a card.  Imports no JAX (the card's machine has
+none): run it with ``--noconftest``, as the README says."""
 
 import numpy as np
 import pytest
@@ -152,21 +152,87 @@ def _table(n, d, dtype, seed=0):
 @pytest.mark.parametrize("n,d,q", [(500, 37, 333), (4096, 64, 8192),
                                    (97, 8, 1), (300, 4096, 257)])
 def test_gather_kernels_match_plain(dtype, n, d, q):
-    """B3 and B4 on every copy width (16-byte vectors down to single
-    bytes: the row length in bytes sets it), out-of-range ids included."""
+    """B3 and B4 on both copy paths (TMA bulk copies when the row is a
+    multiple of 16 bytes, else vector words down to single bytes: the row
+    length in bytes sets it), out-of-range ids included, from int32 ids
+    and from int64 ids with high bits set (they keep their low 32)."""
     table = _table(n, d, dtype, seed=n + d)
     rng = np.random.default_rng(q)
     ids = rng.integers(0, n, q).astype(np.int32)
     ids[:min(q, 4)] = [-1, n, -n - 5, 2 ** 31 - 1][:min(q, 4)]
     ids = torch.as_tensor(ids, device="cuda")
+    ids64 = ids.long() + (torch.as_tensor(
+        rng.integers(-2 ** 20, 2 ** 20, q), device="cuda") << 32)
+    path = _expected_path(d * table.element_size())
     for entry, fn in (("gather_rows", thg.gather_rows),
                       ("gather_hot", thg.gather_hot)):
-        before = thg.LAUNCHES[entry]
-        got = fn(table, ids)
-        assert thg.LAUNCHES[entry] == before + 1
         want = thg.gather_rows_ref(table, ids)
-        torch.cuda.synchronize()
-        assert got.dtype == dtype and torch.equal(got, want), entry
+        for idx in (ids, ids64):
+            before = thg.LAUNCHES[entry]
+            got = fn(table, idx)
+            assert thg.LAUNCHES[entry] == before + 1
+            assert thg.LAST_PATH[entry] == path, (entry, path)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), entry
+
+
+def _expected_path(row_bytes):
+    """The copy path of rows of ``row_bytes`` between fresh (aligned)
+    allocations."""
+    if row_bytes % 16 == 0:
+        return "bulk"
+    return f"vector{8 if row_bytes % 8 == 0 else row_bytes & -row_bytes}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+@pytest.mark.parametrize("n,d,q,nr", [
+    (5000, 4096, 8192, 5000),       # bulk copies (minitron-8b width)
+    (600, 1001, 333, 450),          # vector words, rank map shorter
+    (300, 37, 1, 700),              # vector words, rank map longer
+    (97, 4096, 0, 97),              # empty batch: no launch
+    (800, 64, 257, 800)])           # bulk copies of short rows
+def test_fused_gather_kernel_matches_plain(dtype, n, d, q, nr):
+    """The fused two-tier gather (one launch) against its plain version
+    on both copy paths: mixed, all-hot and all-cold batches, out-of-range
+    ids, ranks past the hot buffer, int32 and int64 ids; and against
+    ``table[ids]`` when the hot buffer holds the rank map's rows."""
+    table = _table(n, d, dtype, seed=n + d)
+    rng = np.random.default_rng(n + q)
+    h = min(256, nr // 2)
+    slots = rng.choice(nr, h, replace=False)
+    hot_rank = np.full(nr, -1, np.int32)
+    hot_rank[slots] = np.arange(h)
+    rows = torch.as_tensor(np.minimum(slots, n - 1), device="cuda")
+    buf = table[rows]
+    consistent = nr == n
+    if not consistent:            # a few ranks past the buffer: clamp
+        free = np.nonzero(hot_rank < 0)[0][:3]
+        hot_rank[free] = h + 5 * np.arange(len(free))
+    rank = torch.as_tensor(hot_rank, device="cuda")
+    hot = np.nonzero(hot_rank >= 0)[0]
+    cases = {"mixed": rng.integers(0, max(n, nr), q),
+             "all-hot": rng.choice(hot, q),
+             "all-cold": rng.choice(np.nonzero(hot_rank < 0)[0], q)}
+    cases["mixed"][:min(q, 4)] = [-1, n, -n - 5, 2 ** 31 - 1][:min(q, 4)]
+    path = _expected_path(d * table.element_size())
+    assert (path == "bulk") == (d in (4096, 64))
+    for case, ids in cases.items():
+        ids32 = torch.as_tensor(ids.astype(np.int32), device="cuda")
+        want = thg.hot_gather_ref(table, buf, rank, ids32)
+        ids64 = ids32.long() + (torch.as_tensor(
+            rng.integers(-2 ** 20, 2 ** 20, q), device="cuda") << 32)
+        for idx in (ids32, ids64):
+            before = thg.LAUNCHES["hot_gather"]
+            got = tops.hot_gather(table, buf, rank, idx)
+            assert thg.LAUNCHES["hot_gather"] == before + (q > 0)
+            if q:
+                assert thg.LAST_PATH["hot_gather"] == path
+            torch.cuda.synchronize()
+            assert got.shape == (q, d) and got.dtype == dtype
+            assert torch.equal(got, want), (case, idx.dtype)
+            if consistent:
+                assert torch.equal(got, thg.gather_rows_ref(table, ids32))
 
 
 def test_hot_gather_matches_table():

@@ -152,3 +152,107 @@ def test_table_from_numpy_is_bit_exact():
     # casting float32 to bfloat16 rounds the same way in both packages
     assert_rows_equal(jt, convert.table_from_numpy(
         host, dtype=torch.bfloat16, device="cpu"))
+
+
+def _two_tier(rng, v, nr, h, d, name, bad_ranks=0):
+    """A table of ``v`` rows, a hot-rank map of ``nr`` entries (``h`` of
+    them hot, ``bad_ranks`` more pointing past the buffer) and the hot
+    buffer of ``h`` rows the map's hot entries name."""
+    jt, tt = _table(rng, v, d, name)
+    hot_rank = np.full(nr, -1, np.int32)
+    slots = rng.choice(nr, h, replace=False)
+    hot_rank[slots] = np.arange(h)
+    free = np.nonzero(hot_rank < 0)[0]
+    hot_rank[rng.choice(free, bad_ranks, replace=False)] = \
+        h + 7 * np.arange(bad_ranks)                # clamp to row h - 1
+    rows = np.minimum(slots, v - 1)
+    return (jt, tt, jt[jnp.asarray(rows)], tt[torch.as_tensor(rows)],
+            hot_rank)
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["mixed", "all-hot", "all-cold",
+                                  "out-of-range", "rank-map-shorter",
+                                  "rank-map-longer", "ranks-past-h",
+                                  "int64-ids", "q1-odd-d"])
+def test_fused_hot_gather_matches_jax(name, case):
+    """The fused two-tier gather (``hot_gather.hot_gather`` and
+    ``ops.hot_gather``) against the JAX ``ops.hot_gather`` over the
+    Pallas kernels in interpret mode, bit for bit, on the edge cases of
+    its index rule."""
+    rng = np.random.default_rng(len(case))
+    v, h, d, q = 120, 16, 12, 48
+    nr = {"rank-map-shorter": v // 2, "rank-map-longer": 2 * v}.get(case, v)
+    if case == "q1-odd-d":
+        d, q = 37, 1
+    jt, tt, jbuf, tbuf, hot_rank = _two_tier(
+        rng, v, nr, h, d, name, bad_ranks=5 if case == "ranks-past-h" else 0)
+    hot = np.nonzero(hot_rank >= 0)[0]
+    pool = {"all-hot": hot, "all-cold": np.nonzero(hot_rank < 0)[0]}.get(
+        case, np.arange(nr))
+    ids = rng.choice(pool, q).astype(np.int64)
+    if case in ("out-of-range", "rank-map-shorter", "rank-map-longer"):
+        ids = np.concatenate([_out_of_range(v), ids])
+    if case == "int64-ids":                   # the low 32 bits count
+        ids = ids + (rng.integers(-2 ** 20, 2 ** 20, ids.shape) << 32)
+        ids[:3] = [2 ** 32 - 1, -(2 ** 32) + 5, 2 ** 40 + v + 3]
+    tids = torch.as_tensor(ids if case == "int64-ids" else
+                           ids.astype(np.int32))
+    a = jops.hot_gather(jt, jbuf, jnp.asarray(hot_rank),
+                        jnp.asarray(ids.astype(np.int32)))
+    before = dict(thg.LAUNCHES)
+    for fn in (thg.hot_gather, tops.hot_gather):
+        assert_rows_equal(a, fn(tt, tbuf, torch.as_tensor(hot_rank), tids),
+                          f"{fn.__module__} {case}")
+    assert thg.LAUNCHES == before             # CPU: the plain version
+    if case in ("mixed", "all-hot", "all-cold", "int64-ids", "q1-odd-d"):
+        # a consistent hot set: the gather is table[ids]
+        assert_rows_equal(jt[jnp.asarray(ids.astype(np.int32))],
+                          thg.hot_gather(tt, tbuf, torch.as_tensor(
+                              hot_rank), tids), "table[ids]")
+
+
+def test_fused_hot_gather_empty_batch_and_refusals():
+    """q = 0 against the oracle (the Pallas grid cannot be empty), and
+    the operands the kernel does not take."""
+    rng = np.random.default_rng(8)
+    _, tt, _, tbuf, hot_rank = _two_tier(rng, 30, 30, 4, 5, "int32")
+    rank = torch.as_tensor(hot_rank)
+    none = torch.zeros(0, dtype=torch.int64)
+    for fn in (thg.hot_gather, tops.hot_gather):
+        out = fn(tt, tbuf, rank, none)
+        assert out.shape == (0, 5) and out.dtype == torch.int32
+        assert torch.equal(out, tref.hot_gather_ref(tt, tbuf, rank, none))
+    ids = torch.as_tensor([1, 2], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        thg.hot_gather(tt, tbuf.float(), rank, ids)      # dtypes differ
+    with pytest.raises(ValueError):
+        thg.hot_gather(tt, tbuf[:, :4], rank, ids)       # widths differ
+    with pytest.raises(ValueError):
+        thg.hot_gather(tt, tbuf, rank[:0], ids)          # no rank map
+    with pytest.raises(ValueError):
+        thg.hot_gather(tt, tbuf, rank, ids.float())
+    with pytest.raises(ValueError):
+        thg.hot_gather(tt, tbuf, rank, ids[None])
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 4096, "bulk"),            # minitron-8b rows, 8192 B
+    (torch.float32, 4, "bulk"),
+    (torch.float32, 1002, "vector8"),
+    (torch.float32, 1001, "vector4"),
+    (torch.bfloat16, 1001, "vector2"),
+    (torch.uint8, 37, "vector1")])
+def test_copy_path_follows_row_length(dtype, d, want):
+    t = torch.zeros((3, d), dtype=dtype)
+    out = torch.empty_like(t)
+    assert thg.copy_path(d * t.element_size(), t, out) == want
+
+
+def test_copy_path_follows_base_alignment():
+    flat = torch.zeros(3 * 4096 + 2, dtype=torch.float32)
+    aligned = flat[:3 * 4096].view(3, 4096)
+    shifted = flat[1:3 * 4096 + 1].view(3, 4096)   # base 4 bytes off
+    assert thg.copy_path(4 * 4096, aligned) == "bulk"
+    assert thg.copy_path(4 * 4096, shifted) == "vector4"
+    assert thg.copy_path(4 * 4096, aligned, shifted) == "vector4"

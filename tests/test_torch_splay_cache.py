@@ -227,6 +227,33 @@ def test_empty_cache_lookup_is_plain_gather():
 
 
 @pytest.mark.parametrize("refresh_on_device", [True, False])
+def test_hot_buffer_and_empty_lookup_match_jax(refresh_on_device):
+    """The hot buffer (built by B4, ``gather_rows``, on the port) against
+    the JAX cache's XLA gather on both refresh paths, before and after a
+    refresh; and the empty-set lookup (B4 over the table) against the JAX
+    cache's, int64 and out-of-range ids included."""
+    j, t = _pair(200, refresh_on_device, hot_size=16, update_prob=1.0,
+                 refresh_every=1)
+    rng = np.random.default_rng(4)
+    host = rng.normal(size=(200, 6)).astype(np.float32)
+    jt, tt = jnp.asarray(host), torch.as_tensor(host)
+    assert_arrays_equal(j.hot_buffer(jt), t.hot_buffer(tt))   # [1, d] zeros
+    ids = rng.integers(-250, 250, (3, 40))                    # int64
+    assert_arrays_equal(j.lookup(jt, jnp.asarray(ids.astype(np.int32))),
+                        t.lookup(tt, torch.as_tensor(ids)))
+    batch = rng.integers(0, 200, 2048)
+    j.observe(batch)
+    t.observe(batch)
+    assert len(t.hot_ids) == 16
+    assert (t._hot_ids_dev is not None) == refresh_on_device
+    buf = t.hot_buffer(tt)
+    assert_arrays_equal(j.hot_buffer(jt), buf)
+    assert t.hot_buffer(tt) is buf                # built once per hot set
+    assert_arrays_equal(j.lookup(jt, jnp.asarray(ids.astype(np.int32))),
+                        t.lookup(tt, torch.as_tensor(ids)))
+
+
+@pytest.mark.parametrize("refresh_on_device", [True, False])
 def test_observe_serving_matches_jax(refresh_on_device):
     """Decode-stream blocks with dead lanes through the serving loop:
     after every flush the two caches hold the same counts, ``m``, hot
