@@ -77,6 +77,7 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -88,7 +89,8 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s
-INT_OPS = 67e12           # H100 SXM non-tensor fp32 rate, used for int32
+FP32_OPS = 67e12          # H100 SXM non-tensor fp32 rate (PR 11-13 bound)
+INT32_PER_SM_CLK = 64     # int32 adds/compares per SM per clock (cc 9.0)
 
 
 def fail(msg: str) -> None:
@@ -107,6 +109,59 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
+
+
+def int_rate(torch) -> tuple:
+    """The card's own int32 rate: SMs x 64 operations per clock (the
+    CUDA throughput table for compute capability 9.0) x the maximum SM
+    clock ``nvidia-smi`` reports.  Returns (ops/s, SMs, MHz)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return sms * INT32_PER_SM_CLK * mhz * 1e6, sms, mhz
+
+
+def fold_paths(torch, sx, fold, st, entries, vst, vops, reps: int = 10):
+    """Kernel F on three inputs, each timed by CUDA events over ``reps``
+    launches on fresh clones of its state (two warm-ups first): the
+    paper epoch's aggregated fold list ``entries`` (mode 1), the same
+    list cut to its ``w > 0`` entries, and one vocab-tier epoch's op
+    list ``vops`` (kinds, keys, upd; mode 0) on the tier's stream state
+    ``vst``.  Returns ``{name: (ms, state after one fold)}`` and the
+    walk steps of each input: the plain version's path lengths (find
+    steps of the weighted keys) in mode 1, ``plen`` in mode 0."""
+    keep = entries[1] > 0
+    subset = tuple(x[keep] for x in entries)
+    n = vops[0].shape[0]
+    res = torch.zeros((n,), dtype=torch.int32, device=vops[0].device)
+    plen = torch.zeros_like(res)
+
+    def timed(src, fn):
+        clones = [sx.clone(src) for _ in range(reps + 2)]
+        for c in clones[:2]:
+            fn(c)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for c in clones[2:]:
+            fn(c)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps, clones[-1]
+
+    out = {"epoch_full": timed(st, lambda c: fold.fold_weighted(
+               c, *entries)),
+           "epoch_subset": timed(st, lambda c: fold.fold_weighted(
+               c, *subset)),
+           "vocab_epoch": timed(vst, lambda c: fold.fold_ops(
+               c, *vops, res, plen))}
+    steps = {"epoch": int(sx.find_batch(st, subset[0])[1].sum()),
+             "vocab_epoch": int(plen.sum())}
+    return out, steps
 
 
 def max_abs_err(got, want) -> int:
@@ -440,18 +495,26 @@ def main() -> None:
     stream = wl.zipf_workload(n=N, ops=E * B, s=1.0, p=0.01, seed=0)
     order = np.random.default_rng(1).permutation(stream.populate)
     st = sx.make(capacity=131074, max_level=24, device=dev)
+    pre_args = (np.full(N, sx.OP_INSERT, np.int32), order, np.ones(N, bool))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
     t = time.perf_counter()
-    st, res, _ = sx.run_ops(st, np.full(N, sx.OP_INSERT, np.int32), order,
-                            np.ones(N, bool))
+    e0.record()
+    st, res, pre_plen = sx.run_ops(st, *pre_args)
+    e1.record()
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
+    prefill_ms = {fold.WALK: [e0.elapsed_time(e1)]}
+    pre_steps = int(pre_plen.sum())
     check(bool((res == 1).all()) and int(st.size) == N, "prefill lost keys")
     t = time.perf_counter()
     plane0 = dix.from_state_device(st, n_levels=24, width=131072)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     print(f"[3] prefill {N} inserts {prefill_s:.3f} s "
-          f"({N / prefill_s:.0f} ops/s); from_state_device {build_s:.4f} s;"
+          f"({N / prefill_s:.0f} ops/s; run_ops by events "
+          f"{prefill_ms[fold.WALK][0]:.3f} ms: a state clone and one F "
+          f"launch, {fold.WALK} walk); from_state_device {build_s:.4f} s;"
           f" zl={int(st.zl)} max rel height "
           f"{int((st.top[2:N + 2] - st.zl).max())}", flush=True)
 
@@ -690,8 +753,12 @@ def main() -> None:
         return nq * sum(max(int(w + 1).bit_length(), 1)
                         for w in pl.widths.tolist())
 
+    int_ops, n_sm, max_mhz = int_rate(torch)
+    print(f"[6] int32 rate {int_ops:.4e} ops/s ({n_sm} SMs x "
+          f"{INT32_PER_SM_CLK} x {max_mhz} MHz, clocks.max.sm)", flush=True)
+
     def bound(nbytes, nops):
-        b_ms, o_ms = 1e3 * nbytes / MEM_BW, 1e3 * nops / INT_OPS
+        b_ms, o_ms = 1e3 * nbytes / MEM_BW, 1e3 * nops / int_ops
         return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
     def entry(name, path, source, replaces, ms, plain_ms, nbytes, nops,
@@ -736,11 +803,12 @@ def main() -> None:
           "splay_search.cu", "src/repro/kernels/splay_search.py:480", ms,
           plain, search_bytes(pl5, B5, 3, B5 // 256), search_ops(pl5, B5))
 
-    # B5: one batch over the served W=16384 plane; its compares are the
-    # full width of every row a block runs (all rows until the block's
-    # lanes are all found, then the bottom row)
+    # B5: one batch over the served W=16384 plane; its work is a compare
+    # and an add for each element of every row the reference's block
+    # runs (all rows until the block's lanes are all found, then the
+    # bottom row), per query
     ms = cuda_ms(torch, lambda: ssk._splay_search_full_arrays(
-        pl5.keys, q5, 256), 10)
+        pl5.keys, q5, 256), 20)
     q5p = ssk._pad_queries(q5, 256)
     plain = cuda_ms(torch, lambda: ssk.splay_search_full_plain(
         pl5.keys, q5p, 256), 3, 1)
@@ -753,10 +821,24 @@ def main() -> None:
     rows_run = torch.where(f_want[0].view(-1, 256).all(1),
                            torch.clamp(lv_b.max(1).values + 2, max=n_lv),
                            n_lv)
+    compares = int(rows_run.sum()) * 256 * w5
+    b5_bytes = 4 * n_lv * w5 + 13 * B5
+    old_bound = max(1e3 * b5_bytes / MEM_BW, 1e3 * compares / FP32_OPS)
+    plan5 = ssk.full_plan(w5, n_lv)
     entry("splay_search_full", "full_search", "src/repro_torch/kernels/"
           "csrc/splay_search.cu", "src/repro/kernels/splay_search.py:1284",
-          ms, plain, 4 * n_lv * w5 + 13 * B5,
-          int(rows_run.sum()) * 256 * w5)
+          ms, plain, b5_bytes, 2 * compares, compares=compares,
+          pr13_bound_ms=old_bound, cluster=plan5.cluster,
+          slice=plan5.slice, smem=plan5.smem)
+    b5 = kernels[-1]
+    print(f"[6] B5 W={w5} L={n_lv} q={B5}: {ms:.4f} ms, plain {plain:.4f} "
+          f"ms; {compares} compares the reference's row rule runs "
+          f"({int(rows_run.sum())} of {n_lv * B5 // 256} block-rows); bound "
+          f"{b5['bound_ms']:.4f} ms (a compare and an add each at the "
+          f"int32 rate, {b5['bound_by']}; {b5['bound_ms'] / ms:.3f} of it "
+          f"reached), PR 13's bound {old_bound:.4f} ms (one op each at "
+          f"{FP32_OPS:.0e}); cluster {plan5.cluster} x {plan5.slice} "
+          f"columns, {plan5.smem} B shared memory a CTA", flush=True)
 
     # B4, B3 and the fused gather on the vocab tier's lookups; bytes: the
     # ids, each distinct row read once (a hot row is a table row), every
@@ -900,37 +982,128 @@ def main() -> None:
           f"{copy_ms:.4f} ms", flush=True)
     del block
 
-    # F: one serving epoch's aggregated fold on the paper-scale state
+    # F on its three paths, each walk in turn (thread, warp, warp,
+    # thread): one serving epoch's aggregated fold list on the
+    # paper-scale state and its w > 0 subset, one vocab-tier stream
+    # epoch's op list on the tier's state (V + 2 slots, 33 levels), and
+    # the 10^5-insert prefill (one launch; phase 3 ran it with the
+    # default walk)
     entries = sx.fold_entries(st3, keys[0], upd[0], aggregate=True)[0]
-    copies = [sx.clone(st3) for _ in range(12)]
-    for c in copies[:2]:
-        fold.fold_weighted(c, *entries)
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for c in copies[2:]:
-        fold.fold_weighted(c, *entries)
-    t1.record()
-    torch.cuda.synchronize()
-    f_ms = t0.elapsed_time(t1) / 10
+    vst = cache._stream_st
+    vrng = np.random.default_rng(11)
+    vtok = wl.zipf_token_ids(vrng, V, (B6,))
+    vtok[vrng.random(B6) < 0.05] = -1
+    vlive = vtok >= 0
+    vops = (torch.as_tensor(np.where(vlive, sx.OP_INSERT, sx.OP_CONTAINS)
+                            .astype(np.int32), device=dev),
+            torch.as_tensor(vtok, device=dev),
+            torch.as_tensor(vlive & (vrng.random(B6) < 0.01), device=dev))
+    default_walk = fold.WALK
+    f_ms = {}
+    f_states = []
+    for walk in fold.WALKS + fold.WALKS[::-1]:
+        fold.WALK = walk
+        out_f, f_steps = fold_paths(torch, sx, fold, st3, entries, vst, vops)
+        for name, (ms_, st_) in out_f.items():
+            f_ms.setdefault(walk, {}).setdefault(name, []).append(ms_)
+            f_states.append((name, st_))
+    for walk in fold.WALKS:
+        if walk == default_walk:
+            continue
+        fold.WALK = walk
+        e0.record()
+        st_p = sx.run_ops(sx.make(capacity=131074, max_level=24,
+                                  device=dev), *pre_args)[0]
+        e1.record()
+        torch.cuda.synchronize()
+        prefill_ms.setdefault(walk, []).append(e0.elapsed_time(e1))
+        check(state_err(st_p, st) == 0, f"the {walk} walk's prefill differs")
+        del st_p
+    fold.WALK = default_walk
     changed = sum(int((a != b).sum()) * a.element_size()
-                  for a, b in zip(st3, copies[-1]))
+                  for a, b in zip(st3, f_states[0][1]))
     n_entries = int(entries[0].shape[0])
-    cs = cpu_state(st3)
-    ce = tuple(x.cpu() for x in entries)
-    plain_st = sx.clone(cs)
+    n_weighted = int((entries[1] > 0).sum())
     t = time.perf_counter()
-    fold.fold_weighted(plain_st, *ce)
+    plain_st = cpu_state(st3)
+    fold.fold_weighted(plain_st, *(x.cpu() for x in entries))
     f_plain = 1e3 * (time.perf_counter() - t)
-    e = state_err(copies[-1], plain_st)
-    check(e == 0, f"F disagrees on the main path's epoch fold (err {e})")
-    entry("splay_fold", "paper_serving", "src/repro_torch/kernels/csrc/splay_fold.cu",
-          "src/repro/core/splaylist.py:629", f_ms, f_plain,
-          12 * n_entries + 2 * changed, 0)
-    print(f"[6] F epoch fold: {n_entries} entries, "
-          f"{int((entries[1] > 0).sum())} weighted; plain fold timed on "
-          "the host CPU (a scalar loop)", flush=True)
+    plain_v = cpu_state(vst)
+    vres = torch.zeros((B6,), dtype=torch.int32)
+    fold.fold_ops(plain_v, *(x.cpu() for x in vops), vres,
+                  torch.zeros_like(vres))
+    for name, got in f_states:
+        want = plain_v if name == "vocab_epoch" else plain_st
+        e = state_err(got, want)
+        check(e == 0, f"F disagrees with its plain version on {name} "
+              f"(err {e})")
+    fm = {w: {k: float(np.mean(v)) for k, v in d.items()}
+          for w, d in f_ms.items()}
+    ns_step = {w: {"epoch": 1e6 * d["epoch_full"] / f_steps["epoch"],
+                   "vocab_epoch": 1e6 * d["vocab_epoch"]
+                   / f_steps["vocab_epoch"],
+                   "prefill": 1e6 * float(np.mean(prefill_ms[w]))
+                   / pre_steps}
+               for w, d in fm.items()}
+
+    # one thread chasing i = next[i] through a random cycle: ns per
+    # dependent load from an array that stays in L2 (4 MB, read once
+    # first) and from one five times the L2 (256 MB)
+    lib_f = build.load("splay_fold")
+    lib_f.pointer_chase.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_void_p]
+    lib_f.pointer_chase.restype = ctypes.c_int
+    chase = {}
+    c_gen = torch.Generator(device=dev).manual_seed(4)
+    for name, n_el, steps in (("l2", 1 << 20, 20000),
+                              ("hbm", 1 << 26, 20000)):
+        perm = torch.randperm(n_el, generator=c_gen, device=dev)
+        nxt = torch.empty((n_el,), dtype=torch.int32, device=dev)
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+        del perm
+        out1 = torch.empty((1,), dtype=torch.int32, device=dev)
+        nxt.sum()
+        times = []
+        for n_steps in (steps // 10, steps):
+            e0.record()
+            code = lib_f.pointer_chase(nxt.data_ptr(), 0, n_steps,
+                                       out1.data_ptr(), build.stream_of(nxt))
+            e1.record()
+            build.check(lib_f, code, "pointer_chase launch")
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        chase[name] = 1e6 * times[1] / steps
+        del nxt
+
+    entry("splay_fold", "paper_serving", "src/repro_torch/kernels/csrc/"
+          "splay_fold.cu", "src/repro/core/splaylist.py:629",
+          fm[default_walk]["epoch_full"], f_plain,
+          12 * n_entries + 2 * changed, 0, walk=default_walk, ms_by_walk=fm,
+          prefill_ms=prefill_ms, ns_per_step=ns_step, walk_steps=dict(
+              f_steps, prefill=pre_steps), chase_ns=chase)
+    print(f"[6] F epoch fold: {n_entries} entries, {n_weighted} weighted; "
+          "plain fold timed on the host CPU (a scalar loop)", flush=True)
+    for w in fold.WALKS:
+        d = fm[w]
+        print(f"[6] F {w} walk: paper epoch full list "
+              f"{d['epoch_full']:.4f} ms, its w > 0 subset "
+              f"{d['epoch_subset']:.4f} ms (runs "
+              f"{[round(x, 4) for x in f_ms[w]['epoch_full']]} / "
+              f"{[round(x, 4) for x in f_ms[w]['epoch_subset']]}); vocab-tier"
+              f" epoch fold {d['vocab_epoch']:.4f} ms (runs "
+              f"{[round(x, 4) for x in f_ms[w]['vocab_epoch']]}); prefill "
+              f"{[round(x, 3) for x in prefill_ms[w]]} ms; ns per walk "
+              f"step: epoch {ns_step[w]['epoch']:.1f} ({f_steps['epoch']} "
+              f"find steps of the weighted keys), vocab epoch "
+              f"{ns_step[w]['vocab_epoch']:.1f} ({f_steps['vocab_epoch']} "
+              f"plen steps), prefill {ns_step[w]['prefill']:.1f} "
+              f"({pre_steps} plen steps; an insert walks about three "
+              f"times)", flush=True)
+    print(f"[6] pointer chase, one thread: {chase['l2']:.1f} ns per "
+          f"dependent load in L2 (4 MB), {chase['hbm']:.1f} ns from a "
+          f"256 MB array; all F states equal their plain folds and the "
+          f"full list's equal the subset's", flush=True)
 
     # ---- phase 7: where a paper-scale serving epoch's time goes ---------
     k0 = torch.as_tensor(keys[0], device=dev)

@@ -6,23 +6,63 @@
 // Every step branches on state in device memory (the while/cond chains
 // of _update :196-316, find :158, _link_bottom :323), so eager PyTorch
 // would pay a host round trip per branch; this kernel keeps the whole
-// fold on the card.
+// fold on the card, one launch per fold.
 //
 // Bound: latency.  The fold is a chain of dependent loads (pointer
 // chasing through nxt/key), one op after the other in a total order, so
-// no parallelism is available inside it.  Design: one thread walks the
-// op list against the state arrays in device memory (the whole state of
-// the paper-scale deployment, ~28 MB, stays resident in the 50 MB L2),
-// mirroring _update, _fill_down, _link_bottom and find branch for
-// branch.  The kernel reports where a rebuild is due (after a contains
-// or delete that leaves 2*dhits >= m) and stops there; the wrapper runs
-// the vectorised rebuild and relaunches from the next op.
+// the walk itself stays serial.  The design removes the latency around
+// it.  One block of four warps:
+//
+//   staging  warps 1-3 copy the next chunk of kChunk entries of the
+//            fold list into shared memory while warp 0 walks the current
+//            one (two buffers).  Mode 1 (the weighted fold) compacts, in
+//            order, the entries with w > 0 into a queue (warp ballots and
+//            a running prefix): a zero-weight entry is a no-op of the
+//            reference fold, so the walker never sees it.  Mode 0 (the op
+//            list) stages kinds/keys/upd; the walker buffers each op's
+//            verdict and path length in shared memory and warps 1-3
+//            write a chunk back once it is walked, only up to the op
+//            where the walk stopped.  The scalars m, dhits, zl, n_alloc
+//            and size live in the walker's registers and are written
+//            back once, at the end.
+//   walk     kWarpWalk = false: lane 0 of warp 0 walks the state in
+//            device memory, one dependent load after the other, as the
+//            first version of this kernel did.  kWarpWalk = true: the
+//            whole warp walks.  When it arrives at a node the lanes fetch
+//            that node's column in one round trip (nxt[l, i] and
+//            hits[l, i] for every level l in [0, L], lane l holding rows
+//            l, l + 32 and l + 64, plus key, top, nzero and selfhits) and,
+//            in a second, the keys of the column's successors.  Columns
+//            sit in a shared-memory cache of kSlots nodes (least recently
+//            used out); the walk's reads of pred, curr and pp then come
+//            from shared memory, every lane reading the same word.  Every
+//            store goes to device memory and to the cached column of the
+//            same node, so aliases (pred == pp, curr == pp, fill_down on
+//            either) read what the reference reads.  fill_down writes its
+//            rows in parallel, one row a lane.  Which walk the wrapper
+//            launches is fold.py's WALK; chip_smoke.py times both.
+//
+// Every lane of the walking warp runs the same control flow on the same
+// values, and every lane issues every store (the same value to the same
+// address).  Where lanes write different rows (a column fetch, the
+// successor-key fix-up of a key store, fill_down) __syncwarp brackets
+// the writes.
+//
+// The kernel reports where a rebuild is due (after a contains or delete
+// that leaves 2*dhits >= m) and stops there; the wrapper runs the
+// vectorised rebuild and relaunches from the next op.  An insert that
+// finds the capacity exhausted stops before it writes anything.
 //
 // Index rules follow the reference: a negative level or slot index
 // wraps (numpy/JAX indexing), and shifts by an amount outside
 // [0, bits) give the sign fill (XLA's rule; C leaves them undefined).
+//
+// pointer_chase (the calibration chip_smoke.py prints beside the walk):
+// one thread following i = next[i], the ns per dependent load of an
+// array that stays in L2 or one that does not.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -30,6 +70,15 @@ namespace {
 constexpr int HEAD = 0;
 constexpr int OP_CONTAINS = 0;
 constexpr int OP_INSERT = 1;
+
+constexpr int kWarps = 4;          // warp 0 walks, warps 1..3 stage
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStagers = kThreads - 32;
+constexpr int kChunk = 512;        // fold-list entries staged at a time
+constexpr int kSlots = 4;          // node columns the warp walk caches
+constexpr int kRows = 96;          // >= L + 1 (<= 65): 3 rows a lane
+
+enum Stop { kRunning = 0, kRebuild = 1, kExhausted = 2 };
 
 template <typename T>
 struct State {
@@ -50,14 +99,9 @@ struct State {
 
   __device__ int lv(int h) const { return h < 0 ? h + L + 1 : h; }
   __device__ int sl(int i) const { return i < 0 ? i + C : i; }
-  __device__ int& NXT(int h, int i) const {
-    return nxt[static_cast<int64_t>(lv(h)) * C + sl(i)];
+  __device__ int64_t at(int h, int i) const {
+    return static_cast<int64_t>(lv(h)) * C + sl(i);
   }
-  __device__ T& HITS(int h, int i) const {
-    return hits[static_cast<int64_t>(lv(h)) * C + sl(i)];
-  }
-  __device__ int K(int i) const { return key[sl(i)]; }
-  __device__ int NZ(int i) const { return nzero[sl(i)]; }
 };
 
 template <typename T>
@@ -67,107 +111,361 @@ __device__ T shr(T x, int e) {
   return x >> e;
 }
 
+// The walk's scalars, held in registers for the whole launch.
 template <typename T>
-__device__ int eff_next(const State<T>& s, int i, int h) {
-  return s.NXT(max(h, s.NZ(i)), i);
-}
+struct Scalars {
+  T m, dhits;
+  int zl, n_alloc, size;
+
+  __device__ void load(const State<T>& s) {
+    m = *s.m;
+    dhits = *s.dhits;
+    zl = *s.zl;
+    n_alloc = *s.n_alloc;
+    size = *s.size;
+  }
+  __device__ void store(const State<T>& s) const {
+    *s.m = m;
+    *s.dhits = dhits;
+    *s.zl = zl;
+    *s.n_alloc = n_alloc;
+    *s.size = size;
+  }
+};
+
+// ---- step a: one thread walks device memory --------------------------
 
 template <typename T>
-__device__ T whits(const State<T>& s, int i, int h) {
-  return h >= s.NZ(i) ? s.HITS(h, i) : T(0);
-}
+struct ThreadWalk : Scalars<T> {
+  State<T> s;
+  int L, C;
 
-template <typename T>
-__device__ T get_hits(const State<T>& s, int i, int h) {
-  return s.selfhits[s.sl(i)] + whits(s, i, h);
-}
-
-template <typename T>
-__device__ void fill_down(const State<T>& s, int i, int h) {
-  const int zl_i = s.NZ(i);
-  const int lo = h > 0 ? h : 0;
-  if (lo < zl_i) {
-    const int v = s.NXT(zl_i, i);
-    for (int l = lo; l < zl_i; ++l) {
-      s.NXT(l, i) = v;
-      s.HITS(l, i) = T(0);
+  __device__ void init(const State<T>& st, void*) {
+    s = st;
+    L = st.L;
+    C = st.C;
+  }
+  __device__ int sl(int i) const { return s.sl(i); }
+  __device__ int nxt(int h, int i) { return s.nxt[s.at(h, i)]; }
+  __device__ T hits(int h, int i) { return s.hits[s.at(h, i)]; }
+  __device__ int key(int i) { return s.key[s.sl(i)]; }
+  __device__ int top(int i) { return s.top[s.sl(i)]; }
+  __device__ int nz(int i) { return s.nzero[s.sl(i)]; }
+  __device__ T sh(int i) { return s.selfhits[s.sl(i)]; }
+  __device__ bool del(int i) { return s.deleted[s.sl(i)]; }
+  // key of the node nxt(h, i) points at
+  __device__ int nxt_key(int h, int i) { return key(nxt(h, i)); }
+  // the successor of i at level h under lazy expansion, and its key
+  __device__ int next(int i, int h, int& k) {
+    const int v = nxt(max(h, nz(i)), i);
+    k = key(v);
+    return v;
+  }
+  __device__ void set_nxt(int h, int i, int v, int) { s.nxt[s.at(h, i)] = v; }
+  __device__ void set_hits(int h, int i, T v) { s.hits[s.at(h, i)] = v; }
+  __device__ void set_key(int i, int k) { s.key[s.sl(i)] = k; }
+  __device__ void set_top(int i, int v) { s.top[s.sl(i)] = v; }
+  __device__ void set_nz(int i, int v) { s.nzero[s.sl(i)] = v; }
+  __device__ void set_sh(int i, T v) { s.selfhits[s.sl(i)] = v; }
+  __device__ void set_del(int i, bool v) { s.deleted[s.sl(i)] = v; }
+  // rows [lo, hi) of i take nxt = nxt(hi, i) and hits = 0
+  __device__ void fill(int i, int lo, int hi) {
+    const int v = nxt(hi, i);
+    for (int l = lo; l < hi; ++l) {
+      set_nxt(l, i, v, 0);
+      set_hits(l, i, T(0));
     }
   }
-  s.nzero[s.sl(i)] = min(zl_i, h);
-}
+};
+
+// ---- step b: the warp walks through a cache of node columns ----------
 
 template <typename T>
-__device__ void find(const State<T>& s, int k, int& slot, int& steps) {
+struct Cache {
+  int nxt[kSlots][kRows];
+  int kn[kSlots][kRows];   // key[nxt[slot][row]]
+  T hits[kSlots][kRows];
+  int key[kSlots];
+  int top[kSlots];
+  int nz[kSlots];
+  T sh[kSlots];
+};
+
+template <typename T>
+struct WarpWalk : Scalars<T> {
+  State<T> s;
+  int L, C;
+  Cache<T>* c;
+  int tag[kSlots];          // cached node (slot index), -1 when empty
+  unsigned used[kSlots];    // last use, for least-recently-used eviction
+  unsigned clock;
+  int lane;
+
+  __device__ void init(const State<T>& st, void* cache) {
+    s = st;
+    L = st.L;
+    C = st.C;
+    c = static_cast<Cache<T>*>(cache);
+    clock = 0;
+    lane = threadIdx.x & 31;
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      tag[t] = -1;
+      used[t] = 0;
+    }
+  }
+  __device__ int sl(int i) const { return s.sl(i); }
+
+  __device__ int lookup(int node) const {
+    int hit = -1;
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t)
+      if (tag[t] == node) hit = t;
+    return hit;
+  }
+
+  // node's column into the least recently used slot: two round trips
+  __device__ int fetch(int node) {
+    int t = 0;
+    unsigned best = used[0];
+#pragma unroll
+    for (int u = 1; u < kSlots; ++u)
+      if (used[u] < best) {
+        best = used[u];
+        t = u;
+      }
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u)
+      if (u == t) tag[u] = node;
+    __syncwarp();
+    int nx[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int r = lane + 32 * j;
+      nx[j] = 0;
+      if (r <= L) {
+        const int64_t a = static_cast<int64_t>(r) * C + node;
+        nx[j] = s.nxt[a];
+        c->nxt[t][r] = nx[j];
+        c->hits[t][r] = s.hits[a];
+      }
+    }
+    if (lane == 0) c->key[t] = s.key[node];
+    if (lane == 1) c->top[t] = s.top[node];
+    if (lane == 2) c->nz[t] = s.nzero[node];
+    if (lane == 3) c->sh[t] = s.selfhits[node];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int r = lane + 32 * j;
+      if (r <= L) c->kn[t][r] = s.key[s.sl(nx[j])];
+    }
+    __syncwarp();
+    return t;
+  }
+
+  // the cached column of i, fetched on a miss
+  __device__ int slot(int i) {
+    const int node = s.sl(i);
+    int t = lookup(node);
+    if (t < 0) t = fetch(node);
+    ++clock;
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u)
+      if (u == t) used[u] = clock;
+    return t;
+  }
+
+  __device__ int nxt(int h, int i) { return c->nxt[slot(i)][s.lv(h)]; }
+  __device__ T hits(int h, int i) { return c->hits[slot(i)][s.lv(h)]; }
+  __device__ int nxt_key(int h, int i) { return c->kn[slot(i)][s.lv(h)]; }
+  __device__ int next(int i, int h, int& k) {
+    const int t = slot(i);
+    const int r = s.lv(max(h, c->nz[t]));
+    k = c->kn[t][r];
+    return c->nxt[t][r];
+  }
+  // node scalars: the cached copy when the node is cached (no fetch)
+  __device__ int key(int i) {
+    const int t = lookup(s.sl(i));
+    return t >= 0 ? c->key[t] : s.key[s.sl(i)];
+  }
+  __device__ int top(int i) {
+    const int t = lookup(s.sl(i));
+    return t >= 0 ? c->top[t] : s.top[s.sl(i)];
+  }
+  __device__ int nz(int i) {
+    const int t = lookup(s.sl(i));
+    return t >= 0 ? c->nz[t] : s.nzero[s.sl(i)];
+  }
+  __device__ T sh(int i) {
+    const int t = lookup(s.sl(i));
+    return t >= 0 ? c->sh[t] : s.selfhits[s.sl(i)];
+  }
+  __device__ bool del(int i) { return s.deleted[s.sl(i)]; }
+
+  // kv is the key of node v (the cache keeps each row's successor key)
+  __device__ void set_nxt(int h, int i, int v, int kv) {
+    s.nxt[s.at(h, i)] = v;
+    const int t = lookup(s.sl(i));
+    if (t >= 0) {
+      c->nxt[t][s.lv(h)] = v;
+      c->kn[t][s.lv(h)] = kv;
+    }
+  }
+  __device__ void set_hits(int h, int i, T v) {
+    s.hits[s.at(h, i)] = v;
+    const int t = lookup(s.sl(i));
+    if (t >= 0) c->hits[t][s.lv(h)] = v;
+  }
+  __device__ void set_key(int i, int k) {
+    const int node = s.sl(i);
+    s.key[node] = k;
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      if (tag[t] < 0) continue;
+      if (tag[t] == node) c->key[t] = k;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int r = lane + 32 * j;
+        if (r <= L && s.sl(c->nxt[t][r]) == node) c->kn[t][r] = k;
+      }
+    }
+    __syncwarp();
+  }
+  __device__ void set_top(int i, int v) {
+    s.top[s.sl(i)] = v;
+    const int t = lookup(s.sl(i));
+    if (t >= 0) c->top[t] = v;
+  }
+  __device__ void set_nz(int i, int v) {
+    s.nzero[s.sl(i)] = v;
+    const int t = lookup(s.sl(i));
+    if (t >= 0) c->nz[t] = v;
+  }
+  __device__ void set_sh(int i, T v) {
+    s.selfhits[s.sl(i)] = v;
+    const int t = lookup(s.sl(i));
+    if (t >= 0) c->sh[t] = v;
+  }
+  __device__ void set_del(int i, bool v) { s.deleted[s.sl(i)] = v; }
+
+  // rows [lo, hi) of i take nxt = nxt(hi, i) and hits = 0, a row a lane
+  __device__ void fill(int i, int lo, int hi) {
+    const int t = slot(i);
+    const int v = c->nxt[t][s.lv(hi)];
+    const int kv = c->kn[t][s.lv(hi)];
+    const int node = s.sl(i);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int r = lo + lane + 32 * j;
+      if (r < hi) {
+        const int64_t a = static_cast<int64_t>(r) * C + node;
+        s.nxt[a] = v;
+        s.hits[a] = T(0);
+        c->nxt[t][r] = v;
+        c->kn[t][r] = kv;
+        c->hits[t][r] = T(0);
+      }
+    }
+    __syncwarp();
+  }
+};
+
+// ---- the fold, written once over either walk -------------------------
+
+template <typename T, typename W>
+__device__ T whits(W& s, int i, int h) {
+  return h >= s.nz(i) ? s.hits(h, i) : T(0);
+}
+
+template <typename T, typename W>
+__device__ T get_hits(W& s, int i, int h) {
+  return s.sh(i) + whits<T>(s, i, h);
+}
+
+template <typename W>
+__device__ void fill_down(W& s, int i, int h) {
+  const int zl_i = s.nz(i);
+  const int lo = h > 0 ? h : 0;
+  if (lo < zl_i) s.fill(i, lo, zl_i);
+  s.set_nz(i, min(zl_i, h));
+}
+
+template <typename W>
+__device__ void find(W& s, int k, int& slot, int& steps) {
   int pred = HEAD, h = s.L - 1, n = 0;
   bool found = false;
-  const int zl = *s.zl;
+  const int zl = s.zl;
   while (h >= zl && !found) {
-    const int curr = eff_next(s, pred, h);
-    if (s.K(curr) <= k) {
+    int ck;
+    const int curr = s.next(pred, h, ck);
+    if (ck <= k) {
       pred = curr;
     } else {
-      found = s.K(pred) == k;
+      found = s.key(pred) == k;
       --h;
     }
     ++n;
   }
-  found = found || s.K(pred) == k;
+  found = found || s.key(pred) == k;
   slot = (found && pred != HEAD) ? pred : -1;
   steps = n;
 }
 
-template <typename T>
-__device__ bool promote_cascade(const State<T>& s, int curr, int pp,
-                                T curr_m) {
+template <typename T, typename W>
+__device__ bool promote_cascade(W& s, int curr, int pp, T curr_m) {
   const int L = s.L, ml1 = L - 1;
-  int curh = s.top[s.sl(curr)];
+  int curh = s.top(curr);
   bool promoted = false;
-  while (curh + 1 < L && curh < s.top[s.sl(pp)] &&
-         whits(s, pp, curh + 1) - whits(s, pp, curh) >
+  while (curh + 1 < L && curh < s.top(pp) &&
+         whits<T>(s, pp, curh + 1) - whits<T>(s, pp, curh) >
              shr(curr_m, ml1 - curh - 1)) {
     fill_down(s, pp, curh);
-    const T new_hits = s.HITS(curh + 1, pp) - s.HITS(curh, pp) -
-                       s.selfhits[s.sl(curr)];
-    const int pp_next = s.NXT(curh + 1, pp);
-    s.top[s.sl(curr)] = curh + 1;
-    s.HITS(curh + 1, curr) = new_hits;
-    s.NXT(curh + 1, curr) = pp_next;
-    s.HITS(curh + 1, pp) = s.HITS(curh, pp);
-    s.NXT(curh + 1, pp) = curr;
+    const T new_hits = s.hits(curh + 1, pp) - s.hits(curh, pp) - s.sh(curr);
+    const int pp_next = s.nxt(curh + 1, pp);
+    const int pp_next_key = s.nxt_key(curh + 1, pp);
+    s.set_top(curr, curh + 1);
+    s.set_hits(curh + 1, curr, new_hits);
+    s.set_nxt(curh + 1, curr, pp_next, pp_next_key);
+    s.set_hits(curh + 1, pp, s.hits(curh, pp));
+    s.set_nxt(curh + 1, pp, curr, s.key(curr));
     ++curh;
     promoted = true;
   }
   return promoted;
 }
 
-template <typename T>
-__device__ void demote(const State<T>& s, int curr, int pred, int h) {
-  if (h == *s.zl) *s.zl -= 1;
+template <typename T, typename W>
+__device__ void demote(W& s, int curr, int pred, int h) {
+  if (h == s.zl) s.zl -= 1;
   fill_down(s, curr, h - 1);
   fill_down(s, pred, h - 1);
-  const T gh_curr = s.selfhits[s.sl(curr)] + s.HITS(h, curr);
-  s.HITS(h, pred) += gh_curr;
-  s.HITS(h, curr) = T(0);
-  s.NXT(h, pred) = s.NXT(h, curr);
-  s.NXT(h, curr) = -1;
-  s.top[s.sl(curr)] = h - 1;
+  const T gh_curr = s.sh(curr) + s.hits(h, curr);
+  s.set_hits(h, pred, s.hits(h, pred) + gh_curr);
+  s.set_hits(h, curr, T(0));
+  s.set_nxt(h, pred, s.nxt(h, curr), s.nxt_key(h, curr));
+  s.set_nxt(h, curr, -1, s.key(-1));
+  s.set_top(curr, h - 1);
 }
 
-template <typename T>
-__device__ void update(const State<T>& s, int k, T w) {
+template <typename T, typename W>
+__device__ void update(W& s, int k, T w) {
   const int ml1 = s.L - 1;
-  *s.m += w;
-  const T curr_m = *s.m;
+  s.m += w;
+  const T curr_m = s.m;
   int h = ml1, pred = HEAD, pp = HEAD;
   bool found = false, done = false, scanned = false;
-  while (!done && h >= *s.zl) {
-    const int curr = eff_next(s, pred, h);
-    if (s.K(curr) > k) {
+  while (!done && h >= s.zl) {
+    int ck;
+    const int curr = s.next(pred, h, ck);
+    if (ck > k) {
       // end of scan at this level: on level entry pred is k's parent
       // here (count the hit); on scan exit it was counted in the scan
       if (!(found || scanned)) {
         fill_down(s, pred, h);
-        s.HITS(h, pred) += w;
+        s.set_hits(h, pred, s.hits(h, pred) + w);
       }
       --h;
       pp = pred;
@@ -175,12 +473,14 @@ __device__ void update(const State<T>& s, int k, T w) {
       scanned = false;
       continue;
     }
-    const bool is_parent = s.K(eff_next(s, curr, h)) > k;
-    const bool is_target = s.K(curr) == k;
-    if (is_parent && is_target) s.selfhits[s.sl(curr)] += w;
+    int pk;
+    s.next(curr, h, pk);
+    const bool is_parent = pk > k;
+    const bool is_target = ck == k;
+    if (is_parent && is_target) s.set_sh(curr, s.sh(curr) + w);
     if (is_parent && !is_target) {
       fill_down(s, curr, h);
-      s.HITS(h, curr) += w;
+      s.set_hits(h, curr, s.hits(h, curr) + w);
     }
     found = found || (is_parent && is_target);
     scanned = true;
@@ -188,12 +488,13 @@ __device__ void update(const State<T>& s, int k, T w) {
       pred = pp = curr;
       continue;
     }
-    const int nk = s.K(eff_next(s, curr, h));
-    const bool desc = s.top[s.sl(curr)] == h && nk <= k &&
-                      get_hits(s, curr, h) + get_hits(s, pred, h) <=
+    int nk;
+    s.next(curr, h, nk);
+    const bool desc = s.top(curr) == h && nk <= k &&
+                      get_hits<T>(s, curr, h) + get_hits<T>(s, pred, h) <=
                           shr(curr_m, ml1 - h);
     if (desc) {
-      demote(s, curr, pred, h);
+      demote<T>(s, curr, pred, h);
     } else {
       pred = curr;
     }
@@ -201,36 +502,152 @@ __device__ void update(const State<T>& s, int k, T w) {
 }
 
 // Returns false when the capacity is exhausted (nothing is written).
-template <typename T>
-__device__ bool link_bottom(const State<T>& s, int k) {
-  const int zl = *s.zl;
+template <typename W>
+__device__ bool link_bottom(W& s, int k) {
+  const int zl = s.zl;
   int pred = HEAD, h = s.L - 1;
   while (h >= zl) {
-    const int curr = eff_next(s, pred, h);
-    if (s.K(curr) <= k) {
+    int ck;
+    const int curr = s.next(pred, h, ck);
+    if (ck <= k) {
       pred = curr;
     } else {
       --h;
     }
   }
-  const int j = *s.n_alloc;
+  const int j = s.n_alloc;
   if (j >= s.C) return false;
   fill_down(s, pred, zl);
-  s.key[j] = k;
-  s.NXT(zl, j) = s.NXT(zl, pred);
-  s.NXT(zl, pred) = j;
-  s.top[j] = zl;
-  s.nzero[j] = zl;
-  s.selfhits[j] = T(0);
-  s.deleted[j] = false;
-  *s.n_alloc = j + 1;
+  s.set_key(j, k);
+  s.set_nxt(zl, j, s.nxt(zl, pred), s.nxt_key(zl, pred));
+  s.set_nxt(zl, pred, j, k);
+  s.set_top(j, zl);
+  s.set_nz(j, zl);
+  s.set_sh(j, 0);
+  s.set_del(j, false);
+  s.n_alloc = j + 1;
   return true;
 }
 
 template <typename T>
-__device__ bool rebuild_due(const State<T>& s) {
-  const T m = *s.m;
-  return m > 0 && 2 * *s.dhits >= m;
+__device__ bool rebuild_due(const Scalars<T>& s) {
+  return s.m > 0 && 2 * s.dhits >= s.m;
+}
+
+// One op of the run_ops list; returns kExhausted when an insert found
+// no free slot (nothing written), else kRunning.
+template <typename T, typename W>
+__device__ int op_step(W& s, int kind, int k, bool u, int& r, int& steps) {
+  int slot;
+  r = 0;
+  find(s, k, slot, steps);
+  const bool present = slot >= 0;
+  const bool marked = present && s.del(slot);
+  if (kind == OP_CONTAINS) {
+    r = present && !marked;
+    if (present && u) {
+      update(s, k, T(1));
+      if (marked) s.dhits += T(1);
+    }
+  } else if (kind == OP_INSERT) {
+    r = !present || marked;
+    if (marked) {
+      s.set_del(slot, false);
+      s.dhits -= s.sh(slot);
+      s.size += 1;
+      update(s, k, T(1));
+    } else if (present) {
+      if (u) update(s, k, T(1));
+    } else {
+      if (!link_bottom(s, k)) return kExhausted;
+      s.size += 1;
+      update(s, k, T(1));
+    }
+  } else {  // delete
+    r = present && !marked;
+    if (r) {
+      s.set_del(slot, true);
+      s.size -= 1;
+      update(s, k, T(1));
+      s.dhits += s.sh(slot);
+    } else if (marked && u) {
+      update(s, k, T(1));
+      s.dhits += T(1);
+    }
+  }
+  return kRunning;
+}
+
+// ---- staging ---------------------------------------------------------
+
+template <typename T>
+struct Stage {
+  union {
+    struct {  // mode 0: ops in, verdicts and path lengths out
+      int kind[2][kChunk];
+      int key[2][kChunk];
+      int res[2][kChunk];
+      int plen[2][kChunk];
+      bool upd[2][kChunk];
+    } ops;
+    struct {  // mode 1: the raw chunk, then its w > 0 entries in order
+      int key[kChunk];
+      T w[kChunk];
+      T wm[kChunk];
+      int qkey[2][kChunk];
+      T qw[2][kChunk];
+      T qwm[2][kChunk];
+    } fold;
+  };
+  int qn[2];
+  int stop[2];     // Stop of the walk of the chunk in that buffer
+  int stop_at[2];  // the op it stopped at
+};
+
+struct Ops {
+  int mode, start, n;
+  const int* kinds;
+  const int* keys;
+  const bool* upd;
+  int* res;
+  int* plen;
+};
+
+// Warps 1..3: entries [base, base + len) into buffer b.
+template <typename T>
+__device__ void stage(Stage<T>& sg, const Ops& o, const T* w, const T* wm,
+                      int base, int len, int b) {
+  const int tid = threadIdx.x - 32;
+  if (o.mode == 0) {
+    for (int j = tid; j < len; j += kStagers) {
+      sg.ops.kind[b][j] = o.kinds[base + j];
+      sg.ops.key[b][j] = o.keys[base + j];
+      sg.ops.upd[b][j] = o.upd[base + j];
+    }
+    return;
+  }
+  for (int j = tid; j < len; j += kStagers) {
+    sg.fold.key[j] = o.keys[base + j];
+    sg.fold.w[j] = w[base + j];
+    sg.fold.wm[j] = wm[base + j];
+  }
+  asm volatile("bar.sync 1, %0;" :: "n"(kStagers) : "memory");
+  if (threadIdx.x >= 64) return;  // warp 1 compacts
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+  for (int j0 = 0; j0 < len; j0 += 32) {
+    const int j = j0 + lane;
+    const bool keep = j < len && sg.fold.w[j] > 0;
+    const unsigned ball = __ballot_sync(0xffffffffu, keep);
+    if (keep) {
+      const int o2 = cnt + __popc(ball & ((1u << lane) - 1));
+      sg.fold.qkey[b][o2] = sg.fold.key[j];
+      sg.fold.qw[b][o2] = sg.fold.w[j];
+      sg.fold.qwm[b][o2] = sg.fold.wm[j];
+    }
+    cnt += __popc(ball);
+  }
+  if (lane == 0) sg.qn[b] = cnt;
 }
 
 // mode 0: the run_ops op list (kinds/keys/upd -> res/plen), stopping
@@ -238,71 +655,84 @@ __device__ bool rebuild_due(const State<T>& s) {
 // mode 1: the weighted fold list of run_contains_batch (keys/w/wm).
 // status[0] = index of the op where the kernel stopped (n: ran to the
 // end); status[1] = 1 when an insert found the capacity exhausted.
-template <typename T>
-__global__ void fold_kernel(State<T> s, int mode, int start, int n,
-                            const int* kinds, const int* keys,
-                            const bool* upd, const T* w, const T* wm,
-                            int* res, int* plen, int* status) {
-  status[0] = n;
-  status[1] = 0;
-  for (int i = start; i < n; ++i) {
-    const int k = keys[i];
-    if (mode == 1) {
-      const T wi = w[i];
-      if (wi > 0) {
-        update(s, k, wi);
-        *s.dhits += wm[i];
-      }
-      continue;
-    }
-    const int kind = kinds[i];
-    const bool u = upd[i];
-    int slot, steps, r = 0;
-    find(s, k, slot, steps);
-    const bool present = slot >= 0;
-    const bool marked = present && s.deleted[slot];
-    if (kind == OP_CONTAINS) {
-      r = present && !marked;
-      if (present && u) {
-        update(s, k, T(1));
-        if (marked) *s.dhits += T(1);
-      }
-    } else if (kind == OP_INSERT) {
-      r = !present || marked;
-      if (marked) {
-        s.deleted[slot] = false;
-        *s.dhits -= s.selfhits[slot];
-        *s.size += 1;
-        update(s, k, T(1));
-      } else if (present) {
-        if (u) update(s, k, T(1));
-      } else {
-        if (!link_bottom(s, k)) {
-          status[0] = i;
-          status[1] = 1;
-          return;
+template <typename T, bool kWarpWalk>
+__global__ void __launch_bounds__(kThreads)
+    fold_kernel(State<T> st, Ops o, const T* w, const T* wm, int* status) {
+  using Walk = typename std::conditional<kWarpWalk, WarpWalk<T>,
+                                         ThreadWalk<T>>::type;
+  __shared__ Stage<T> sg;
+  __shared__ Cache<T> cache;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool walker = warp == 0 && (kWarpWalk || lane == 0);
+  const int total = max(o.n - o.start, 0);
+  const int n_chunks = (total + kChunk - 1) / kChunk;
+
+  Walk s;
+  if (walker) {
+    s.init(st, &cache);
+    s.load(st);
+  }
+  if (threadIdx.x < 2) sg.stop[threadIdx.x] = kRunning;
+  if (warp > 0 && n_chunks > 0)
+    stage(sg, o, w, wm, o.start, min(kChunk, total), 0);
+  __syncthreads();
+
+  int stop = kRunning, stop_at = o.n;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int b = c & 1;
+    const int base = o.start + c * kChunk;
+    const int len = min(kChunk, o.n - base);
+    if (walker) {
+      if (o.mode == 1) {
+        const int nq = sg.qn[b];
+        for (int j = 0; j < nq; ++j) {
+          update(s, sg.fold.qkey[b][j], sg.fold.qw[b][j]);
+          s.dhits += sg.fold.qwm[b][j];
         }
-        *s.size += 1;
-        update(s, k, T(1));
+      } else {
+        for (int j = 0; j < len; ++j) {
+          const int kind = sg.ops.kind[b][j];
+          int r, steps;
+          if (op_step<T>(s, kind, sg.ops.key[b][j], sg.ops.upd[b][j], r,
+                         steps) == kExhausted) {
+            stop = kExhausted;
+            stop_at = base + j;
+            break;
+          }
+          sg.ops.res[b][j] = r;
+          sg.ops.plen[b][j] = steps;
+          if (kind != OP_INSERT && rebuild_due<T>(s)) {
+            stop = kRebuild;
+            stop_at = base + j;
+            break;
+          }
+        }
       }
-    } else {  // delete
-      r = present && !marked;
-      if (r) {
-        s.deleted[slot] = true;
-        *s.size -= 1;
-        update(s, k, T(1));
-        *s.dhits += s.selfhits[slot];
-      } else if (marked && u) {
-        update(s, k, T(1));
-        *s.dhits += T(1);
+      if (lane == 0) {
+        sg.stop[b] = stop;
+        sg.stop_at[b] = stop_at;
+      }
+    } else if (warp > 0 && c + 1 < n_chunks) {
+      stage(sg, o, w, wm, base + kChunk, min(kChunk, o.n - base - kChunk),
+            b ^ 1);
+    }
+    __syncthreads();
+    const int stopped = sg.stop[b];
+    if (o.mode == 0 && warp > 0) {
+      const int at = sg.stop_at[b];
+      const int end = stopped == kRunning ? base + len
+                      : stopped == kRebuild ? at + 1 : at;
+      for (int j = threadIdx.x - 32; base + j < end; j += kStagers) {
+        o.res[base + j] = sg.ops.res[b][j];
+        o.plen[base + j] = sg.ops.plen[b][j];
       }
     }
-    res[i] = r;
-    plen[i] = steps;
-    if (kind != OP_INSERT && rebuild_due(s)) {
-      status[0] = i;
-      return;
-    }
+    if (stopped != kRunning) break;
+  }
+  if (warp == 0 && lane == 0) {
+    s.store(st);
+    status[0] = stop_at;
+    status[1] = stop == kExhausted;
   }
 }
 
@@ -311,12 +741,25 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
            bool* deleted, T* m, T* dhits, int* zl, int* n_alloc, int* size,
            int C, int L, int mode, int start, int n, const int* kinds,
            const int* keys, const bool* upd, const T* w, const T* wm,
-           int* res, int* plen, int* status, void* stream) {
+           int* res, int* plen, int* status, int warp_walk, void* stream) {
+  if (L + 1 > kRows) return static_cast<int>(cudaErrorInvalidValue);
   State<T> s{key, nxt, hits, selfhits, top, nzero, deleted, m, dhits,
              zl, n_alloc, size, C, L};
-  fold_kernel<T><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, mode, start, n, kinds, keys, upd, w, wm, res, plen, status);
+  Ops o{mode, start, n, kinds, keys, upd, res, plen};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warp_walk) {
+    fold_kernel<T, true><<<1, kThreads, 0, st>>>(s, o, w, wm, status);
+  } else {
+    fold_kernel<T, false><<<1, kThreads, 0, st>>>(s, o, w, wm, status);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void chase_kernel(const int* next, int start, int steps,
+                             int* out) {
+  int i = start;
+  for (int s = 0; s < steps; ++s) i = next[i];
+  *out = i;
 }
 
 }  // namespace
@@ -327,14 +770,23 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
                       int* n_alloc, int* size, int C, int L, int mode,     \
                       int start, int n, const int* kinds, const int* keys, \
                       const bool* upd, const T* w, const T* wm, int* res,  \
-                      int* plen, int* status, void* stream) {              \
+                      int* plen, int* status, int warp_walk,               \
+                      void* stream) {                                      \
     return launch<T>(key, nxt, hits, selfhits, top, nzero, deleted, m,     \
                      dhits, zl, n_alloc, size, C, L, mode, start, n,       \
-                     kinds, keys, upd, w, wm, res, plen, status, stream);  \
+                     kinds, keys, upd, w, wm, res, plen, status,           \
+                     warp_walk, stream);                                   \
   }
 
 FOLD_ENTRY(splay_fold_i32, int32_t)
 FOLD_ENTRY(splay_fold_i64, int64_t)
+
+extern "C" int pointer_chase(const int* next, int start, int steps,
+                             int* out, void* stream) {
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      next, start, steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

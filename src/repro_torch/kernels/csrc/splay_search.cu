@@ -31,24 +31,44 @@
 // B5 splay_search_full replaces the Pallas _kernel_full
 // (src/repro/kernels/splay_search.py:1284), the seed baseline.  The TPU
 // kernel holds the whole [L, W] matrix as one VMEM block and compares a
-// query block against each row at once.  Here one block of QB threads
-// per query block walks the rows top-down and stages each row through
-// shared memory in 8 KB chunks; every thread counts row <= q over the
-// chunk for its own query (all threads read the same word: a broadcast).
-// cnt - 1 on the bottom row is the rank; a hit is row[cnt - 1] == q.  A
-// block whose lanes are all found skips its remaining rows except the
-// bottom one (a block-wide vote, as the reference's per-block rule).
-// Bound: operations, L * W compares per query; only q / QB blocks run,
-// so at q = 2048 eight SMs do all of it.  Splitting the width across
-// blocks would need a cross-block count and is redesign work.
+// query block against each row at once.  Bound: operations, a compare
+// and an add for every element of every row the reference runs, per
+// query.  Here the width is spread over a thread-block cluster so that
+// the whole card counts: each tile of kFullTile queries runs on a
+// cluster of S CTAs (S <= 8, the portable size), and CTA s owns columns
+// [s * slice, (s + 1) * slice) of every row (the last slice ragged).  A
+// CTA stages its slice in dynamic shared memory, by TMA bulk copies (one
+// per row, all completing on one mbarrier) when rows are 16-byte
+// aligned, else by plain loads; a slice of more rows than fit goes in
+// panels of rows (or of columns), one after the other.  Each thread
+// holds kFullR queries in registers, so one 16-byte shared load feeds
+// 4 x kFullR compares; 16 threads share a query group and split the
+// columns, and their partial counts meet in shared memory [L, tile].
+// The cluster then reduces the partial counts into the leader CTA
+// through distributed shared memory (a cluster.sync to publish them and
+// one to keep them alive while the leader reads), and the leader
+// resolves each query top-down: hit = cnt > 0 && row[cnt - 1] == q
+// (row read from the L2-resident plane), level_found = the first row
+// with a hit, rank = the bottom row's cnt - 1.  The wrapper picks S,
+// the slice and the panel (splay_search.py full_plan).
+//
+// The skip rule is dropped: the reference skips a row when every lane
+// of its query block is found, which changes the work but never the
+// outputs (once a lane is found later hits change nothing, and the
+// bottom row always runs), so this kernel counts every row of every
+// tile.  The bound in chip_smoke.py keeps counting the compares that
+// the reference's rule runs.
 //
 // B1 and B2 keep the reference's arithmetic: (lo + hi) / 2 probes
 // (lo + hi >= 0 whenever a lane is active, so truncation equals floor),
 // clamped reads, and an explicit floor division in the cover, where the
 // reference floors a negative quotient and C would truncate it.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -214,47 +234,156 @@ __global__ void pipelined_kernel(const int* __restrict__ keys,
   if (threadIdx.x == 0) bytes_out[blockIdx.x] = fetched * 4;
 }
 
-constexpr int kFullChunk = 2048;  // ints of a row staged per pass (8 KB)
+constexpr int kFullTile = 128;     // queries of a cluster tile
+constexpr int kFullR = 8;          // queries a thread holds
+constexpr int kFullThreads = 256;
+constexpr int kFullGroups = kFullTile / kFullR;        // 16
+constexpr int kFullParts = kFullThreads / kFullGroups; // 16 column parts
 
-__global__ void full_kernel(const int* __restrict__ keys,
-                            const int* __restrict__ queries, int L, int W,
-                            bool* __restrict__ found_out,
-                            int* __restrict__ rank_out,
-                            int* __restrict__ level_out) {
-  __shared__ __align__(16) int s_row[kFullChunk];
-  const int gidx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int q = queries[gidx];
-  bool found = false;
-  int level = L, rank = 0;
-  for (int r = 0; r < L; ++r) {
-    // block-uniform: every thread votes, so the skip never diverges
-    if (__syncthreads_and(found) && r != L - 1) continue;
-    const int* row = keys + static_cast<int64_t>(r) * W;
-    int cnt = 0;
-    for (int base = 0; base < W; base += kFullChunk) {
-      const int n = min(kFullChunk, W - base);
-      __syncthreads();  // the previous chunk's reads are done
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        s_row[j] = __ldg(row + base + j);
-      }
-      __syncthreads();
-      const int4* s4 = reinterpret_cast<const int4*>(s_row);
-      int j = 0;
-#pragma unroll 8
-      for (; j < n / 4; ++j) {
-        const int4 v = s4[j];
-        cnt += (v.x <= q) + (v.y <= q) + (v.z <= q) + (v.w <= q);
-      }
-      for (j *= 4; j < n; ++j) cnt += s_row[j] <= q;
-    }
-    const bool hit = cnt > 0 && __ldg(row + cnt - 1) == q;
-    if (hit && !found) level = r;
-    found = found || hit;
-    if (r == L - 1) rank = cnt - 1;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Dynamic shared memory: mbarrier (16 B), queries [tile], counts
+// [L, tile], hit flags [L, tile] (rounded to 16 B), panel [prows, pcols].
+__global__ void __launch_bounds__(kFullThreads)
+    full_kernel(const int* __restrict__ keys,
+                const int* __restrict__ queries, int L, int W, int nq,
+                int slice, int pcols, int prows, int bulk,
+                bool* __restrict__ found_out, int* __restrict__ rank_out,
+                int* __restrict__ level_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int me = static_cast<int>(cluster.block_rank());
+  const int q0 = (blockIdx.x / S) * kFullTile;
+  const uint32_t bar = smem_addr(smem);
+  int* s_q = reinterpret_cast<int*>(smem + 16);
+  int* s_cnt = s_q + kFullTile;
+  unsigned char* s_hit =
+      reinterpret_cast<unsigned char*>(s_cnt + L * kFullTile);
+  int* panel = reinterpret_cast<int*>(
+      smem + 16 + 4 * kFullTile * (L + 1) + ((L * kFullTile + 15) & ~15));
+
+  const int t = threadIdx.x;
+  if (t < kFullTile) s_q[t] = q0 + t < nq ? queries[q0 + t] : 0;
+  for (int i = t; i < L * kFullTile; i += kFullThreads) s_cnt[i] = 0;
+  if (t == 0 && bulk) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  found_out[gidx] = found;
-  rank_out[gidx] = rank;
-  level_out[gidx] = level;
+  __syncthreads();
+
+  const int g = t % kFullGroups, part = t / kFullGroups;
+  int q[kFullR];
+#pragma unroll
+  for (int k = 0; k < kFullR; ++k) q[k] = s_q[g * kFullR + k];
+
+  const int c0 = me * slice, c1 = min(W, c0 + slice);
+  uint32_t phase = 0;
+  for (int cc = c0; cc < c1; cc += pcols) {
+    const int ncol = min(pcols, c1 - cc);
+    for (int r0 = 0; r0 < L; r0 += prows) {
+      const int nr = min(prows, L - r0);
+      if (bulk) {
+        if (t == 0) {
+          const uint32_t bytes = 4u * nr * ncol;
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+              :: "r"(bar), "r"(bytes) : "memory");
+          for (int i = 0; i < nr; ++i)
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                "::bytes [%0], [%1], %2, [%3];"
+                :: "r"(smem_addr(panel + i * pcols)),
+                   "l"(keys + static_cast<int64_t>(r0 + i) * W + cc),
+                   "r"(4u * ncol), "r"(bar) : "memory");
+        }
+        bar_wait(bar, phase);
+        phase ^= 1;
+      } else {
+        for (int e = t; e < nr * ncol; e += kFullThreads) {
+          const int i = e / ncol, j = e - i * ncol;
+          panel[i * pcols + j] =
+              __ldg(keys + static_cast<int64_t>(r0 + i) * W + cc + j);
+        }
+        __syncthreads();
+      }
+      const int n4 = ncol / 4, tail = ncol - 4 * n4;
+      for (int i = 0; i < nr; ++i) {
+        const int* row = panel + i * pcols;
+        const int4* row4 = reinterpret_cast<const int4*>(row);
+        int cnt[kFullR];
+#pragma unroll
+        for (int k = 0; k < kFullR; ++k) cnt[k] = 0;
+#pragma unroll 4
+        for (int j = part; j < n4; j += kFullParts) {
+          const int4 v = row4[j];
+#pragma unroll
+          for (int k = 0; k < kFullR; ++k)
+            cnt[k] += (v.x <= q[k]) + (v.y <= q[k]) + (v.z <= q[k]) +
+                      (v.w <= q[k]);
+        }
+        if (part == 0)
+          for (int j = 4 * n4; j < 4 * n4 + tail; ++j)
+#pragma unroll
+            for (int k = 0; k < kFullR; ++k) cnt[k] += row[j] <= q[k];
+        // lanes l and l ^ 16 of a warp hold the same query group
+#pragma unroll
+        for (int k = 0; k < kFullR; ++k)
+          cnt[k] += __shfl_xor_sync(0xffffffffu, cnt[k], 16);
+        if ((t & 16) == 0) {
+#pragma unroll
+          for (int k = 0; k < kFullR; ++k)
+            atomicAdd(&s_cnt[(r0 + i) * kFullTile + g * kFullR + k], cnt[k]);
+        }
+      }
+      __syncthreads();  // the panel is read out before it is refilled
+    }
+  }
+
+  cluster.sync();  // every CTA's partial counts are in its shared memory
+  if (me == 0) {
+    for (int i = t; i < L * kFullTile; i += kFullThreads) {
+      int c = s_cnt[i];
+      for (int s = 1; s < S; ++s) c += cluster.map_shared_rank(s_cnt, s)[i];
+      s_cnt[i] = c;
+    }
+  }
+  cluster.sync();  // the leader has read them; the others may exit
+  if (me != 0) return;
+
+  for (int i = t; i < L * kFullTile; i += kFullThreads) {
+    const int r = i / kFullTile, c = s_cnt[i];
+    s_hit[i] = c > 0 &&
+               __ldg(keys + static_cast<int64_t>(r) * W + c - 1) ==
+                   s_q[i - r * kFullTile];
+  }
+  __syncthreads();
+  if (t < kFullTile && q0 + t < nq) {
+    bool found = false;
+    int level = L;
+    for (int r = 0; r < L; ++r) {
+      const bool hit = s_hit[r * kFullTile + t];
+      if (hit && !found) level = r;
+      found = found || hit;
+    }
+    found_out[q0 + t] = found;
+    rank_out[q0 + t] = s_cnt[(L - 1) * kFullTile + t] - 1;
+    level_out[q0 + t] = level;
+  }
 }
 
 }  // namespace
@@ -285,13 +414,33 @@ extern "C" int splay_search_pipelined(const int* keys, const int* rank_map,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One cluster of `cluster` CTAs per tile of kFullTile queries.  Returns
+// the first CUDA error: a refused shared-memory attribute or cluster
+// launch is reported, never replaced by another kernel.
 extern "C" int splay_search_full(const int* keys, const int* queries, int L,
-                                 int W, int n_blocks, int query_block,
-                                 bool* found, int* rank, int* level,
-                                 void* stream) {
-  full_kernel<<<n_blocks, query_block, 0,
-                static_cast<cudaStream_t>(stream)>>>(keys, queries, L, W,
-                                                     found, rank, level);
+                                 int W, int nq, int cluster, int slice,
+                                 int pcols, int prows, int bulk,
+                                 int smem_bytes, bool* found, int* rank,
+                                 int* level, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (nq + kFullTile - 1) / kFullTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster);
+  cfg.blockDim = dim3(kFullThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, full_kernel, keys, queries, L, W, nq,
+                           slice, pcols, prows, bulk, found, rank, level);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,10 @@ the row above bounds (rows are nested).  Two descents compute the same
 
 A third, the seed baseline (B5), counts ``row <= q`` across every row's
 full width instead of descending — :func:`splay_search_full_plain`.
+Its kernel spreads the width over a thread-block cluster
+(:func:`full_plan`) and counts every row; the plain version keeps the
+reference's per-block row skip, which changes the work, not the
+answers.
 
 The internal entry points pick by the tensors' device: CUDA tensors
 launch the kernel, CPU tensors run the plain version.  ``splay_search``
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -425,24 +430,68 @@ def splay_search_full_plain(level_keys, queries, query_block: int):
     return found, rank, level
 
 
-def _full_kernel(level_keys, queries, query_block: int):
-    if query_block > 1024:
-        raise ValueError(f"query_block {query_block} exceeds the 1024 "
-                         "threads of a CUDA block")
+# B5's launch plan: a cluster of at most _FULL_CLUSTER CTAs per tile of
+# _FULL_TILE queries, each CTA staging a column slice of every row in
+# the shared memory a block may hold (csrc/splay_search.cu full_kernel)
+_FULL_TILE = 128
+_FULL_CLUSTER = 8                  # the portable cluster size
+_SMEM_BLOCK = 232448               # 227 KB of shared memory a block
+
+
+class FullPlan(NamedTuple):
+    cluster: int      # CTAs per query tile
+    slice: int        # columns a CTA owns (the last one ragged)
+    pcols: int        # panel columns staged at a time (multiple of 4)
+    prows: int        # panel rows staged at a time
+    bulk: bool        # TMA bulk copies (16-byte rows), else plain loads
+    smem: int         # dynamic shared memory bytes a CTA asks for
+
+
+def _full_fixed_smem(n_levels: int) -> int:
+    """mbarrier + queries + counts [L, tile] + hit flags [L, tile]."""
+    return 16 + 4 * _FULL_TILE * (n_levels + 1) + n_levels * _FULL_TILE
+
+
+def full_plan(width: int, n_levels: int, aligned: bool = True) -> FullPlan:
+    """B5's cluster size, column slices and staging panel for an
+    ``[n_levels, width]`` plane.  Every CTA owns at least 4 columns (a
+    16-byte word), so narrow planes take smaller clusters; a slice that
+    does not fit the block's shared memory is staged in panels of rows
+    (or, wider still, of columns).  ``aligned``: the plane's base is a
+    16-byte multiple, which with ``width % 4 == 0`` lets the rows go by
+    TMA bulk copies."""
+    if width < 1 or n_levels < 1:
+        raise ValueError(f"plane [{n_levels}, {width}] is empty")
+    budget = _SMEM_BLOCK - _full_fixed_smem(n_levels)
+    if budget < 16:
+        raise ValueError(f"{n_levels} rows leave no shared memory for "
+                         "B5's panel")
+    slice_ = 4 * -(-(-(-width // _FULL_CLUSTER)) // 4)
+    cluster = -(-width // slice_)
+    pcols = min(slice_, budget // 16 * 4)
+    prows = max(1, min(n_levels, budget // (4 * pcols)))
+    return FullPlan(cluster, slice_, pcols, prows,
+                    bool(aligned and width % 4 == 0),
+                    _full_fixed_smem(n_levels) + 4 * prows * pcols)
+
+
+def _full_kernel(level_keys, queries):
     lib = build.load("splay_search")
     fn = lib.splay_search_full
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     n_levels, width = level_keys.shape
     nq_p = queries.shape[0]
     dev = level_keys.device
+    plan = full_plan(width, n_levels, level_keys.data_ptr() % 16 == 0)
     found = torch.empty((nq_p,), dtype=torch.bool, device=dev)
     rank = torch.empty((nq_p,), dtype=torch.int32, device=dev)
     level = torch.empty((nq_p,), dtype=torch.int32, device=dev)
     p = build.ptr
-    code = fn(p(level_keys), p(queries), n_levels, width,
-              nq_p // query_block, query_block, p(found), p(rank), p(level),
+    code = fn(p(level_keys), p(queries), n_levels, width, nq_p,
+              plan.cluster, plan.slice, plan.pcols, plan.prows,
+              int(plan.bulk), plan.smem, p(found), p(rank), p(level),
               build.stream_of(level_keys))
     build.check(lib, code, "splay_search_full launch")
     LAUNCHES["splay_search_full"] += 1
@@ -463,7 +512,7 @@ def _splay_search_full_arrays(level_keys, queries, query_block: int =
     if dev.type == "cpu":
         f, r, lv = splay_search_full_plain(level_keys, qp, query_block)
     else:
-        f, r, lv = _full_kernel(level_keys, qp, query_block)
+        f, r, lv = _full_kernel(level_keys, qp)
     return f[:nq], r[:nq], lv[:nq]
 
 

@@ -267,3 +267,151 @@ def test_vocab_cache_on_card_matches_cpu():
     ids = torch.as_tensor(twl.zipf_token_ids(rng, 700, (8, 256)),
                           device="cuda")
     assert torch.equal(caches[0].lookup(table, ids), table[ids.long()])
+
+
+# ---------------------------------------------------------------------------
+# kernel F redesigned: staged, compacted lists and the two walks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(params=fold.WALKS)
+def walk(request, monkeypatch):
+    monkeypatch.setattr(fold, "WALK", request.param)
+    return request.param
+
+
+def _prefilled(count_dtype, n_keys=600, cap=1024, ml=16, seed=0):
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(4 * n_keys)[:n_keys].astype(np.int32)
+    st = tsx.make(cap, ml, count_dtype=count_dtype, device="cuda")
+    st, _, _ = tsx.run_ops(st, np.ones(n_keys, np.int32), pool,
+                           np.ones(n_keys, bool))
+    return st, pool, rng
+
+
+@pytest.mark.parametrize("count_dtype", [torch.int32, torch.int64])
+def test_fold_sparse_weighted_lists(count_dtype, walk):
+    """Weighted lists over several staging chunks, 95% zero weights: one
+    launch, equal to the plain fold and to the fold of the w > 0 subset."""
+    st, pool, rng = _prefilled(count_dtype)
+    n = 3000
+    keys = torch.as_tensor(rng.choice(pool, n), device="cuda")
+    w = torch.as_tensor(np.where(rng.random(n) < 0.05,
+                                 rng.integers(1, 4, n), 0),
+                        device="cuda").to(count_dtype)
+    wm = (torch.as_tensor(rng.integers(0, 2, n), device="cuda")
+          * (w > 0)).to(count_dtype)
+    full, sub, cpu = tsx.clone(st), tsx.clone(st), _cpu(st)
+    before = fold.LAUNCHES["splay_fold"]
+    fold.fold_weighted(full, keys, w, wm)
+    assert fold.LAUNCHES["splay_fold"] == before + 1
+    keep = w > 0
+    fold.fold_weighted(sub, keys[keep], w[keep], wm[keep])
+    fold.fold_weighted(cpu, keys.cpu(), w.cpu(), wm.cpu())
+    _equal(full, sub)
+    _equal(full, cpu)
+
+
+def test_fold_rebuild_stop_inside_a_chunk(walk):
+    """600 pure reads, then a delete-heavy tail: the first rebuild stop
+    falls inside the second staging chunk.  The stop op is reported,
+    nothing past it is written, and the whole run_ops (which rebuilds
+    and relaunches) equals its CPU run."""
+    st, pool, rng = _prefilled(torch.int32, n_keys=400, seed=3)
+    n, reads = 1500, 600
+    kinds = np.concatenate([np.zeros(reads, np.int32), rng.choice(
+        3, n - reads, p=[0.2, 0.1, 0.7]).astype(np.int32)])
+    keys = rng.choice(pool, n).astype(np.int32)
+    upd = np.arange(n) >= reads
+    g = tsx.clone(st)
+    res = torch.full((n,), -7, dtype=torch.int32, device="cuda")
+    plen = torch.full((n,), -7, dtype=torch.int32, device="cuda")
+    args = [torch.as_tensor(x, device="cuda") for x in (kinds, keys, upd)]
+    stop = fold.fold_ops(g, *args, res, plen)
+    c = _cpu(st)
+    res_c = torch.full((n,), -7, dtype=torch.int32)
+    plen_c = torch.full((n,), -7, dtype=torch.int32)
+    want = fold.fold_ops(c, *(a.cpu() for a in args), res_c, plen_c)
+    assert stop == want and 512 < stop < 1023
+    _equal((g, res, plen), (c, res_c, plen_c))
+    assert bool((res[stop + 1:] == -7).all())
+    _equal(tsx.run_ops(st, kinds, keys, upd),
+           tsx.run_ops(_cpu(st), kinds, keys, upd))
+
+
+def test_fold_capacity_exhausted(walk):
+    """An insert past the capacity stops the launch before it writes:
+    the error names the op, earlier ops are written, later ones not."""
+    st = tsx.make(40, 8, device="cuda")
+    n = 700
+    keys = np.arange(n, dtype=np.int32)[::-1].copy()
+    kinds = np.ones(n, np.int32)
+    args = [torch.as_tensor(x, device="cuda")
+            for x in (kinds, keys, np.ones(n, bool))]
+    res = torch.full((n,), -7, dtype=torch.int32, device="cuda")
+    plen = torch.full((n,), -7, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="exhausted at op 38"):
+        fold.fold_ops(tsx.clone(st), *args, res, plen)
+    assert bool((res[:38] == 1).all()) and bool((res[38:] == -7).all())
+    assert bool((plen[38:] == -7).all())
+    with pytest.raises(RuntimeError, match="exhausted"):
+        tsx.run_ops(_cpu(st), kinds, keys, np.ones(n, bool))
+
+
+@pytest.mark.parametrize("count_dtype,max_level", [(torch.int32, 32),
+                                                   (torch.int64, 64)])
+def test_fold_widest_levels(count_dtype, max_level, walk):
+    """The widest columns (33 and 65 rows: two and three rows a lane)."""
+    rng = np.random.default_rng(max_level)
+    pool = rng.permutation(3000)[:900].astype(np.int32)
+    n = 2500
+    kinds = np.concatenate([np.ones(900, np.int32),
+                            rng.choice(3, n - 900, p=[0.6, 0.2, 0.2])])
+    keys = np.concatenate([pool, rng.choice(pool, n - 900)]).astype(np.int32)
+    upd = rng.random(n) < 0.7
+    st = tsx.make(1200, max_level, count_dtype=count_dtype, device="cuda")
+    g = tsx.run_ops(st, kinds, keys, upd)
+    _equal(g, tsx.run_ops(_cpu(st), kinds, keys, upd))
+    qs = rng.choice(pool, 2048).astype(np.int32)
+    up = rng.random(2048) < 0.3
+    _equal(tsx.run_contains_batch(g[0], qs, up, True),
+           tsx.run_contains_batch(_cpu(g[0]), qs, up, True))
+
+
+# ---------------------------------------------------------------------------
+# kernel B5 redesigned: the width over a thread-block cluster
+# ---------------------------------------------------------------------------
+
+def _hot_batch(plane, nq, seed):
+    """Queries drawn from the top live rows: whole blocks found early."""
+    rng = np.random.default_rng(seed)
+    keys = plane.keys.cpu().numpy()
+    top = next(r for r in range(keys.shape[0])
+               if (keys[r] != tssk.PAD_KEY).sum() >= 8)
+    live = keys[top][keys[top] != tssk.PAD_KEY]
+    return torch.as_tensor(rng.choice(live, nq).astype(np.int32),
+                           device="cuda")
+
+
+@pytest.mark.parametrize("width,levels,nq,qb,batch", [
+    (1031, 8, 333, 64, "zipf"),      # W not a multiple of S; q % tile
+    (20, 4, 100, 32, "zipf"),        # W < 4 * S
+    (4096, 1, 257, 256, "zipf"),     # L = 1
+    (16384, 24, 2048, 256, "hot"),   # an all-found hot batch
+    (16384, 24, 2048, 256, "zipf"),  # the main path's shape
+    (131072, 24, 512, 256, "zipf"),  # a slice staged in row panels
+    (4092, 6, 300, 128, "zipf")])    # 16-byte rows, W % 8 != 0
+def test_full_cluster_kernel_matches_plain(width, levels, nq, qb, batch):
+    plane, qs = _plane(width, levels, nq, seed=width + levels)
+    if batch == "hot":
+        qs = _hot_batch(plane, nq, width)
+    qs = torch.cat([qs, torch.as_tensor([tssk.PAD_KEY, tssk.NEG_INF_KEY],
+                                        device="cuda", dtype=torch.int32)])
+    before = tssk.LAUNCHES["splay_search_full"]
+    got = tssk._splay_search_full_arrays(plane.keys, qs, qb)
+    assert tssk.LAUNCHES["splay_search_full"] == before + 1
+    want = tssk.splay_search_full_plain(plane.keys,
+                                        tssk._pad_queries(qs, qb), qb)
+    _equal(got, [t[:qs.shape[0]] for t in want])
+    assert bool(got[0][-2])                    # PAD_KEY: found
+    if batch == "hot":
+        assert bool(got[0][:nq].all())
