@@ -89,7 +89,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s
-FP32_OPS = 67e12          # H100 SXM non-tensor fp32 rate (PR 11-13 bound)
+FP32_OPS = 67e12          # H100 SXM non-tensor fp32 rate (the old bound)
 INT32_PER_SM_CLK = 64     # int32 adds/compares per SM per clock (cc 9.0)
 
 
@@ -504,7 +504,7 @@ def main() -> None:
     e1.record()
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
-    prefill_ms = {fold.WALK: [e0.elapsed_time(e1)]}
+    prefill_ms = e0.elapsed_time(e1)
     pre_steps = int(pre_plen.sum())
     check(bool((res == 1).all()) and int(st.size) == N, "prefill lost keys")
     t = time.perf_counter()
@@ -513,8 +513,8 @@ def main() -> None:
     build_s = time.perf_counter() - t
     print(f"[3] prefill {N} inserts {prefill_s:.3f} s "
           f"({N / prefill_s:.0f} ops/s; run_ops by events "
-          f"{prefill_ms[fold.WALK][0]:.3f} ms: a state clone and one F "
-          f"launch, {fold.WALK} walk); from_state_device {build_s:.4f} s;"
+          f"{prefill_ms:.3f} ms: a state clone and one F launch); "
+          f"from_state_device {build_s:.4f} s;"
           f" zl={int(st.zl)} max rel height "
           f"{int((st.top[2:N + 2] - st.zl).max())}", flush=True)
 
@@ -828,7 +828,7 @@ def main() -> None:
     entry("splay_search_full", "full_search", "src/repro_torch/kernels/"
           "csrc/splay_search.cu", "src/repro/kernels/splay_search.py:1284",
           ms, plain, b5_bytes, 2 * compares, compares=compares,
-          pr13_bound_ms=old_bound, cluster=plan5.cluster,
+          fp32_bound_ms=old_bound, cluster=plan5.cluster,
           slice=plan5.slice, smem=plan5.smem)
     b5 = kernels[-1]
     print(f"[6] B5 W={w5} L={n_lv} q={B5}: {ms:.4f} ms, plain {plain:.4f} "
@@ -836,8 +836,8 @@ def main() -> None:
           f"({int(rows_run.sum())} of {n_lv * B5 // 256} block-rows); bound "
           f"{b5['bound_ms']:.4f} ms (a compare and an add each at the "
           f"int32 rate, {b5['bound_by']}; {b5['bound_ms'] / ms:.3f} of it "
-          f"reached), PR 13's bound {old_bound:.4f} ms (one op each at "
-          f"{FP32_OPS:.0e}); cluster {plan5.cluster} x {plan5.slice} "
+          f"reached), the fp32-rate bound {old_bound:.4f} ms (one op each "
+          f"at {FP32_OPS:.0e}/s); cluster {plan5.cluster} x {plan5.slice} "
           f"columns, {plan5.smem} B shared memory a CTA", flush=True)
 
     # B4, B3 and the fused gather on the vocab tier's lookups; bytes: the
@@ -982,12 +982,10 @@ def main() -> None:
           f"{copy_ms:.4f} ms", flush=True)
     del block
 
-    # F on its three paths, each walk in turn (thread, warp, warp,
-    # thread): one serving epoch's aggregated fold list on the
-    # paper-scale state and its w > 0 subset, one vocab-tier stream
-    # epoch's op list on the tier's state (V + 2 slots, 33 levels), and
-    # the 10^5-insert prefill (one launch; phase 3 ran it with the
-    # default walk)
+    # F on its three paths, twice: one serving epoch's aggregated fold
+    # list on the paper-scale state and its w > 0 subset, and one
+    # vocab-tier stream epoch's op list on the tier's state (V + 2
+    # slots, 33 levels); the prefill (one launch) was timed in phase 3
     entries = sx.fold_entries(st3, keys[0], upd[0], aggregate=True)[0]
     vst = cache._stream_st
     vrng = np.random.default_rng(11)
@@ -998,28 +996,13 @@ def main() -> None:
                             .astype(np.int32), device=dev),
             torch.as_tensor(vtok, device=dev),
             torch.as_tensor(vlive & (vrng.random(B6) < 0.01), device=dev))
-    default_walk = fold.WALK
     f_ms = {}
     f_states = []
-    for walk in fold.WALKS + fold.WALKS[::-1]:
-        fold.WALK = walk
+    for _ in range(2):
         out_f, f_steps = fold_paths(torch, sx, fold, st3, entries, vst, vops)
         for name, (ms_, st_) in out_f.items():
-            f_ms.setdefault(walk, {}).setdefault(name, []).append(ms_)
+            f_ms.setdefault(name, []).append(ms_)
             f_states.append((name, st_))
-    for walk in fold.WALKS:
-        if walk == default_walk:
-            continue
-        fold.WALK = walk
-        e0.record()
-        st_p = sx.run_ops(sx.make(capacity=131074, max_level=24,
-                                  device=dev), *pre_args)[0]
-        e1.record()
-        torch.cuda.synchronize()
-        prefill_ms.setdefault(walk, []).append(e0.elapsed_time(e1))
-        check(state_err(st_p, st) == 0, f"the {walk} walk's prefill differs")
-        del st_p
-    fold.WALK = default_walk
     changed = sum(int((a != b).sum()) * a.element_size()
                   for a, b in zip(st3, f_states[0][1]))
     n_entries = int(entries[0].shape[0])
@@ -1037,14 +1020,11 @@ def main() -> None:
         e = state_err(got, want)
         check(e == 0, f"F disagrees with its plain version on {name} "
               f"(err {e})")
-    fm = {w: {k: float(np.mean(v)) for k, v in d.items()}
-          for w, d in f_ms.items()}
-    ns_step = {w: {"epoch": 1e6 * d["epoch_full"] / f_steps["epoch"],
-                   "vocab_epoch": 1e6 * d["vocab_epoch"]
-                   / f_steps["vocab_epoch"],
-                   "prefill": 1e6 * float(np.mean(prefill_ms[w]))
-                   / pre_steps}
-               for w, d in fm.items()}
+    fm = {k: float(np.mean(v)) for k, v in f_ms.items()}
+    ns_step = {"epoch": 1e6 * fm["epoch_full"] / f_steps["epoch"],
+               "vocab_epoch": 1e6 * fm["vocab_epoch"]
+               / f_steps["vocab_epoch"],
+               "prefill": 1e6 * prefill_ms / pre_steps}
 
     # one thread chasing i = next[i] through a random cycle: ns per
     # dependent load from an array that stays in L2 (4 MB, read once
@@ -1078,28 +1058,24 @@ def main() -> None:
 
     entry("splay_fold", "paper_serving", "src/repro_torch/kernels/csrc/"
           "splay_fold.cu", "src/repro/core/splaylist.py:629",
-          fm[default_walk]["epoch_full"], f_plain,
-          12 * n_entries + 2 * changed, 0, walk=default_walk, ms_by_walk=fm,
-          prefill_ms=prefill_ms, ns_per_step=ns_step, walk_steps=dict(
-              f_steps, prefill=pre_steps), chase_ns=chase)
+          fm["epoch_full"], f_plain, 12 * n_entries + 2 * changed, 0,
+          subset_ms=fm["epoch_subset"], vocab_epoch_ms=fm["vocab_epoch"],
+          prefill_ms=prefill_ms, ns_per_step=ns_step,
+          walk_steps=dict(f_steps, prefill=pre_steps), chase_ns=chase)
     print(f"[6] F epoch fold: {n_entries} entries, {n_weighted} weighted; "
-          "plain fold timed on the host CPU (a scalar loop)", flush=True)
-    for w in fold.WALKS:
-        d = fm[w]
-        print(f"[6] F {w} walk: paper epoch full list "
-              f"{d['epoch_full']:.4f} ms, its w > 0 subset "
-              f"{d['epoch_subset']:.4f} ms (runs "
-              f"{[round(x, 4) for x in f_ms[w]['epoch_full']]} / "
-              f"{[round(x, 4) for x in f_ms[w]['epoch_subset']]}); vocab-tier"
-              f" epoch fold {d['vocab_epoch']:.4f} ms (runs "
-              f"{[round(x, 4) for x in f_ms[w]['vocab_epoch']]}); prefill "
-              f"{[round(x, 3) for x in prefill_ms[w]]} ms; ns per walk "
-              f"step: epoch {ns_step[w]['epoch']:.1f} ({f_steps['epoch']} "
-              f"find steps of the weighted keys), vocab epoch "
-              f"{ns_step[w]['vocab_epoch']:.1f} ({f_steps['vocab_epoch']} "
-              f"plen steps), prefill {ns_step[w]['prefill']:.1f} "
-              f"({pre_steps} plen steps; an insert walks about three "
-              f"times)", flush=True)
+          f"full list {fm['epoch_full']:.4f} ms, its w > 0 subset "
+          f"{fm['epoch_subset']:.4f} ms (runs "
+          f"{[round(x, 4) for x in f_ms['epoch_full']]} / "
+          f"{[round(x, 4) for x in f_ms['epoch_subset']]}); plain fold "
+          f"{f_plain:.1f} ms on the host CPU (a scalar loop)", flush=True)
+    print(f"[6] F vocab-tier epoch fold {fm['vocab_epoch']:.4f} ms (runs "
+          f"{[round(x, 4) for x in f_ms['vocab_epoch']]}); prefill "
+          f"{prefill_ms:.3f} ms; ns per walk step: epoch "
+          f"{ns_step['epoch']:.1f} ({f_steps['epoch']} find steps of the "
+          f"weighted keys), vocab epoch {ns_step['vocab_epoch']:.1f} "
+          f"({f_steps['vocab_epoch']} plen steps), prefill "
+          f"{ns_step['prefill']:.1f} ({pre_steps} plen steps; an insert "
+          f"walks about three times)", flush=True)
     print(f"[6] pointer chase, one thread: {chase['l2']:.1f} ns per "
           f"dependent load in L2 (4 MB), {chase['hbm']:.1f} ns from a "
           f"256 MB array; all F states equal their plain folds and the "

@@ -2,7 +2,7 @@
 """Kernel F of one source tree of the PyTorch port, on its three paths,
 so that two trees can be compared in one run on one card:
 
-    python3 scripts/torch_fold_ab.py --src PATH/src [--walk thread|warp]
+    python3 scripts/torch_fold_ab.py --src PATH/src
 
 ``PATH`` is a checkout of any commit of the port (for example a parent
 commit unpacked with ``git archive`` into a git-ignored directory);
@@ -13,8 +13,7 @@ by CUDA events around ``run_ops``), one serving epoch's aggregated
 fold list on the prefilled state and its ``w > 0`` subset, and one
 vocab-tier stream epoch (256 decode lanes) on the stream state of a
 minitron-8b-width ``SplayVocabCache`` after 32 flushes.  The last two
-are timed by ``chip_smoke.fold_paths``.  ``--walk`` picks the walk of
-a tree whose ``fold`` module has one.  Prints one JSON line."""
+are timed by ``chip_smoke.fold_paths``.  Prints one JSON line."""
 
 from __future__ import annotations
 
@@ -31,7 +30,6 @@ REPO = Path(__file__).resolve().parents[1]
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the tree's src/")
-    ap.add_argument("--walk", default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -43,10 +41,6 @@ def main() -> None:
     from repro_torch.core import workload as wl
     from repro_torch.core.splay_cache import SplayVocabCache
     from repro_torch.kernels import build, fold
-    if args.walk is not None:
-        if not hasattr(fold, "WALKS") or args.walk not in fold.WALKS:
-            sys.exit(f"this tree's fold has no walk {args.walk!r}")
-        fold.WALK = args.walk
     build.build()
     dev = torch.device("cuda")
 
@@ -86,7 +80,7 @@ def main() -> None:
     out, steps = chip_smoke.fold_paths(torch, sx, fold, st, entries,
                                        cache._stream_st, vops)
     print(json.dumps({
-        "src": args.src, "walk": getattr(fold, "WALK", None),
+        "src": args.src,
         "card": chip_smoke.card_line(), "prefill_ms": prefill_ms,
         "entries": int(entries[0].shape[0]),
         "weighted": int((entries[1] > 0).sum()),

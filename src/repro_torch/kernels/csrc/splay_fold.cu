@@ -10,8 +10,9 @@
 //
 // Bound: latency.  The fold is a chain of dependent loads (pointer
 // chasing through nxt/key), one op after the other in a total order, so
-// the walk itself stays serial.  The design removes the latency around
-// it.  One block of four warps:
+// the walk itself stays serial: one lane walks the state in device
+// memory.  The design removes the latency around it.  One block of four
+// warps:
 //
 //   staging  warps 1-3 copy the next chunk of kChunk entries of the
 //            fold list into shared memory while warp 0 walks the current
@@ -25,28 +26,18 @@
 //            where the walk stopped.  The scalars m, dhits, zl, n_alloc
 //            and size live in the walker's registers and are written
 //            back once, at the end.
-//   walk     kWarpWalk = false: lane 0 of warp 0 walks the state in
-//            device memory, one dependent load after the other, as the
-//            first version of this kernel did.  kWarpWalk = true: the
-//            whole warp walks.  When it arrives at a node the lanes fetch
-//            that node's column in one round trip (nxt[l, i] and
-//            hits[l, i] for every level l in [0, L], lane l holding rows
-//            l, l + 32 and l + 64, plus key, top, nzero and selfhits) and,
-//            in a second, the keys of the column's successors.  Columns
-//            sit in a shared-memory cache of kSlots nodes (least recently
-//            used out); the walk's reads of pred, curr and pp then come
-//            from shared memory, every lane reading the same word.  Every
-//            store goes to device memory and to the cached column of the
-//            same node, so aliases (pred == pp, curr == pp, fill_down on
-//            either) read what the reference reads.  fill_down writes its
-//            rows in parallel, one row a lane.  Which walk the wrapper
-//            launches is fold.py's WALK; chip_smoke.py times both.
+//   walk     when a step reaches a node, the lane loads the node's key
+//            and, in the same round trip, prefetches into L1 the fields
+//            the next steps read of it (nzero, top, selfhits, and nxt and
+//            hits at the step's level), so that each step waits on about
+//            two L2 round trips instead of one per field.  The kernel
+//            asks for the largest L1 carveout: the walk revisits the top
+//            of the list on every op.
 //
-// Every lane of the walking warp runs the same control flow on the same
-// values, and every lane issues every store (the same value to the same
-// address).  Where lanes write different rows (a column fetch, the
-// successor-key fix-up of a key store, fill_down) __syncwarp brackets
-// the writes.
+// A warp walk (the lanes fetching a node's whole column at once into a
+// shared-memory cache) was measured against this one and was slower on
+// every path: a column is L + 1 rows C slots apart, so each node costs
+// dozens of scattered loads where the walk needs a few (PERF.md).
 //
 // The kernel reports where a rebuild is due (after a contains or delete
 // that leaves 2*dhits >= m) and stops there; the wrapper runs the
@@ -62,7 +53,6 @@
 // array that stays in L2 or one that does not.
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,8 +65,6 @@ constexpr int kWarps = 4;          // warp 0 walks, warps 1..3 stage
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStagers = kThreads - 32;
 constexpr int kChunk = 512;        // fold-list entries staged at a time
-constexpr int kSlots = 4;          // node columns the warp walk caches
-constexpr int kRows = 96;          // >= L + 1 (<= 65): 3 rows a lane
 
 enum Stop { kRunning = 0, kRebuild = 1, kExhausted = 2 };
 
@@ -133,19 +121,22 @@ struct Scalars {
   }
 };
 
-// ---- step a: one thread walks device memory --------------------------
+// ---- the walk: one lane, state in device memory ---------------------
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" :: "l"(p));
+}
 
 template <typename T>
-struct ThreadWalk : Scalars<T> {
+struct Walk : Scalars<T> {
   State<T> s;
   int L, C;
 
-  __device__ void init(const State<T>& st, void*) {
+  __device__ void init(const State<T>& st) {
     s = st;
     L = st.L;
     C = st.C;
   }
-  __device__ int sl(int i) const { return s.sl(i); }
   __device__ int nxt(int h, int i) { return s.nxt[s.at(h, i)]; }
   __device__ T hits(int h, int i) { return s.hits[s.at(h, i)]; }
   __device__ int key(int i) { return s.key[s.sl(i)]; }
@@ -153,248 +144,56 @@ struct ThreadWalk : Scalars<T> {
   __device__ int nz(int i) { return s.nzero[s.sl(i)]; }
   __device__ T sh(int i) { return s.selfhits[s.sl(i)]; }
   __device__ bool del(int i) { return s.deleted[s.sl(i)]; }
-  // key of the node nxt(h, i) points at
-  __device__ int nxt_key(int h, int i) { return key(nxt(h, i)); }
-  // the successor of i at level h under lazy expansion, and its key
+  // the successor of i at level h under lazy expansion, and its key;
+  // the successor's fields that later steps read go to L1 meanwhile
   __device__ int next(int i, int h, int& k) {
     const int v = nxt(max(h, nz(i)), i);
-    k = key(v);
+    const int n = s.sl(v);
+    prefetch_l1(s.nzero + n);
+    prefetch_l1(s.top + n);
+    prefetch_l1(s.selfhits + n);
+    prefetch_l1(s.nxt + s.at(h, n));
+    prefetch_l1(s.hits + s.at(h, n));
+    k = s.key[n];
     return v;
   }
-  __device__ void set_nxt(int h, int i, int v, int) { s.nxt[s.at(h, i)] = v; }
+  __device__ void set_nxt(int h, int i, int v) { s.nxt[s.at(h, i)] = v; }
   __device__ void set_hits(int h, int i, T v) { s.hits[s.at(h, i)] = v; }
   __device__ void set_key(int i, int k) { s.key[s.sl(i)] = k; }
   __device__ void set_top(int i, int v) { s.top[s.sl(i)] = v; }
   __device__ void set_nz(int i, int v) { s.nzero[s.sl(i)] = v; }
   __device__ void set_sh(int i, T v) { s.selfhits[s.sl(i)] = v; }
   __device__ void set_del(int i, bool v) { s.deleted[s.sl(i)] = v; }
-  // rows [lo, hi) of i take nxt = nxt(hi, i) and hits = 0
-  __device__ void fill(int i, int lo, int hi) {
-    const int v = nxt(hi, i);
-    for (int l = lo; l < hi; ++l) {
-      set_nxt(l, i, v, 0);
-      set_hits(l, i, T(0));
-    }
-  }
 };
 
-// ---- step b: the warp walks through a cache of node columns ----------
+// ---- the fold: the reference's _update, find and _link_bottom ------
 
 template <typename T>
-struct Cache {
-  int nxt[kSlots][kRows];
-  int kn[kSlots][kRows];   // key[nxt[slot][row]]
-  T hits[kSlots][kRows];
-  int key[kSlots];
-  int top[kSlots];
-  int nz[kSlots];
-  T sh[kSlots];
-};
-
-template <typename T>
-struct WarpWalk : Scalars<T> {
-  State<T> s;
-  int L, C;
-  Cache<T>* c;
-  int tag[kSlots];          // cached node (slot index), -1 when empty
-  unsigned used[kSlots];    // last use, for least-recently-used eviction
-  unsigned clock;
-  int lane;
-
-  __device__ void init(const State<T>& st, void* cache) {
-    s = st;
-    L = st.L;
-    C = st.C;
-    c = static_cast<Cache<T>*>(cache);
-    clock = 0;
-    lane = threadIdx.x & 31;
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      tag[t] = -1;
-      used[t] = 0;
-    }
-  }
-  __device__ int sl(int i) const { return s.sl(i); }
-
-  __device__ int lookup(int node) const {
-    int hit = -1;
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t)
-      if (tag[t] == node) hit = t;
-    return hit;
-  }
-
-  // node's column into the least recently used slot: two round trips
-  __device__ int fetch(int node) {
-    int t = 0;
-    unsigned best = used[0];
-#pragma unroll
-    for (int u = 1; u < kSlots; ++u)
-      if (used[u] < best) {
-        best = used[u];
-        t = u;
-      }
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u)
-      if (u == t) tag[u] = node;
-    __syncwarp();
-    int nx[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int r = lane + 32 * j;
-      nx[j] = 0;
-      if (r <= L) {
-        const int64_t a = static_cast<int64_t>(r) * C + node;
-        nx[j] = s.nxt[a];
-        c->nxt[t][r] = nx[j];
-        c->hits[t][r] = s.hits[a];
-      }
-    }
-    if (lane == 0) c->key[t] = s.key[node];
-    if (lane == 1) c->top[t] = s.top[node];
-    if (lane == 2) c->nz[t] = s.nzero[node];
-    if (lane == 3) c->sh[t] = s.selfhits[node];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int r = lane + 32 * j;
-      if (r <= L) c->kn[t][r] = s.key[s.sl(nx[j])];
-    }
-    __syncwarp();
-    return t;
-  }
-
-  // the cached column of i, fetched on a miss
-  __device__ int slot(int i) {
-    const int node = s.sl(i);
-    int t = lookup(node);
-    if (t < 0) t = fetch(node);
-    ++clock;
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u)
-      if (u == t) used[u] = clock;
-    return t;
-  }
-
-  __device__ int nxt(int h, int i) { return c->nxt[slot(i)][s.lv(h)]; }
-  __device__ T hits(int h, int i) { return c->hits[slot(i)][s.lv(h)]; }
-  __device__ int nxt_key(int h, int i) { return c->kn[slot(i)][s.lv(h)]; }
-  __device__ int next(int i, int h, int& k) {
-    const int t = slot(i);
-    const int r = s.lv(max(h, c->nz[t]));
-    k = c->kn[t][r];
-    return c->nxt[t][r];
-  }
-  // node scalars: the cached copy when the node is cached (no fetch)
-  __device__ int key(int i) {
-    const int t = lookup(s.sl(i));
-    return t >= 0 ? c->key[t] : s.key[s.sl(i)];
-  }
-  __device__ int top(int i) {
-    const int t = lookup(s.sl(i));
-    return t >= 0 ? c->top[t] : s.top[s.sl(i)];
-  }
-  __device__ int nz(int i) {
-    const int t = lookup(s.sl(i));
-    return t >= 0 ? c->nz[t] : s.nzero[s.sl(i)];
-  }
-  __device__ T sh(int i) {
-    const int t = lookup(s.sl(i));
-    return t >= 0 ? c->sh[t] : s.selfhits[s.sl(i)];
-  }
-  __device__ bool del(int i) { return s.deleted[s.sl(i)]; }
-
-  // kv is the key of node v (the cache keeps each row's successor key)
-  __device__ void set_nxt(int h, int i, int v, int kv) {
-    s.nxt[s.at(h, i)] = v;
-    const int t = lookup(s.sl(i));
-    if (t >= 0) {
-      c->nxt[t][s.lv(h)] = v;
-      c->kn[t][s.lv(h)] = kv;
-    }
-  }
-  __device__ void set_hits(int h, int i, T v) {
-    s.hits[s.at(h, i)] = v;
-    const int t = lookup(s.sl(i));
-    if (t >= 0) c->hits[t][s.lv(h)] = v;
-  }
-  __device__ void set_key(int i, int k) {
-    const int node = s.sl(i);
-    s.key[node] = k;
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      if (tag[t] < 0) continue;
-      if (tag[t] == node) c->key[t] = k;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int r = lane + 32 * j;
-        if (r <= L && s.sl(c->nxt[t][r]) == node) c->kn[t][r] = k;
-      }
-    }
-    __syncwarp();
-  }
-  __device__ void set_top(int i, int v) {
-    s.top[s.sl(i)] = v;
-    const int t = lookup(s.sl(i));
-    if (t >= 0) c->top[t] = v;
-  }
-  __device__ void set_nz(int i, int v) {
-    s.nzero[s.sl(i)] = v;
-    const int t = lookup(s.sl(i));
-    if (t >= 0) c->nz[t] = v;
-  }
-  __device__ void set_sh(int i, T v) {
-    s.selfhits[s.sl(i)] = v;
-    const int t = lookup(s.sl(i));
-    if (t >= 0) c->sh[t] = v;
-  }
-  __device__ void set_del(int i, bool v) { s.deleted[s.sl(i)] = v; }
-
-  // rows [lo, hi) of i take nxt = nxt(hi, i) and hits = 0, a row a lane
-  __device__ void fill(int i, int lo, int hi) {
-    const int t = slot(i);
-    const int v = c->nxt[t][s.lv(hi)];
-    const int kv = c->kn[t][s.lv(hi)];
-    const int node = s.sl(i);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int r = lo + lane + 32 * j;
-      if (r < hi) {
-        const int64_t a = static_cast<int64_t>(r) * C + node;
-        s.nxt[a] = v;
-        s.hits[a] = T(0);
-        c->nxt[t][r] = v;
-        c->kn[t][r] = kv;
-        c->hits[t][r] = T(0);
-      }
-    }
-    __syncwarp();
-  }
-};
-
-// ---- the fold, written once over either walk -------------------------
-
-template <typename T, typename W>
-__device__ T whits(W& s, int i, int h) {
+__device__ T whits(Walk<T>& s, int i, int h) {
   return h >= s.nz(i) ? s.hits(h, i) : T(0);
 }
 
-template <typename T, typename W>
-__device__ T get_hits(W& s, int i, int h) {
+template <typename T>
+__device__ T get_hits(Walk<T>& s, int i, int h) {
   return s.sh(i) + whits<T>(s, i, h);
 }
 
-template <typename W>
-__device__ void fill_down(W& s, int i, int h) {
+template <typename T>
+__device__ void fill_down(Walk<T>& s, int i, int h) {
   const int zl_i = s.nz(i);
   const int lo = h > 0 ? h : 0;
-  if (lo < zl_i) s.fill(i, lo, zl_i);
+  if (lo < zl_i) {
+    const int v = s.nxt(zl_i, i);
+    for (int l = lo; l < zl_i; ++l) {
+      s.set_nxt(l, i, v);
+      s.set_hits(l, i, T(0));
+    }
+  }
   s.set_nz(i, min(zl_i, h));
 }
 
-template <typename W>
-__device__ void find(W& s, int k, int& slot, int& steps) {
+template <typename T>
+__device__ void find(Walk<T>& s, int k, int& slot, int& steps) {
   int pred = HEAD, h = s.L - 1, n = 0;
   bool found = false;
   const int zl = s.zl;
@@ -414,8 +213,8 @@ __device__ void find(W& s, int k, int& slot, int& steps) {
   steps = n;
 }
 
-template <typename T, typename W>
-__device__ bool promote_cascade(W& s, int curr, int pp, T curr_m) {
+template <typename T>
+__device__ bool promote_cascade(Walk<T>& s, int curr, int pp, T curr_m) {
   const int L = s.L, ml1 = L - 1;
   int curh = s.top(curr);
   bool promoted = false;
@@ -425,33 +224,32 @@ __device__ bool promote_cascade(W& s, int curr, int pp, T curr_m) {
     fill_down(s, pp, curh);
     const T new_hits = s.hits(curh + 1, pp) - s.hits(curh, pp) - s.sh(curr);
     const int pp_next = s.nxt(curh + 1, pp);
-    const int pp_next_key = s.nxt_key(curh + 1, pp);
     s.set_top(curr, curh + 1);
     s.set_hits(curh + 1, curr, new_hits);
-    s.set_nxt(curh + 1, curr, pp_next, pp_next_key);
+    s.set_nxt(curh + 1, curr, pp_next);
     s.set_hits(curh + 1, pp, s.hits(curh, pp));
-    s.set_nxt(curh + 1, pp, curr, s.key(curr));
+    s.set_nxt(curh + 1, pp, curr);
     ++curh;
     promoted = true;
   }
   return promoted;
 }
 
-template <typename T, typename W>
-__device__ void demote(W& s, int curr, int pred, int h) {
+template <typename T>
+__device__ void demote(Walk<T>& s, int curr, int pred, int h) {
   if (h == s.zl) s.zl -= 1;
   fill_down(s, curr, h - 1);
   fill_down(s, pred, h - 1);
   const T gh_curr = s.sh(curr) + s.hits(h, curr);
   s.set_hits(h, pred, s.hits(h, pred) + gh_curr);
   s.set_hits(h, curr, T(0));
-  s.set_nxt(h, pred, s.nxt(h, curr), s.nxt_key(h, curr));
-  s.set_nxt(h, curr, -1, s.key(-1));
+  s.set_nxt(h, pred, s.nxt(h, curr));
+  s.set_nxt(h, curr, -1);
   s.set_top(curr, h - 1);
 }
 
-template <typename T, typename W>
-__device__ void update(W& s, int k, T w) {
+template <typename T>
+__device__ void update(Walk<T>& s, int k, T w) {
   const int ml1 = s.L - 1;
   s.m += w;
   const T curr_m = s.m;
@@ -502,8 +300,8 @@ __device__ void update(W& s, int k, T w) {
 }
 
 // Returns false when the capacity is exhausted (nothing is written).
-template <typename W>
-__device__ bool link_bottom(W& s, int k) {
+template <typename T>
+__device__ bool link_bottom(Walk<T>& s, int k) {
   const int zl = s.zl;
   int pred = HEAD, h = s.L - 1;
   while (h >= zl) {
@@ -519,8 +317,8 @@ __device__ bool link_bottom(W& s, int k) {
   if (j >= s.C) return false;
   fill_down(s, pred, zl);
   s.set_key(j, k);
-  s.set_nxt(zl, j, s.nxt(zl, pred), s.nxt_key(zl, pred));
-  s.set_nxt(zl, pred, j, k);
+  s.set_nxt(zl, j, s.nxt(zl, pred));
+  s.set_nxt(zl, pred, j);
   s.set_top(j, zl);
   s.set_nz(j, zl);
   s.set_sh(j, 0);
@@ -536,8 +334,8 @@ __device__ bool rebuild_due(const Scalars<T>& s) {
 
 // One op of the run_ops list; returns kExhausted when an insert found
 // no free slot (nothing written), else kRunning.
-template <typename T, typename W>
-__device__ int op_step(W& s, int kind, int k, bool u, int& r, int& steps) {
+template <typename T>
+__device__ int op_step(Walk<T>& s, int kind, int k, bool u, int& r, int& steps) {
   int slot;
   r = 0;
   find(s, k, slot, steps);
@@ -655,21 +453,18 @@ __device__ void stage(Stage<T>& sg, const Ops& o, const T* w, const T* wm,
 // mode 1: the weighted fold list of run_contains_batch (keys/w/wm).
 // status[0] = index of the op where the kernel stopped (n: ran to the
 // end); status[1] = 1 when an insert found the capacity exhausted.
-template <typename T, bool kWarpWalk>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     fold_kernel(State<T> st, Ops o, const T* w, const T* wm, int* status) {
-  using Walk = typename std::conditional<kWarpWalk, WarpWalk<T>,
-                                         ThreadWalk<T>>::type;
   __shared__ Stage<T> sg;
-  __shared__ Cache<T> cache;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool walker = warp == 0 && (kWarpWalk || lane == 0);
+  const int warp = threadIdx.x >> 5;
+  const bool walker = threadIdx.x == 0;
   const int total = max(o.n - o.start, 0);
   const int n_chunks = (total + kChunk - 1) / kChunk;
 
-  Walk s;
+  Walk<T> s;
   if (walker) {
-    s.init(st, &cache);
+    s.init(st);
     s.load(st);
   }
   if (threadIdx.x < 2) sg.stop[threadIdx.x] = kRunning;
@@ -708,10 +503,8 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
       }
-      if (lane == 0) {
-        sg.stop[b] = stop;
-        sg.stop_at[b] = stop_at;
-      }
+      sg.stop[b] = stop;
+      sg.stop_at[b] = stop_at;
     } else if (warp > 0 && c + 1 < n_chunks) {
       stage(sg, o, w, wm, base + kChunk, min(kChunk, o.n - base - kChunk),
             b ^ 1);
@@ -729,7 +522,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (stopped != kRunning) break;
   }
-  if (warp == 0 && lane == 0) {
+  if (walker) {
     s.store(st);
     status[0] = stop_at;
     status[1] = stop == kExhausted;
@@ -741,17 +534,17 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
            bool* deleted, T* m, T* dhits, int* zl, int* n_alloc, int* size,
            int C, int L, int mode, int start, int n, const int* kinds,
            const int* keys, const bool* upd, const T* w, const T* wm,
-           int* res, int* plen, int* status, int warp_walk, void* stream) {
-  if (L + 1 > kRows) return static_cast<int>(cudaErrorInvalidValue);
+           int* res, int* plen, int* status, void* stream) {
+  // the largest L1 the block's shared memory leaves
+  const cudaError_t err = cudaFuncSetAttribute(
+      fold_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxL1);
+  if (err != cudaSuccess) return static_cast<int>(err);
   State<T> s{key, nxt, hits, selfhits, top, nzero, deleted, m, dhits,
              zl, n_alloc, size, C, L};
   Ops o{mode, start, n, kinds, keys, upd, res, plen};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (warp_walk) {
-    fold_kernel<T, true><<<1, kThreads, 0, st>>>(s, o, w, wm, status);
-  } else {
-    fold_kernel<T, false><<<1, kThreads, 0, st>>>(s, o, w, wm, status);
-  }
+  fold_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, o, w, wm, status);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -770,12 +563,10 @@ __global__ void chase_kernel(const int* next, int start, int steps,
                       int* n_alloc, int* size, int C, int L, int mode,     \
                       int start, int n, const int* kinds, const int* keys, \
                       const bool* upd, const T* w, const T* wm, int* res,  \
-                      int* plen, int* status, int warp_walk,               \
-                      void* stream) {                                      \
+                      int* plen, int* status, void* stream) {              \
     return launch<T>(key, nxt, hits, selfhits, top, nzero, deleted, m,     \
                      dhits, zl, n_alloc, size, C, L, mode, start, n,       \
-                     kinds, keys, upd, w, wm, res, plen, status,           \
-                     warp_walk, stream);                                   \
+                     kinds, keys, upd, w, wm, res, plen, status, stream);  \
   }
 
 FOLD_ENTRY(splay_fold_i32, int32_t)

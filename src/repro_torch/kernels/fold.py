@@ -13,9 +13,7 @@ callers in ``core/splaylist.py`` hand it a private copy):
 
 On CUDA tensors each call is one launch of the kernel: one block whose
 warps 1-3 stage the list in chunks (the weighted fold keeps only its
-``w > 0`` entries) while warp 0 walks the state, by :data:`WALK`
-(``"warp"``: the warp fetches each node's column at once and caches it
-in shared memory; ``"thread"``: one lane walks device memory).  On CPU
+``w > 0`` entries) while one lane of warp 0 walks the state.  On CPU
 tensors it runs the plain version, the step-by-step fold of
 ``core/splaylist.py`` (``_find``/``_update``/``_link_bottom`` and the
 op bodies).  There is no fallback between the two: the tensors' device
@@ -33,13 +31,9 @@ from repro_torch.kernels import build
 # launches of the CUDA kernel (plain CPU runs do not count)
 LAUNCHES = {"splay_fold": 0}
 
-# the walk the kernel runs; chip_smoke.py times both
-WALKS = ("thread", "warp")
-WALK = "warp"
-
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 12 + [_I] * 5 + [_P] * 8 + [_I, _P]
+_ARGTYPES = [_P] * 12 + [_I] * 5 + [_P] * 8 + [_P]
 
 
 def fold_ops_plain(st, kinds, keys, upd, res, plen, start: int) -> int:
@@ -66,14 +60,10 @@ def fold_weighted_plain(st, keys, w, wm) -> None:
             st.dhits.add_(wmk)
 
 
-def _launch(st, mode, start, n, kinds, keys, upd, w, wm, res, plen,
-            walk=None) -> int:
+def _launch(st, mode, start, n, kinds, keys, upd, w, wm, res, plen) -> int:
     """One launch.  Mode 0 reads the stop back (the caller rebuilds and
     relaunches there); mode 1 never stops early, so it returns ``n``
     without waiting for the card."""
-    walk = WALK if walk is None else walk
-    if walk not in WALKS:
-        raise ValueError(f"walk must be one of {WALKS}, got {walk!r}")
     dev = st.device
     for name, t in zip(st._fields, st):
         if not (t.is_cuda and t.is_contiguous()):
@@ -94,7 +84,7 @@ def _launch(st, mode, start, n, kinds, keys, upd, w, wm, res, plen,
     p = build.ptr
     code = fn(*(p(t) for t in st), st.capacity, st.max_level, mode, start,
               n, p(kinds), p(keys), p(upd), p(w), p(wm), p(res), p(plen),
-              p(status), int(walk == "warp"), build.stream_of(st.key))
+              p(status), build.stream_of(st.key))
     build.check(lib, code, "splay_fold launch")
     LAUNCHES["splay_fold"] += 1
     if mode == 1:
@@ -106,26 +96,22 @@ def _launch(st, mode, start, n, kinds, keys, upd, w, wm, res, plen,
     return stop
 
 
-def fold_ops(st, kinds, keys, upd, res, plen, start: int = 0,
-             walk=None) -> int:
+def fold_ops(st, kinds, keys, upd, res, plen, start: int = 0) -> int:
     """Run ops ``start..`` of the list; returns the index of the op
-    after which a rebuild is due, or ``n``.  ``walk`` overrides
-    :data:`WALK` on the card."""
+    after which a rebuild is due, or ``n``."""
     if st.device.type == "cpu":
         return fold_ops_plain(st, kinds, keys, upd, res, plen, start)
     return _launch(st, 0, start, kinds.shape[0], kinds, keys, upd, None,
-                   None, res, plen, walk)
+                   None, res, plen)
 
 
-def fold_weighted(st, keys, w, wm, walk=None) -> None:
+def fold_weighted(st, keys, w, wm) -> None:
     """The weighted rebalance fold over ``(keys, w, wm)``; entries with
-    ``w <= 0`` do nothing.  ``walk`` overrides :data:`WALK` on the
-    card."""
+    ``w <= 0`` do nothing."""
     if st.device.type == "cpu":
         fold_weighted_plain(st, keys, w, wm)
         return
     keys = keys.contiguous()
     w = w.to(st.m.dtype).contiguous()
     wm = wm.to(st.m.dtype).contiguous()
-    _launch(st, 1, 0, keys.shape[0], None, keys, None, w, wm, None, None,
-            walk)
+    _launch(st, 1, 0, keys.shape[0], None, keys, None, w, wm, None, None)

@@ -270,14 +270,8 @@ def test_vocab_cache_on_card_matches_cpu():
 
 
 # ---------------------------------------------------------------------------
-# kernel F redesigned: staged, compacted lists and the two walks
+# kernel F redesigned: staged and compacted lists, stops inside chunks
 # ---------------------------------------------------------------------------
-
-@pytest.fixture(params=fold.WALKS)
-def walk(request, monkeypatch):
-    monkeypatch.setattr(fold, "WALK", request.param)
-    return request.param
-
 
 def _prefilled(count_dtype, n_keys=600, cap=1024, ml=16, seed=0):
     rng = np.random.default_rng(seed)
@@ -289,7 +283,7 @@ def _prefilled(count_dtype, n_keys=600, cap=1024, ml=16, seed=0):
 
 
 @pytest.mark.parametrize("count_dtype", [torch.int32, torch.int64])
-def test_fold_sparse_weighted_lists(count_dtype, walk):
+def test_fold_sparse_weighted_lists(count_dtype):
     """Weighted lists over several staging chunks, 95% zero weights: one
     launch, equal to the plain fold and to the fold of the w > 0 subset."""
     st, pool, rng = _prefilled(count_dtype)
@@ -311,7 +305,7 @@ def test_fold_sparse_weighted_lists(count_dtype, walk):
     _equal(full, cpu)
 
 
-def test_fold_rebuild_stop_inside_a_chunk(walk):
+def test_fold_rebuild_stop_inside_a_chunk():
     """600 pure reads, then a delete-heavy tail: the first rebuild stop
     falls inside the second staging chunk.  The stop op is reported,
     nothing past it is written, and the whole run_ops (which rebuilds
@@ -338,7 +332,7 @@ def test_fold_rebuild_stop_inside_a_chunk(walk):
            tsx.run_ops(_cpu(st), kinds, keys, upd))
 
 
-def test_fold_capacity_exhausted(walk):
+def test_fold_capacity_exhausted():
     """An insert past the capacity stops the launch before it writes:
     the error names the op, earlier ops are written, later ones not."""
     st = tsx.make(40, 8, device="cuda")
@@ -359,7 +353,7 @@ def test_fold_capacity_exhausted(walk):
 
 @pytest.mark.parametrize("count_dtype,max_level", [(torch.int32, 32),
                                                    (torch.int64, 64)])
-def test_fold_widest_levels(count_dtype, max_level, walk):
+def test_fold_widest_levels(count_dtype, max_level):
     """The widest columns (33 and 65 rows: two and three rows a lane)."""
     rng = np.random.default_rng(max_level)
     pool = rng.permutation(3000)[:900].astype(np.int32)
