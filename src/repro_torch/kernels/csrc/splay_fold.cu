@@ -26,18 +26,18 @@
 //            where the walk stopped.  The scalars m, dhits, zl, n_alloc
 //            and size live in the walker's registers and are written
 //            back once, at the end.
-//   walk     when a step reaches a node, the lane loads the node's key
-//            and, in the same round trip, prefetches into L1 the fields
-//            the next steps read of it (nzero, top, selfhits, and nxt and
-//            hits at the step's level), so that each step waits on about
-//            two L2 round trips instead of one per field.  The kernel
-//            asks for the largest L1 carveout: the walk revisits the top
-//            of the list on every op.
+//   walk     one lane walks as the first version of this kernel did
+//            (find, _update, _fill_down, _link_bottom branch for branch);
+//            the kernel asks for the largest L1 carveout its shared
+//            memory leaves, since every op's walk starts at the head and
+//            revisits the top of the list.
 //
-// A warp walk (the lanes fetching a node's whole column at once into a
-// shared-memory cache) was measured against this one and was slower on
-// every path: a column is L + 1 rows C slots apart, so each node costs
-// dozens of scattered loads where the walk needs a few (PERF.md).
+// Two ways to shorten the walk itself were measured against this one
+// and were slower on the op list (PERF.md): a warp walk, the lanes
+// fetching a node's whole column at once into a shared-memory cache (a
+// column is L + 1 rows C slots apart, so each node costs dozens of
+// scattered loads where the walk needs a few), and prefetching each
+// reached node's fields into L1 in one batch.
 //
 // The kernel reports where a rebuild is due (after a contains or delete
 // that leaves 2*dhits >= m) and stops there; the wrapper runs the
@@ -123,10 +123,6 @@ struct Scalars {
 
 // ---- the walk: one lane, state in device memory ---------------------
 
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-  asm volatile("prefetch.global.L1 [%0];" :: "l"(p));
-}
-
 template <typename T>
 struct Walk : Scalars<T> {
   State<T> s;
@@ -144,17 +140,10 @@ struct Walk : Scalars<T> {
   __device__ int nz(int i) { return s.nzero[s.sl(i)]; }
   __device__ T sh(int i) { return s.selfhits[s.sl(i)]; }
   __device__ bool del(int i) { return s.deleted[s.sl(i)]; }
-  // the successor of i at level h under lazy expansion, and its key;
-  // the successor's fields that later steps read go to L1 meanwhile
+  // the successor of i at level h under lazy expansion, and its key
   __device__ int next(int i, int h, int& k) {
     const int v = nxt(max(h, nz(i)), i);
-    const int n = s.sl(v);
-    prefetch_l1(s.nzero + n);
-    prefetch_l1(s.top + n);
-    prefetch_l1(s.selfhits + n);
-    prefetch_l1(s.nxt + s.at(h, n));
-    prefetch_l1(s.hits + s.at(h, n));
-    k = s.key[n];
+    k = key(v);
     return v;
   }
   __device__ void set_nxt(int h, int i, int v) { s.nxt[s.at(h, i)] = v; }
