@@ -24,7 +24,8 @@ Phases:
    weighted fold on the served planes and batches);
 3. the main path at the paper's scale (Aksenov et al., arXiv:2008.01009
    §6, Fig. 12: 10^5 keys, Zipf s=1, rebalancing coin p=0.01): a
-   10^5-insert prefill through ``run_ops``, ``from_state_device`` at
+   10^5-insert prefill through ``run_ops`` (one F launch, timed by
+   CUDA events), ``from_state_device`` at
    L=24, W=131072, then ``run_serving(aggregate=True,
    plane_search=True)`` over 25 epochs of 4096 contains.  Every epoch's
    plane verdicts must equal the state walk's, the hit rate must be
@@ -51,7 +52,15 @@ Phases:
    function (``index_select`` for B3, B4 and the fused gather), that
    call; the fused gather at q=8192 and q=256 also beside the
    reference's composition (B3 + B4 + a where-merge); an L2 probe of
-   the hot buffer (an all-hot chunk right after an all-cold one);
+   the hot buffer (an all-hot chunk right after an all-cold one).
+   Kernel F on its three paths (:func:`fold_paths`): a paper-scale
+   epoch's fold list and its ``w > 0`` subset (equal states), one
+   vocab-tier stream epoch, and the prefill launch phase 3 timed; each
+   with its ns per walk step, beside a one-thread pointer chase (ns per
+   dependent load in L2 and from a 256 MB array).  B5's bound is
+   restated at the card's own int32 rate (SMs x 64 x ``clocks.max.sm``,
+   a compare and an add per element and query) and printed beside the
+   fp32-rate bound of the earlier runs;
 7. one paper-scale epoch layer by layer (host clock), and once under
    ``torch.profiler``: the device's busy time is the union of the
    traced kernels' intervals; the same for one vocab-tier lookup of a

@@ -26,9 +26,9 @@
 //            where the walk stopped.  The scalars m, dhits, zl, n_alloc
 //            and size live in the walker's registers and are written
 //            back once, at the end.
-//   walk     one lane walks as the first version of this kernel did
-//            (find, _update, _fill_down, _link_bottom branch for branch);
-//            the kernel asks for the largest L1 carveout its shared
+//   walk     one lane walks the state in device memory, mirroring
+//            find, _update, _fill_down and _link_bottom branch for
+//            branch; the kernel asks for the largest L1 carveout its shared
 //            memory leaves, since every op's walk starts at the head and
 //            revisits the top of the list.
 //
@@ -99,39 +99,33 @@ __device__ T shr(T x, int e) {
   return x >> e;
 }
 
-// The walk's scalars, held in registers for the whole launch.
+// ---- the walk: one lane, state in device memory ---------------------
+
+// The state's arrays stay in device memory; its scalars are held in
+// registers for the whole launch.
 template <typename T>
-struct Scalars {
+struct Walk {
+  State<T> s;
+  int L, C;
   T m, dhits;
   int zl, n_alloc, size;
 
-  __device__ void load(const State<T>& s) {
-    m = *s.m;
-    dhits = *s.dhits;
-    zl = *s.zl;
-    n_alloc = *s.n_alloc;
-    size = *s.size;
+  __device__ void load(const State<T>& st) {
+    s = st;
+    L = st.L;
+    C = st.C;
+    m = *st.m;
+    dhits = *st.dhits;
+    zl = *st.zl;
+    n_alloc = *st.n_alloc;
+    size = *st.size;
   }
-  __device__ void store(const State<T>& s) const {
+  __device__ void store() const {
     *s.m = m;
     *s.dhits = dhits;
     *s.zl = zl;
     *s.n_alloc = n_alloc;
     *s.size = size;
-  }
-};
-
-// ---- the walk: one lane, state in device memory ---------------------
-
-template <typename T>
-struct Walk : Scalars<T> {
-  State<T> s;
-  int L, C;
-
-  __device__ void init(const State<T>& st) {
-    s = st;
-    L = st.L;
-    C = st.C;
   }
   __device__ int nxt(int h, int i) { return s.nxt[s.at(h, i)]; }
   __device__ T hits(int h, int i) { return s.hits[s.at(h, i)]; }
@@ -317,7 +311,7 @@ __device__ bool link_bottom(Walk<T>& s, int k) {
 }
 
 template <typename T>
-__device__ bool rebuild_due(const Scalars<T>& s) {
+__device__ bool rebuild_due(const Walk<T>& s) {
   return s.m > 0 && 2 * s.dhits >= s.m;
 }
 
@@ -452,10 +446,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n_chunks = (total + kChunk - 1) / kChunk;
 
   Walk<T> s;
-  if (walker) {
-    s.init(st);
-    s.load(st);
-  }
+  if (walker) s.load(st);
   if (threadIdx.x < 2) sg.stop[threadIdx.x] = kRunning;
   if (warp > 0 && n_chunks > 0)
     stage(sg, o, w, wm, o.start, min(kChunk, total), 0);
@@ -512,7 +503,7 @@ __global__ void __launch_bounds__(kThreads)
     if (stopped != kRunning) break;
   }
   if (walker) {
-    s.store(st);
+    s.store();
     status[0] = stop_at;
     status[1] = stop == kExhausted;
   }

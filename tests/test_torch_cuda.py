@@ -2,7 +2,11 @@
 pipelined search, B5 full-width search, F update fold, B3/B4 row
 gathers and the fused two-tier gather) held against its plain PyTorch
 version on the same inputs, bit-exact, and the epoch loop and the vocab
-cache on the card against their CPU runs.  Needs an NVIDIA GPU and
+cache on the card against their CPU runs.  F's staging (lists longer
+than a chunk, mostly zero weights, rebuild stops inside a chunk, an
+exhausted capacity, 33- and 65-row columns) and B5's cluster plan
+(ragged and tiny widths, one row, ragged tiles, hot batches, row
+panels, the pad sentinel) have cases of their own.  Needs an NVIDIA GPU and
 nvcc; skips without a card.  Imports no JAX (the card's machine has
 none): run it with ``--noconftest``, as the README says."""
 
