@@ -25,7 +25,7 @@ Phases:
 3. the main path at the paper's scale (Aksenov et al., arXiv:2008.01009
    §6, Fig. 12: 10^5 keys, Zipf s=1, rebalancing coin p=0.01): a
    10^5-insert prefill through ``run_ops`` (one F launch, timed by
-   CUDA events), ``from_state_device`` at
+   CUDA events and traced), ``from_state_device`` at
    L=24, W=131072, then ``run_serving(aggregate=True,
    plane_search=True)`` over 25 epochs of 4096 contains.  Every epoch's
    plane verdicts must equal the state walk's, the hit rate must be
@@ -53,14 +53,16 @@ Phases:
    call; the fused gather at q=8192 and q=256 also beside the
    reference's composition (B3 + B4 + a where-merge); an L2 probe of
    the hot buffer (an all-hot chunk right after an all-cold one).
-   Kernel F on its three paths (:func:`fold_paths`): a paper-scale
-   epoch's fold list and its ``w > 0`` subset (equal states), one
-   vocab-tier stream epoch, and the prefill launch phase 3 timed; each
-   with its ns per walk step, beside a one-thread pointer chase (ns per
+   Kernel F on its three paths (``scripts/fold_timing.py``
+   ``fold_paths``: device time per launch from a trace, and ms per
+   wrapper call by events): a paper-scale epoch's fold list and its
+   ``w > 0`` subset (equal states), one vocab-tier stream epoch, and
+   the prefill launch phase 3 traced; each with its ns per walk step,
+   beside a one-thread pointer chase (``kernels/calibrate.py``: ns per
    dependent load in L2 and from a 256 MB array).  B5's bound is
    restated at the card's own int32 rate (SMs x 64 x ``clocks.max.sm``,
-   a compare and an add per element and query) and printed beside the
-   fp32-rate bound of the earlier runs;
+   one compare per element and query) and printed beside the bound
+   with an add per compare and the fp32-rate bound of the earlier runs;
 7. one paper-scale epoch layer by layer (host clock), and once under
    ``torch.profiler``: the device's busy time is the union of the
    traced kernels' intervals; the same for one vocab-tier lookup of a
@@ -86,7 +88,6 @@ without a CUDA device.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import subprocess
@@ -131,46 +132,6 @@ def int_rate(torch) -> tuple:
         timeout=60)
     mhz = float(out.stdout.strip().splitlines()[0])
     return sms * INT32_PER_SM_CLK * mhz * 1e6, sms, mhz
-
-
-def fold_paths(torch, sx, fold, st, entries, vst, vops, reps: int = 10):
-    """Kernel F on three inputs, each timed by CUDA events over ``reps``
-    launches on fresh clones of its state (two warm-ups first): the
-    paper epoch's aggregated fold list ``entries`` (mode 1), the same
-    list cut to its ``w > 0`` entries, and one vocab-tier epoch's op
-    list ``vops`` (kinds, keys, upd; mode 0) on the tier's stream state
-    ``vst``.  Returns ``{name: (ms, state after one fold)}`` and the
-    walk steps of each input: the plain version's path lengths (find
-    steps of the weighted keys) in mode 1, ``plen`` in mode 0."""
-    keep = entries[1] > 0
-    subset = tuple(x[keep] for x in entries)
-    n = vops[0].shape[0]
-    res = torch.zeros((n,), dtype=torch.int32, device=vops[0].device)
-    plen = torch.zeros_like(res)
-
-    def timed(src, fn):
-        clones = [sx.clone(src) for _ in range(reps + 2)]
-        for c in clones[:2]:
-            fn(c)
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for c in clones[2:]:
-            fn(c)
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps, clones[-1]
-
-    out = {"epoch_full": timed(st, lambda c: fold.fold_weighted(
-               c, *entries)),
-           "epoch_subset": timed(st, lambda c: fold.fold_weighted(
-               c, *subset)),
-           "vocab_epoch": timed(vst, lambda c: fold.fold_ops(
-               c, *vops, res, plen))}
-    steps = {"epoch": int(sx.find_batch(st, subset[0])[1].sum()),
-             "vocab_epoch": int(plen.sum())}
-    return out, steps
 
 
 def max_abs_err(got, want) -> int:
@@ -281,12 +242,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, str(HERE / "src"))
+    sys.path.insert(1, str(HERE / "scripts"))
+    import fold_timing as ft
     from repro_torch.configs.minitron_8b import CONFIG as minitron
     from repro_torch.core import device_index as dix
     from repro_torch.core import splaylist as sx
     from repro_torch.core import workload as wl
     from repro_torch.core.splay_cache import SplayVocabCache
     from repro_torch.kernels import build
+    from repro_torch.kernels import calibrate
     from repro_torch.kernels import fold
     from repro_torch.kernels import hot_gather as hg
     from repro_torch.kernels import ops
@@ -500,20 +464,25 @@ def main() -> None:
     # ---- phase 3: the main path at the paper's scale -------------------
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    E, B, N = 25, 4096, 100_000
-    stream = wl.zipf_workload(n=N, ops=E * B, s=1.0, p=0.01, seed=0)
-    order = np.random.default_rng(1).permutation(stream.populate)
-    st = sx.make(capacity=131074, max_level=24, device=dev)
-    pre_args = (np.full(N, sx.OP_INSERT, np.int32), order, np.ones(N, bool))
+    E, B, N = ft.PAPER_E, ft.PAPER_B, ft.PAPER_N
+    stream, pre_args = ft.paper_prefill(sx, wl)
+    st = sx.make(capacity=ft.PAPER_CAPACITY, max_level=ft.PAPER_LEVELS,
+                 device=dev)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    t = time.perf_counter()
-    e0.record()
-    st, res, pre_plen = sx.run_ops(st, *pre_args)
-    e1.record()
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t
+
+    def prefill_run():
+        t = time.perf_counter()
+        e0.record()
+        out = sx.run_ops(st, *pre_args)
+        e1.record()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    ((st, res, pre_plen), prefill_s), pre_k = ft.kernel_ms(torch,
+                                                           prefill_run)
     prefill_ms = e0.elapsed_time(e1)
+    prefill_k = ft.mean_or_nan(pre_k)
     pre_steps = int(pre_plen.sum())
     check(bool((res == 1).all()) and int(st.size) == N, "prefill lost keys")
     t = time.perf_counter()
@@ -521,8 +490,10 @@ def main() -> None:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     print(f"[3] prefill {N} inserts {prefill_s:.3f} s "
-          f"({N / prefill_s:.0f} ops/s; run_ops by events "
-          f"{prefill_ms:.3f} ms: a state clone and one F launch); "
+          f"({N / prefill_s:.0f} ops/s, traced; run_ops by events "
+          f"{prefill_ms:.3f} ms: a state clone and one F launch, the F "
+          f"kernel alone {prefill_k:.3f} ms in the trace, {len(pre_k)} "
+          f"launch(es)); "
           f"from_state_device {build_s:.4f} s;"
           f" zl={int(st.zl)} max rel height "
           f"{int((st.top[2:N + 2] - st.zl).max())}", flush=True)
@@ -683,12 +654,9 @@ def main() -> None:
     cache = SplayVocabCache(V, hot_size=H, update_prob=0.01,
                             refresh_every=64, seed=0, device=dev)
     trng = np.random.default_rng(1)
-    E6, B6, F6 = 4, 256, 32            # engine: stream_epochs x lanes
-    flushes = []
-    for _ in range(F6):
-        toks = wl.zipf_token_ids(trng, V, (E6, B6))
-        toks[trng.random((E6, B6)) < 0.05] = -1
-        flushes.append(toks)
+    # engine: stream_epochs x lanes, flushes
+    E6, B6, F6 = ft.TIER_EPOCHS, ft.TIER_LANES, ft.TIER_FLUSHES
+    flushes = ft.tier_flushes(wl, trng, V)
     decode = [wl.zipf_token_ids(trng, V, (B6,)) for _ in range(64)]
     prefill = [wl.zipf_token_ids(trng, V, (8192,)) for _ in range(4)]
     batches = [torch.as_tensor(x, device=dev) for x in decode + prefill]
@@ -812,10 +780,14 @@ def main() -> None:
           "splay_search.cu", "src/repro/kernels/splay_search.py:480", ms,
           plain, search_bytes(pl5, B5, 3, B5 // 256), search_ops(pl5, B5))
 
-    # B5: one batch over the served W=16384 plane; its work is a compare
-    # and an add for each element of every row the reference's block
-    # runs (all rows until the block's lanes are all found, then the
-    # bottom row), per query
+    # B5: one batch over the served W=16384 plane; its work is one int32
+    # compare for each element of every row the reference's block runs
+    # (all rows until the block's lanes are all found, then the bottom
+    # row), per query.  The count of a row's compares needs no add per
+    # element (a warp ballot and popc count 32 at once), so the bound
+    # counts the compares alone; the bound with an add beside each
+    # compare, and the fp32-rate bound of the earlier runs, are printed
+    # beside it
     ms = cuda_ms(torch, lambda: ssk._splay_search_full_arrays(
         pl5.keys, q5, 256), 20)
     q5p = ssk._pad_queries(q5, 256)
@@ -833,20 +805,23 @@ def main() -> None:
     compares = int(rows_run.sum()) * 256 * w5
     b5_bytes = 4 * n_lv * w5 + 13 * B5
     old_bound = max(1e3 * b5_bytes / MEM_BW, 1e3 * compares / FP32_OPS)
+    add_bound = bound(b5_bytes, 2 * compares)[0]
     plan5 = ssk.full_plan(w5, n_lv)
     entry("splay_search_full", "full_search", "src/repro_torch/kernels/"
           "csrc/splay_search.cu", "src/repro/kernels/splay_search.py:1284",
-          ms, plain, b5_bytes, 2 * compares, compares=compares,
-          fp32_bound_ms=old_bound, cluster=plan5.cluster,
+          ms, plain, b5_bytes, compares, compares=compares,
+          compare_add_bound_ms=add_bound, fp32_bound_ms=old_bound,
+          cluster=plan5.cluster,
           slice=plan5.slice, smem=plan5.smem)
     b5 = kernels[-1]
     print(f"[6] B5 W={w5} L={n_lv} q={B5}: {ms:.4f} ms, plain {plain:.4f} "
           f"ms; {compares} compares the reference's row rule runs "
           f"({int(rows_run.sum())} of {n_lv * B5 // 256} block-rows); bound "
-          f"{b5['bound_ms']:.4f} ms (a compare and an add each at the "
-          f"int32 rate, {b5['bound_by']}; {b5['bound_ms'] / ms:.3f} of it "
-          f"reached), the fp32-rate bound {old_bound:.4f} ms (one op each "
-          f"at {FP32_OPS:.0e}/s); cluster {plan5.cluster} x {plan5.slice} "
+          f"{b5['bound_ms']:.4f} ms (one compare each at the int32 rate, "
+          f"{b5['bound_by']}; {b5['bound_ms'] / ms:.3f} of it reached); "
+          f"with an add beside each compare {add_bound:.4f} ms; the "
+          f"fp32-rate bound {old_bound:.4f} ms (one op each at "
+          f"{FP32_OPS:.0e}/s); cluster {plan5.cluster} x {plan5.slice} "
           f"columns, {plan5.smem} B shared memory a CTA", flush=True)
 
     # B4, B3 and the fused gather on the vocab tier's lookups; bytes: the
@@ -994,24 +969,20 @@ def main() -> None:
     # F on its three paths, twice: one serving epoch's aggregated fold
     # list on the paper-scale state and its w > 0 subset, and one
     # vocab-tier stream epoch's op list on the tier's state (V + 2
-    # slots, 33 levels); the prefill (one launch) was timed in phase 3
+    # slots, 33 levels); the prefill (one launch) was traced in phase 3
     entries = sx.fold_entries(st3, keys[0], upd[0], aggregate=True)[0]
     vst = cache._stream_st
-    vrng = np.random.default_rng(11)
-    vtok = wl.zipf_token_ids(vrng, V, (B6,))
-    vtok[vrng.random(B6) < 0.05] = -1
-    vlive = vtok >= 0
-    vops = (torch.as_tensor(np.where(vlive, sx.OP_INSERT, sx.OP_CONTAINS)
-                            .astype(np.int32), device=dev),
-            torch.as_tensor(vtok, device=dev),
-            torch.as_tensor(vlive & (vrng.random(B6) < 0.01), device=dev))
-    f_ms = {}
+    vops = ft.tier_epoch_ops(torch, sx, wl, V, dev)
+    f_runs = {}
     f_states = []
     for _ in range(2):
-        out_f, f_steps = fold_paths(torch, sx, fold, st3, entries, vst, vops)
-        for name, (ms_, st_) in out_f.items():
-            f_ms.setdefault(name, []).append(ms_)
-            f_states.append((name, st_))
+        out_f, f_steps = ft.fold_paths(torch, sx, fold, st3, entries, vst,
+                                       vops)
+        for name, r in out_f.items():
+            f_runs.setdefault(name, []).append(r)
+            f_states.append((name, r["state"]))
+            check(r["launches"] == 10, f"the trace of F on {name} "
+                  f"holds {r['launches']} launches of 10")
     changed = sum(int((a != b).sum()) * a.element_size()
                   for a, b in zip(st3, f_states[0][1]))
     n_entries = int(entries[0].shape[0])
@@ -1029,57 +1000,40 @@ def main() -> None:
         e = state_err(got, want)
         check(e == 0, f"F disagrees with its plain version on {name} "
               f"(err {e})")
-    fm = {k: float(np.mean(v)) for k, v in f_ms.items()}
+    f_k = {k: [r["kernel_ms"] for r in v] for k, v in f_runs.items()}
+    f_call = {k: [r["call_ms"] for r in v] for k, v in f_runs.items()}
+    fm = {k: float(np.mean(v)) for k, v in f_k.items()}
     ns_step = {"epoch": 1e6 * fm["epoch_full"] / f_steps["epoch"],
                "vocab_epoch": 1e6 * fm["vocab_epoch"]
                / f_steps["vocab_epoch"],
-               "prefill": 1e6 * prefill_ms / pre_steps}
-
+               "prefill": 1e6 * prefill_k / pre_steps}
     # one thread chasing i = next[i] through a random cycle: ns per
     # dependent load from an array that stays in L2 (4 MB, read once
     # first) and from one five times the L2 (256 MB)
-    lib_f = build.load("splay_fold")
-    lib_f.pointer_chase.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_void_p,
-                                    ctypes.c_void_p]
-    lib_f.pointer_chase.restype = ctypes.c_int
-    chase = {}
-    c_gen = torch.Generator(device=dev).manual_seed(4)
-    for name, n_el, steps in (("l2", 1 << 20, 20000),
-                              ("hbm", 1 << 26, 20000)):
-        perm = torch.randperm(n_el, generator=c_gen, device=dev)
-        nxt = torch.empty((n_el,), dtype=torch.int32, device=dev)
-        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
-        del perm
-        out1 = torch.empty((1,), dtype=torch.int32, device=dev)
-        nxt.sum()
-        times = []
-        for n_steps in (steps // 10, steps):
-            e0.record()
-            code = lib_f.pointer_chase(nxt.data_ptr(), 0, n_steps,
-                                       out1.data_ptr(), build.stream_of(nxt))
-            e1.record()
-            build.check(lib_f, code, "pointer_chase launch")
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        chase[name] = 1e6 * times[1] / steps
-        del nxt
+    chase = {"l2": calibrate.chase_ns(1 << 20, 20000),
+             "hbm": calibrate.chase_ns(1 << 26, 20000)}
 
     entry("splay_fold", "paper_serving", "src/repro_torch/kernels/csrc/"
           "splay_fold.cu", "src/repro/core/splaylist.py:629",
           fm["epoch_full"], f_plain, 12 * n_entries + 2 * changed, 0,
+          ms_is="device time per launch, traced",
+          call_ms=float(np.mean(f_call["epoch_full"])),
           subset_ms=fm["epoch_subset"], vocab_epoch_ms=fm["vocab_epoch"],
-          prefill_ms=prefill_ms, ns_per_step=ns_step,
+          prefill_ms=prefill_k, ns_per_step=ns_step,
           walk_steps=dict(f_steps, prefill=pre_steps), chase_ns=chase)
+    rnd = lambda xs: [round(x, 4) for x in xs]  # noqa: E731
     print(f"[6] F epoch fold: {n_entries} entries, {n_weighted} weighted; "
-          f"full list {fm['epoch_full']:.4f} ms, its w > 0 subset "
-          f"{fm['epoch_subset']:.4f} ms (runs "
-          f"{[round(x, 4) for x in f_ms['epoch_full']]} / "
-          f"{[round(x, 4) for x in f_ms['epoch_subset']]}); plain fold "
-          f"{f_plain:.1f} ms on the host CPU (a scalar loop)", flush=True)
-    print(f"[6] F vocab-tier epoch fold {fm['vocab_epoch']:.4f} ms (runs "
-          f"{[round(x, 4) for x in f_ms['vocab_epoch']]}); prefill "
-          f"{prefill_ms:.3f} ms; ns per walk step: epoch "
+          f"device ms per launch (traced): full list {fm['epoch_full']:.4f}"
+          f", its w > 0 subset {fm['epoch_subset']:.4f} (runs "
+          f"{rnd(f_k['epoch_full'])} / {rnd(f_k['epoch_subset'])}); ms "
+          f"per wrapper call (events over a loop): "
+          f"{rnd(f_call['epoch_full'])} / {rnd(f_call['epoch_subset'])}; "
+          f"plain fold {f_plain:.1f} ms on the host CPU (a scalar loop)",
+          flush=True)
+    print(f"[6] F vocab-tier epoch fold {fm['vocab_epoch']:.4f} ms per "
+          f"launch (runs {rnd(f_k['vocab_epoch'])}; per call "
+          f"{rnd(f_call['vocab_epoch'])}); prefill launch {prefill_k:.3f} "
+          f"ms; ns per walk step: epoch "
           f"{ns_step['epoch']:.1f} ({f_steps['epoch']} find steps of the "
           f"weighted keys), vocab epoch {ns_step['vocab_epoch']:.1f} "
           f"({f_steps['vocab_epoch']} plen steps), prefill "
@@ -1087,7 +1041,7 @@ def main() -> None:
           f"walks about three times)", flush=True)
     print(f"[6] pointer chase, one thread: {chase['l2']:.1f} ns per "
           f"dependent load in L2 (4 MB), {chase['hbm']:.1f} ns from a "
-          f"256 MB array; all F states equal their plain folds and the "
+          f"256 MB array; all F states equal their plain folds, so the "
           f"full list's equal the subset's", flush=True)
 
     # ---- phase 7: where a paper-scale serving epoch's time goes ---------

@@ -2,41 +2,48 @@
 """Kernel F of one source tree of the PyTorch port, on its three paths,
 so that two trees can be compared in one run on one card:
 
-    python3 scripts/torch_fold_ab.py --src PATH/src
+    python3 scripts/torch_fold_ab.py --src PATH/src [--reps 20]
 
 ``PATH`` is a checkout of any commit of the port (for example a parent
 commit unpacked with ``git archive`` into a git-ignored directory);
-its kernels build into its own ``build/``.  The inputs are made from
-fixed seeds, the same for every tree: the paper-scale prefill (10^5
-Zipf-population inserts into ``make(131074, 24)``, one F launch, timed
-by CUDA events around ``run_ops``), one serving epoch's aggregated
-fold list on the prefilled state and its ``w > 0`` subset, and one
-vocab-tier stream epoch (256 decode lanes) on the stream state of a
-minitron-8b-width ``SplayVocabCache`` after 32 flushes.  The last two
-are timed by ``chip_smoke.fold_paths``.  Prints one JSON line."""
+its kernels build into its own ``build/``.  The inputs and clocks are
+those of ``chip_smoke.py`` (``scripts/fold_timing.py``), from fixed
+seeds, the same for every tree:
+
+* the paper-scale prefill (10^5 inserts into ``make(131074, 24)``, one
+  F launch), twice, each timed by CUDA events around ``run_ops`` and by
+  the traced kernel;
+* one serving epoch's aggregated fold list on the prefilled state and
+  its ``w > 0`` subset, and one vocab-tier stream epoch on the stream
+  state of a minitron-8b-width ``SplayVocabCache`` after 32 flushes
+  (``fold_timing.fold_paths``: per wrapper call and per traced launch);
+* one more flush of that cache, traced: the device ms of its F
+  launches (4 stream epochs).
+
+Prints one JSON line."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 
-REPO = Path(__file__).resolve().parents[1]
+import fold_timing as ft
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the tree's src/")
+    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     sys.path.insert(0, str(Path(args.src).resolve()))
-    sys.path.insert(1, str(REPO))
-    import chip_smoke
     from repro_torch.core import splaylist as sx
     from repro_torch.core import workload as wl
     from repro_torch.core.splay_cache import SplayVocabCache
@@ -44,47 +51,47 @@ def main() -> None:
     build.build()
     dev = torch.device("cuda")
 
-    E, B, N = 25, 4096, 100_000
-    stream = wl.zipf_workload(n=N, ops=E * B, s=1.0, p=0.01, seed=0)
-    order = np.random.default_rng(1).permutation(stream.populate)
-    pre = (np.full(N, sx.OP_INSERT, np.int32), order, np.ones(N, bool))
-    prefill_ms = []
+    stream, pre = ft.paper_prefill(sx, wl)
+    prefill = []
     for _ in range(2):
-        st0 = sx.make(capacity=131074, max_level=24, device=dev)
+        st0 = sx.make(capacity=ft.PAPER_CAPACITY,
+                      max_level=ft.PAPER_LEVELS, device=dev)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        st = sx.run_ops(st0, *pre)[0]
-        e1.record()
-        torch.cuda.synchronize()
-        prefill_ms.append(e0.elapsed_time(e1))
-    entries = sx.fold_entries(st, stream.keys[:B], stream.upd[:B],
-                              aggregate=True)[0]
+
+        def run():
+            e0.record()
+            out = sx.run_ops(st0, *pre)
+            e1.record()
+            return out
+
+        (st, _, _), ks = ft.kernel_ms(torch, run)
+        prefill.append({"call_ms": e0.elapsed_time(e1), "kernel_ms": ks})
+    entries = sx.fold_entries(st, stream.keys[:ft.PAPER_B],
+                              stream.upd[:ft.PAPER_B], aggregate=True)[0]
 
     V = 256000
     cache = SplayVocabCache(V, hot_size=4096, update_prob=0.01,
                             refresh_every=64, seed=0, device=dev)
-    trng = np.random.default_rng(1)
-    for _ in range(32):
-        toks = wl.zipf_token_ids(trng, V, (4, 256))
-        toks[trng.random((4, 256)) < 0.05] = -1
+    flushes = ft.tier_flushes(wl, np.random.default_rng(1), V)
+    for toks in flushes:
         cache.observe_serving(toks)
-    vrng = np.random.default_rng(11)
-    vtok = wl.zipf_token_ids(vrng, V, (256,))
-    vtok[vrng.random(256) < 0.05] = -1
-    live = vtok >= 0
-    vops = (torch.as_tensor(np.where(live, sx.OP_INSERT, sx.OP_CONTAINS)
-                            .astype(np.int32), device=dev),
-            torch.as_tensor(vtok, device=dev),
-            torch.as_tensor(live & (vrng.random(256) < 0.01), device=dev))
-    out, steps = chip_smoke.fold_paths(torch, sx, fold, st, entries,
-                                       cache._stream_st, vops)
+    vops = ft.tier_epoch_ops(torch, sx, wl, V, dev)
+    out, steps = ft.fold_paths(torch, sx, fold, st, entries,
+                               cache._stream_st, vops, reps=args.reps)
+    _, flush_k = ft.kernel_ms(torch, lambda: cache.observe_serving(
+        flushes[0]))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
     print(json.dumps({
-        "src": args.src,
-        "card": chip_smoke.card_line(), "prefill_ms": prefill_ms,
+        "src": args.src, "card": card, "prefill": prefill,
         "entries": int(entries[0].shape[0]),
         "weighted": int((entries[1] > 0).sum()),
-        **{k: ms for k, (ms, _) in out.items()}, "steps": steps}))
+        **{k: {f: v[f] for f in ("call_ms", "kernel_ms", "launches")}
+           for k, v in out.items()},
+        "flush_f_ms": flush_k, "steps": steps}))
 
 
 if __name__ == "__main__":

@@ -10,34 +10,30 @@
 //
 // Bound: latency.  The fold is a chain of dependent loads (pointer
 // chasing through nxt/key), one op after the other in a total order, so
-// the walk itself stays serial: one lane walks the state in device
-// memory.  The design removes the latency around it.  One block of four
-// warps:
+// the walk itself stays serial: lane 0 of one warp walks the state in
+// device memory, mirroring find, _update, _fill_down and _link_bottom
+// branch for branch.  The design removes the latency around the walk:
 //
-//   staging  warps 1-3 copy the next chunk of kChunk entries of the
-//            fold list into shared memory while warp 0 walks the current
-//            one (two buffers).  Mode 1 (the weighted fold) compacts, in
-//            order, the entries with w > 0 into a queue (warp ballots and
-//            a running prefix): a zero-weight entry is a no-op of the
-//            reference fold, so the walker never sees it.  Mode 0 (the op
-//            list) stages kinds/keys/upd; the walker buffers each op's
-//            verdict and path length in shared memory and warps 1-3
-//            write a chunk back once it is walked, only up to the op
-//            where the walk stopped.  The scalars m, dhits, zl, n_alloc
-//            and size live in the walker's registers and are written
-//            back once, at the end.
-//   walk     one lane walks the state in device memory, mirroring
-//            find, _update, _fill_down and _link_bottom branch for
-//            branch; the kernel asks for the largest L1 carveout its shared
-//            memory leaves, since every op's walk starts at the head and
-//            revisits the top of the list.
+//   weighted fold (mode 1)  the warp loads the list 128 entries at a
+//            time, coalesced, and ballots w > 0; the walker visits only
+//            the set bits, in order, reading (k, w, wm) by shuffle.  A
+//            zero-weight entry is a no-op of the reference fold, so the
+//            walk never sees it.
+//   op list (mode 0)  the walker reads the next op's kind, key and
+//            update flag into registers before it walks the current one,
+//            and writes each op's verdict and path length as it goes.
+//   scalars  m, dhits, zl, n_alloc and size live in the walker's
+//            registers and are written back once, at the end.
+//   L1       the kernel asks for the largest L1 carveout: every op's walk
+//            starts at the head and revisits the top of the list.
 //
-// Two ways to shorten the walk itself were measured against this one
-// and were slower on the op list (PERF.md): a warp walk, the lanes
-// fetching a node's whole column at once into a shared-memory cache (a
-// column is L + 1 rows C slots apart, so each node costs dozens of
-// scattered loads where the walk needs a few), and prefetching each
-// reached node's fields into L1 in one batch.
+// Three richer designs were measured against this one on the card
+// (PERF.md): staging the lists in shared memory by three more warps,
+// which bought nothing on the op list; a warp walk, the lanes fetching
+// a node's whole column into a shared-memory cache (a column is L + 1
+// rows C slots apart, so each node costs dozens of scattered loads
+// where the walk needs a few); and prefetching each reached node's
+// fields into L1 in one batch.  All three were slower or no faster.
 //
 // The kernel reports where a rebuild is due (after a contains or delete
 // that leaves 2*dhits >= m) and stops there; the wrapper runs the
@@ -47,10 +43,6 @@
 // Index rules follow the reference: a negative level or slot index
 // wraps (numpy/JAX indexing), and shifts by an amount outside
 // [0, bits) give the sign fill (XLA's rule; C leaves them undefined).
-//
-// pointer_chase (the calibration chip_smoke.py prints beside the walk):
-// one thread following i = next[i], the ns per dependent load of an
-// array that stays in L2 or one that does not.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,10 +53,7 @@ constexpr int HEAD = 0;
 constexpr int OP_CONTAINS = 0;
 constexpr int OP_INSERT = 1;
 
-constexpr int kWarps = 4;          // warp 0 walks, warps 1..3 stage
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStagers = kThreads - 32;
-constexpr int kChunk = 512;        // fold-list entries staged at a time
+constexpr int kPer = 4;            // weighted entries a lane loads a round
 
 enum Stop { kRunning = 0, kRebuild = 1, kExhausted = 2 };
 
@@ -359,148 +348,72 @@ __device__ int op_step(Walk<T>& s, int kind, int k, bool u, int& r, int& steps) 
   return kRunning;
 }
 
-// ---- staging ---------------------------------------------------------
-
-template <typename T>
-struct Stage {
-  union {
-    struct {  // mode 0: ops in, verdicts and path lengths out
-      int kind[2][kChunk];
-      int key[2][kChunk];
-      int res[2][kChunk];
-      int plen[2][kChunk];
-      bool upd[2][kChunk];
-    } ops;
-    struct {  // mode 1: the raw chunk, then its w > 0 entries in order
-      int key[kChunk];
-      T w[kChunk];
-      T wm[kChunk];
-      int qkey[2][kChunk];
-      T qw[2][kChunk];
-      T qwm[2][kChunk];
-    } fold;
-  };
-  int qn[2];
-  int stop[2];     // Stop of the walk of the chunk in that buffer
-  int stop_at[2];  // the op it stopped at
-};
-
-struct Ops {
-  int mode, start, n;
-  const int* kinds;
-  const int* keys;
-  const bool* upd;
-  int* res;
-  int* plen;
-};
-
-// Warps 1..3: entries [base, base + len) into buffer b.
-template <typename T>
-__device__ void stage(Stage<T>& sg, const Ops& o, const T* w, const T* wm,
-                      int base, int len, int b) {
-  const int tid = threadIdx.x - 32;
-  if (o.mode == 0) {
-    for (int j = tid; j < len; j += kStagers) {
-      sg.ops.kind[b][j] = o.kinds[base + j];
-      sg.ops.key[b][j] = o.keys[base + j];
-      sg.ops.upd[b][j] = o.upd[base + j];
-    }
-    return;
-  }
-  for (int j = tid; j < len; j += kStagers) {
-    sg.fold.key[j] = o.keys[base + j];
-    sg.fold.w[j] = w[base + j];
-    sg.fold.wm[j] = wm[base + j];
-  }
-  asm volatile("bar.sync 1, %0;" :: "n"(kStagers) : "memory");
-  if (threadIdx.x >= 64) return;  // warp 1 compacts
-  const int lane = threadIdx.x & 31;
-  int cnt = 0;
-  for (int j0 = 0; j0 < len; j0 += 32) {
-    const int j = j0 + lane;
-    const bool keep = j < len && sg.fold.w[j] > 0;
-    const unsigned ball = __ballot_sync(0xffffffffu, keep);
-    if (keep) {
-      const int o2 = cnt + __popc(ball & ((1u << lane) - 1));
-      sg.fold.qkey[b][o2] = sg.fold.key[j];
-      sg.fold.qw[b][o2] = sg.fold.w[j];
-      sg.fold.qwm[b][o2] = sg.fold.wm[j];
-    }
-    cnt += __popc(ball);
-  }
-  if (lane == 0) sg.qn[b] = cnt;
-}
-
 // mode 0: the run_ops op list (kinds/keys/upd -> res/plen), stopping
 //         after the op that makes a rebuild due;
 // mode 1: the weighted fold list of run_contains_batch (keys/w/wm).
 // status[0] = index of the op where the kernel stopped (n: ran to the
 // end); status[1] = 1 when an insert found the capacity exhausted.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fold_kernel(State<T> st, Ops o, const T* w, const T* wm, int* status) {
-  __shared__ Stage<T> sg;
-  const int warp = threadIdx.x >> 5;
-  const bool walker = threadIdx.x == 0;
-  const int total = max(o.n - o.start, 0);
-  const int n_chunks = (total + kChunk - 1) / kChunk;
-
+__global__ void __launch_bounds__(32)
+    fold_kernel(State<T> st, int mode, int start, int n, const int* kinds,
+                const int* keys, const bool* upd, const T* w, const T* wm,
+                int* res, int* plen, int* status) {
+  const int lane = threadIdx.x;
+  const bool walker = lane == 0;
   Walk<T> s;
   if (walker) s.load(st);
-  if (threadIdx.x < 2) sg.stop[threadIdx.x] = kRunning;
-  if (warp > 0 && n_chunks > 0)
-    stage(sg, o, w, wm, o.start, min(kChunk, total), 0);
-  __syncthreads();
-
-  int stop = kRunning, stop_at = o.n;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int b = c & 1;
-    const int base = o.start + c * kChunk;
-    const int len = min(kChunk, o.n - base);
-    if (walker) {
-      if (o.mode == 1) {
-        const int nq = sg.qn[b];
-        for (int j = 0; j < nq; ++j) {
-          update(s, sg.fold.qkey[b][j], sg.fold.qw[b][j]);
-          s.dhits += sg.fold.qwm[b][j];
-        }
-      } else {
-        for (int j = 0; j < len; ++j) {
-          const int kind = sg.ops.kind[b][j];
-          int r, steps;
-          if (op_step<T>(s, kind, sg.ops.key[b][j], sg.ops.upd[b][j], r,
-                         steps) == kExhausted) {
-            stop = kExhausted;
-            stop_at = base + j;
-            break;
+  int stop = kRunning, stop_at = n;
+  if (mode == 1) {
+    for (int base = start; base < n; base += 32 * kPer) {
+      int k[kPer];
+      T wi[kPer], wmi[kPer];
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int j = base + 32 * r + lane;
+        k[r] = j < n ? keys[j] : 0;
+        wi[r] = j < n ? w[j] : T(0);
+        wmi[r] = j < n ? wm[j] : T(0);
+      }
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        for (unsigned ball = __ballot_sync(0xffffffffu, wi[r] > 0); ball;
+             ball &= ball - 1) {
+          const int src = __ffs(ball) - 1;
+          const int kj = __shfl_sync(0xffffffffu, k[r], src);
+          const T wj = __shfl_sync(0xffffffffu, wi[r], src);
+          const T wmj = __shfl_sync(0xffffffffu, wmi[r], src);
+          if (walker) {
+            update(s, kj, wj);
+            s.dhits += wmj;
           }
-          sg.ops.res[b][j] = r;
-          sg.ops.plen[b][j] = steps;
-          if (kind != OP_INSERT && rebuild_due<T>(s)) {
-            stop = kRebuild;
-            stop_at = base + j;
-            break;
-          }
+          __syncwarp();
         }
       }
-      sg.stop[b] = stop;
-      sg.stop_at[b] = stop_at;
-    } else if (warp > 0 && c + 1 < n_chunks) {
-      stage(sg, o, w, wm, base + kChunk, min(kChunk, o.n - base - kChunk),
-            b ^ 1);
     }
-    __syncthreads();
-    const int stopped = sg.stop[b];
-    if (o.mode == 0 && warp > 0) {
-      const int at = sg.stop_at[b];
-      const int end = stopped == kRunning ? base + len
-                      : stopped == kRebuild ? at + 1 : at;
-      for (int j = threadIdx.x - 32; base + j < end; j += kStagers) {
-        o.res[base + j] = sg.ops.res[b][j];
-        o.plen[base + j] = sg.ops.plen[b][j];
+  } else if (walker && start < n) {
+    int kind = kinds[start], k = keys[start];
+    bool u = upd[start];
+    for (int i = start; i < n; ++i) {
+      const int j = min(i + 1, n - 1);
+      const int kind_n = kinds[j], k_n = keys[j];
+      const bool u_n = upd[j];
+      int r, steps;
+      if (op_step<T>(s, kind, k, u, r, steps) == kExhausted) {
+        stop = kExhausted;
+        stop_at = i;
+        break;
       }
+      res[i] = r;
+      plen[i] = steps;
+      if (kind != OP_INSERT && rebuild_due<T>(s)) {
+        stop = kRebuild;
+        stop_at = i;
+        break;
+      }
+      kind = kind_n;
+      k = k_n;
+      u = u_n;
     }
-    if (stopped != kRunning) break;
   }
   if (walker) {
     s.store();
@@ -515,24 +428,16 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
            int C, int L, int mode, int start, int n, const int* kinds,
            const int* keys, const bool* upd, const T* w, const T* wm,
            int* res, int* plen, int* status, void* stream) {
-  // the largest L1 the block's shared memory leaves
+  // the largest L1 carveout
   const cudaError_t err = cudaFuncSetAttribute(
       fold_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxL1);
   if (err != cudaSuccess) return static_cast<int>(err);
   State<T> s{key, nxt, hits, selfhits, top, nzero, deleted, m, dhits,
              zl, n_alloc, size, C, L};
-  Ops o{mode, start, n, kinds, keys, upd, res, plen};
-  fold_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, o, w, wm, status);
+  fold_kernel<T><<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, mode, start, n, kinds, keys, upd, w, wm, res, plen, status);
   return static_cast<int>(cudaGetLastError());
-}
-
-__global__ void chase_kernel(const int* next, int start, int steps,
-                             int* out) {
-  int i = start;
-  for (int s = 0; s < steps; ++s) i = next[i];
-  *out = i;
 }
 
 }  // namespace
@@ -551,13 +456,6 @@ __global__ void chase_kernel(const int* next, int start, int steps,
 
 FOLD_ENTRY(splay_fold_i32, int32_t)
 FOLD_ENTRY(splay_fold_i64, int64_t)
-
-extern "C" int pointer_chase(const int* next, int start, int steps,
-                             int* out, void* stream) {
-  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      next, start, steps, out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

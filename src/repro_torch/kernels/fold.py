@@ -11,9 +11,9 @@ callers in ``core/splaylist.py`` hand it a private copy):
   ``(key, w, wm)`` triples: a rebalance of weight ``w`` per entry with
   ``w > 0``, then ``dhits += wm``.
 
-On CUDA tensors each call is one launch of the kernel: one block whose
-warps 1-3 stage the list in chunks (the weighted fold keeps only its
-``w > 0`` entries) while one lane of warp 0 walks the state.  On CPU
+On CUDA tensors each call is one launch of the kernel: one warp, whose
+lane 0 walks the state (the weighted fold's warp ballots its list 128
+entries at a time, so the walk visits only the ``w > 0`` entries).  On CPU
 tensors it runs the plain version, the step-by-step fold of
 ``core/splaylist.py`` (``_find``/``_update``/``_link_bottom`` and the
 op bodies).  There is no fallback between the two: the tensors' device

@@ -501,18 +501,19 @@ def _full_kernel(level_keys, queries):
 def _splay_search_full_arrays(level_keys, queries, query_block: int =
                               DEFAULT_QUERY_BLOCK):
     """B5 over a bare matrix: CUDA tensors launch the kernel, CPU
-    tensors run the plain version."""
+    tensors run the plain version.  Only the plain version pads the
+    queries to ``query_block`` (its per-block row skip); the kernel
+    tiles them its own way and masks its last tile."""
     nq = queries.shape[0]
     dev = level_keys.device
     if nq == 0:
         z = torch.zeros((0,), dtype=torch.int32, device=dev)
         return torch.zeros((0,), dtype=torch.bool, device=dev), z, z
     level_keys, queries = _operands(level_keys, queries)
-    qp = _pad_queries(queries, query_block)
-    if dev.type == "cpu":
-        f, r, lv = splay_search_full_plain(level_keys, qp, query_block)
-    else:
-        f, r, lv = _full_kernel(level_keys, qp)
+    if dev.type != "cpu":
+        return _full_kernel(level_keys, queries)
+    f, r, lv = splay_search_full_plain(
+        level_keys, _pad_queries(queries, query_block), query_block)
     return f[:nq], r[:nq], lv[:nq]
 
 

@@ -2,9 +2,10 @@
 pipelined search, B5 full-width search, F update fold, B3/B4 row
 gathers and the fused two-tier gather) held against its plain PyTorch
 version on the same inputs, bit-exact, and the epoch loop and the vocab
-cache on the card against their CPU runs.  F's staging (lists longer
-than a chunk, mostly zero weights, rebuild stops inside a chunk, an
-exhausted capacity, 33- and 65-row columns) and B5's cluster plan
+cache on the card against their CPU runs.  F's list handling (long,
+mostly zero-weight lists over many of the warp's 128-entry ballots, a
+rebuild stop deep inside an op list, an exhausted capacity, 33- and
+65-row columns) and B5's cluster plan
 (ragged and tiny widths, one row, ragged tiles, hot batches, row
 panels, the pad sentinel) have cases of their own.  Needs an NVIDIA GPU and
 nvcc; skips without a card.  Imports no JAX (the card's machine has
@@ -274,7 +275,7 @@ def test_vocab_cache_on_card_matches_cpu():
 
 
 # ---------------------------------------------------------------------------
-# kernel F redesigned: staged and compacted lists, stops inside chunks
+# kernel F redesigned: compacted weighted lists, stops inside op lists
 # ---------------------------------------------------------------------------
 
 def _prefilled(count_dtype, n_keys=600, cap=1024, ml=16, seed=0):
@@ -288,7 +289,7 @@ def _prefilled(count_dtype, n_keys=600, cap=1024, ml=16, seed=0):
 
 @pytest.mark.parametrize("count_dtype", [torch.int32, torch.int64])
 def test_fold_sparse_weighted_lists(count_dtype):
-    """Weighted lists over several staging chunks, 95% zero weights: one
+    """Weighted lists of many 128-entry ballots, 95% zero weights: one
     launch, equal to the plain fold and to the fold of the w > 0 subset."""
     st, pool, rng = _prefilled(count_dtype)
     n = 3000
@@ -311,7 +312,7 @@ def test_fold_sparse_weighted_lists(count_dtype):
 
 def test_fold_rebuild_stop_inside_a_chunk():
     """600 pure reads, then a delete-heavy tail: the first rebuild stop
-    falls inside the second staging chunk.  The stop op is reported,
+    falls between ops 512 and 1023.  The stop op is reported,
     nothing past it is written, and the whole run_ops (which rebuilds
     and relaunches) equals its CPU run."""
     st, pool, rng = _prefilled(torch.int32, n_keys=400, seed=3)
