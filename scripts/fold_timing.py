@@ -90,11 +90,11 @@ def fold_paths(torch, sx, fold, st, entries, vst, vops, reps: int = 10):
     and one vocab-tier epoch's op list ``vops`` (kinds, keys, upd; mode
     0) on the tier's stream state ``vst``.  Returns ``{name: {"call_ms":
     ms per wrapper call over ``reps`` calls between two events,
-    "kernel_ms": mean device ms per launch over ``reps`` traced launches,
-    "launches": launches in the trace, "state": the state after one
-    fold}}`` and the walk steps of each input: the plain version's path
-    lengths (find steps of the weighted keys) in mode 1, ``plen`` in
-    mode 0."""
+    "kernel_ms": mean device ms per launch over the launches that a
+    trace of ``reps`` launches holds, "launches": how many it holds (a
+    trace may miss one), "state": the state after one fold}}`` and the
+    walk steps of each input: the plain version's path lengths (find
+    steps of the weighted keys) in mode 1, ``plen`` in mode 0."""
     keep = entries[1] > 0
     subset = tuple(x[keep] for x in entries)
     n = vops[0].shape[0]

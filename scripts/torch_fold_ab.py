@@ -6,9 +6,10 @@ so that two trees can be compared in one run on one card:
 
 ``PATH`` is a checkout of any commit of the port (for example a parent
 commit unpacked with ``git archive`` into a git-ignored directory);
-its kernels build into its own ``build/``.  The inputs and clocks are
-those of ``chip_smoke.py`` (``scripts/fold_timing.py``), from fixed
-seeds, the same for every tree:
+its kernels build into its own ``build/`` (once: a later run loads
+them).  The inputs and clocks are those of ``chip_smoke.py``
+(``scripts/fold_timing.py``), from fixed seeds, the same for every
+tree:
 
 * the paper-scale prefill (10^5 inserts into ``make(131074, 24)``, one
   F launch), twice, each timed by CUDA events around ``run_ops`` and by
@@ -48,7 +49,9 @@ def main() -> None:
     from repro_torch.core import workload as wl
     from repro_torch.core.splay_cache import SplayVocabCache
     from repro_torch.kernels import build, fold
-    build.build()
+    missing = [n for n in build.SOURCES if not build.lib_path(n).exists()]
+    if missing:
+        build.build(missing)
     dev = torch.device("cuda")
 
     stream, pre = ft.paper_prefill(sx, wl)

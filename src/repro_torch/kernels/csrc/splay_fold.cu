@@ -28,12 +28,13 @@
 //            starts at the head and revisits the top of the list.
 //
 // Three richer designs were measured against this one on the card
-// (PERF.md): staging the lists in shared memory by three more warps,
-// which bought nothing on the op list; a warp walk, the lanes fetching
-// a node's whole column into a shared-memory cache (a column is L + 1
-// rows C slots apart, so each node costs dozens of scattered loads
-// where the walk needs a few); and prefetching each reached node's
-// fields into L1 in one batch.  All three were slower or no faster.
+// (PERF.md): three more warps staging the lists in shared memory, under
+// 1% faster on the weighted fold and slower on the op lists; a warp
+// walk, the lanes fetching a node's whole column into a shared-memory
+// cache (a column is L + 1 rows C slots apart, so each node costs
+// dozens of scattered loads where the walk needs a few), slower on
+// every path; and prefetching each reached node's fields into L1 in one
+// batch, slower on the op lists.
 //
 // The kernel reports where a rebuild is due (after a contains or delete
 // that leaves 2*dhits >= m) and stops there; the wrapper runs the
@@ -54,8 +55,6 @@ constexpr int OP_CONTAINS = 0;
 constexpr int OP_INSERT = 1;
 
 constexpr int kPer = 4;            // weighted entries a lane loads a round
-
-enum Stop { kRunning = 0, kRebuild = 1, kExhausted = 2 };
 
 template <typename T>
 struct State {
@@ -304,10 +303,11 @@ __device__ bool rebuild_due(const Walk<T>& s) {
   return s.m > 0 && 2 * s.dhits >= s.m;
 }
 
-// One op of the run_ops list; returns kExhausted when an insert found
-// no free slot (nothing written), else kRunning.
+// One op of the run_ops list; returns false when an insert found no
+// free slot (nothing written).
 template <typename T>
-__device__ int op_step(Walk<T>& s, int kind, int k, bool u, int& r, int& steps) {
+__device__ bool op_step(Walk<T>& s, int kind, int k, bool u, int& r,
+                        int& steps) {
   int slot;
   r = 0;
   find(s, k, slot, steps);
@@ -329,7 +329,7 @@ __device__ int op_step(Walk<T>& s, int kind, int k, bool u, int& r, int& steps) 
     } else if (present) {
       if (u) update(s, k, T(1));
     } else {
-      if (!link_bottom(s, k)) return kExhausted;
+      if (!link_bottom(s, k)) return false;
       s.size += 1;
       update(s, k, T(1));
     }
@@ -345,7 +345,7 @@ __device__ int op_step(Walk<T>& s, int kind, int k, bool u, int& r, int& steps) 
       s.dhits += T(1);
     }
   }
-  return kRunning;
+  return true;
 }
 
 // mode 0: the run_ops op list (kinds/keys/upd -> res/plen), stopping
@@ -362,7 +362,8 @@ __global__ void __launch_bounds__(32)
   const bool walker = lane == 0;
   Walk<T> s;
   if (walker) s.load(st);
-  int stop = kRunning, stop_at = n;
+  int stop_at = n;
+  bool exhausted = false;
   if (mode == 1) {
     for (int base = start; base < n; base += 32 * kPer) {
       int k[kPer];
@@ -398,15 +399,14 @@ __global__ void __launch_bounds__(32)
       const int kind_n = kinds[j], k_n = keys[j];
       const bool u_n = upd[j];
       int r, steps;
-      if (op_step<T>(s, kind, k, u, r, steps) == kExhausted) {
-        stop = kExhausted;
+      if (!op_step<T>(s, kind, k, u, r, steps)) {
+        exhausted = true;
         stop_at = i;
         break;
       }
       res[i] = r;
       plen[i] = steps;
       if (kind != OP_INSERT && rebuild_due<T>(s)) {
-        stop = kRebuild;
         stop_at = i;
         break;
       }
@@ -418,7 +418,7 @@ __global__ void __launch_bounds__(32)
   if (walker) {
     s.store();
     status[0] = stop_at;
-    status[1] = stop == kExhausted;
+    status[1] = exhausted;
   }
 }
 

@@ -1,14 +1,15 @@
 """PyTorch port, the redesigned kernels F and B5 held on the CPU.
 
 F: the weighted fold on lists that are mostly zero weights (what the
-kernel's staging drops) equals the fold of their ``w > 0`` subset and
+kernel's ballot skips) equals the fold of their ``w > 0`` subset and
 the JAX ``run_contains_batch`` state, field by field, for int32 and
 int64 counts.  B5: the triple counted without the reference's row skip
 (what the cluster kernel computes) equals the JAX ``_kernel_full`` in
 interpret mode and the port's plain version on hot batches where whole
 query blocks are found above the bottom row; and the kernel's launch
 plan (``splay_search.full_plan``: cluster size, column slices, staging
-panels) covers every plane exactly, within a block's shared memory."""
+panels) covers every plane exactly, within a block's shared memory.
+The pointer-chase calibration printed beside F's walk refuses the CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from repro.kernels import splay_search as ssk
 from repro_torch.core import level_arrays as tla
 from repro_torch.core import splaylist as tsx
 from repro_torch.core import workload as twl
+from repro_torch.kernels import calibrate
 from repro_torch.kernels import fold
 from repro_torch.kernels import splay_search as tssk
 from torch_parity import assert_arrays_equal, to_torch_state
@@ -204,3 +206,8 @@ def test_full_plan_partition_sums_to_the_count(width, n_levels):
                     cnt[r] += (panel[4 * n4:, None] <= qs[None, :]).sum(0)
     np.testing.assert_array_equal(cnt, (m[:, None, :] <= qs[None, :, None])
                                   .sum(2))
+
+
+def test_pointer_chase_needs_a_card():
+    with pytest.raises(ValueError, match="only on a CUDA device"):
+        calibrate.chase_ns(1024, 100, device="cpu")

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "tests/test_torch_cuda.py"]))
+    + ["chip_smoke.py", "scripts/fold_timing.py",
+       "scripts/torch_fold_ab.py", "tests/test_torch_cuda.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     names = []
