@@ -25,7 +25,7 @@ Phases:
 3. the main path at the paper's scale (Aksenov et al., arXiv:2008.01009
    §6, Fig. 12: 10^5 keys, Zipf s=1, rebalancing coin p=0.01): a
    10^5-insert prefill through ``run_ops`` (one F launch, timed by
-   CUDA events and traced), ``from_state_device`` at
+   CUDA events), ``from_state_device`` at
    L=24, W=131072, then ``run_serving(aggregate=True,
    plane_search=True)`` over 25 epochs of 4096 contains.  Every epoch's
    plane verdicts must equal the state walk's, the hit rate must be
@@ -53,21 +53,23 @@ Phases:
    call; the fused gather at q=8192 and q=256 also beside the
    reference's composition (B3 + B4 + a where-merge); an L2 probe of
    the hot buffer (an all-hot chunk right after an all-cold one).
-   Kernel F on its three paths (``scripts/fold_timing.py``
-   ``fold_paths``: device time per launch from a trace, and ms per
-   wrapper call by events): a paper-scale epoch's fold list and its
-   ``w > 0`` subset (equal states), one vocab-tier stream epoch, and
-   the prefill launch phase 3 traced; each with its ns per walk step,
-   beside a one-thread pointer chase (``kernels/calibrate.py``: ns per
-   dependent load in L2 and from a 256 MB array).  B5's bound is
-   restated at the card's own int32 rate (SMs x 64 x ``clocks.max.sm``,
-   one compare per element and query) and printed beside the bound
-   with an add per compare and the fp32-rate bound of the earlier runs;
+   B5's bound is restated at the card's own int32 rate (SMs x 64 x
+   ``clocks.max.sm``, one compare per element and query) and printed
+   beside the bound with an add per compare and the fp32-rate bound of
+   the earlier runs;
 7. one paper-scale epoch layer by layer (host clock), and once under
    ``torch.profiler``: the device's busy time is the union of the
    traced kernels' intervals; the same for one vocab-tier lookup of a
    prefill chunk, the same chunk through the reference's composition,
-   and one stream flush.
+   and one stream flush;
+8. kernel F on its three paths (``scripts/fold_timing.py``
+   ``fold_paths``: device time per launch from a trace, and ms per
+   wrapper call by events): the prefill launch, a paper-scale epoch's
+   fold list and its ``w > 0`` subset (equal states), and one
+   vocab-tier stream epoch; each with its ns per walk step, beside a
+   one-thread pointer chase (``kernels/calibrate.py``: ns per
+   dependent load in L2 and from a 256 MB array).  Its traces come
+   after phase 7's, which they would otherwise disturb.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
@@ -471,18 +473,13 @@ def main() -> None:
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
 
-    def prefill_run():
-        t = time.perf_counter()
-        e0.record()
-        out = sx.run_ops(st, *pre_args)
-        e1.record()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
-
-    ((st, res, pre_plen), prefill_s), pre_k = ft.kernel_ms(torch,
-                                                           prefill_run)
+    t = time.perf_counter()
+    e0.record()
+    st, res, pre_plen = sx.run_ops(st, *pre_args)
+    e1.record()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
     prefill_ms = e0.elapsed_time(e1)
-    prefill_k = ft.mean_or_nan(pre_k)
     pre_steps = int(pre_plen.sum())
     check(bool((res == 1).all()) and int(st.size) == N, "prefill lost keys")
     t = time.perf_counter()
@@ -490,10 +487,8 @@ def main() -> None:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     print(f"[3] prefill {N} inserts {prefill_s:.3f} s "
-          f"({N / prefill_s:.0f} ops/s, traced; run_ops by events "
-          f"{prefill_ms:.3f} ms: a state clone and one F launch, the F "
-          f"kernel alone {prefill_k:.3f} ms in the trace, {len(pre_k)} "
-          f"launch(es)); "
+          f"({N / prefill_s:.0f} ops/s; run_ops by events "
+          f"{prefill_ms:.3f} ms: a state clone and one F launch); "
           f"from_state_device {build_s:.4f} s;"
           f" zl={int(st.zl)} max rel height "
           f"{int((st.top[2:N + 2] - st.zl).max())}", flush=True)
@@ -966,12 +961,73 @@ def main() -> None:
           f"{copy_ms:.4f} ms", flush=True)
     del block
 
-    # F on its three paths, twice: one serving epoch's aggregated fold
-    # list on the paper-scale state and its w > 0 subset, and one
-    # vocab-tier stream epoch's op list on the tier's state (V + 2
-    # slots, 33 levels); the prefill (one launch) was traced in phase 3
+    # F's inputs for phases 7 and 8: one paper-scale serving epoch's fold
+    # list, and the vocab tier's stream state after its 32 flushes
+    # (phase 7 flushes again; run_serving leaves this state as it is)
     entries = sx.fold_entries(st3, keys[0], upd[0], aggregate=True)[0]
     vst = cache._stream_st
+
+    # ---- phase 7: where a paper-scale serving epoch's time goes ---------
+    k0 = torch.as_tensor(keys[0], device=dev)
+    u0 = torch.as_tensor(upd[0], device=dev)
+    work = sx.clone(st3)
+    layers = {
+        "search": lambda: ops.splay_search(plane3, k0),
+        "find_batch": lambda: sx.find_batch(st3, k0),
+        "fold_entries": lambda: sx.fold_entries(st3, k0, u0, True),
+        "state_clone": lambda: sx.clone(st3),
+        "fold_kernel": lambda: fold.fold_weighted(sx.clone(work), *entries),
+        "refresh": lambda: dix.refresh_device(work, plane3, max_new=B,
+                                              return_overflow=True),
+        "epoch": lambda: sx.run_epoch(st3, plane3, kinds[0], keys[0],
+                                      upd[0], aggregate=True,
+                                      plane_search=True),
+    }
+    split = {}
+    for name, fn in layers.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        split[name] = round(1e3 * (time.perf_counter() - t) / 5, 4)
+    print(f"[7] one epoch, host clock ms (fold_kernel includes a state "
+          f"clone; fold_entries includes find_batch): {split}", flush=True)
+    traced(torch, "epoch", layers["epoch"], split["epoch"])
+
+    # the vocab tier: one prefill-chunk lookup (one fused gather), the
+    # same chunk through the reference's composition, and one stream flush
+    tier = {"lookup": lambda: cache.lookup(table, batches[-1]),
+            "lookup as the reference composes it":
+                lambda: composition(batches[-1]),
+            "flush": lambda: cache.observe_serving(flushes[0])}
+    for name, fn in tier.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        traced(torch, f"vocab-tier {name}", fn,
+               round(1e3 * (time.perf_counter() - t) / 5, 4))
+
+    # ---- phase 8: kernel F on its three paths, traced ------------------
+    # Last, after phase 7's traces: on the H100 a profiler session that
+    # follows earlier ones in the process has missed its first device
+    # activity (one launch of ten here; phase 7's one-kernel lookup
+    # trace came out empty), so F's traces run after phase 7's.  The
+    # prefill (one launch) again on a fresh state; then, twice, one
+    # serving epoch's aggregated fold list on the paper-scale state and
+    # its w > 0 subset, and one vocab-tier stream epoch's op list on the
+    # tier's state (V + 2 slots, 33 levels)
+    st8 = sx.make(capacity=ft.PAPER_CAPACITY, max_level=ft.PAPER_LEVELS,
+                  device=dev)
+    _, pre_k = ft.kernel_ms(torch, lambda: sx.run_ops(st8, *pre_args))
+    check(len(pre_k) == 1, f"the prefill's trace holds {len(pre_k)} F "
+          "launches of 1")
+    prefill_k = pre_k[0]
+    del st8
     vops = ft.tier_epoch_ops(torch, sx, wl, V, dev)
     f_runs = {}
     f_states = []
@@ -1026,7 +1082,7 @@ def main() -> None:
     def rnd(xs):
         return [round(x, 4) for x in xs]
 
-    print(f"[6] F epoch fold: {n_entries} entries, {n_weighted} weighted; "
+    print(f"[8] F epoch fold: {n_entries} entries, {n_weighted} weighted; "
           f"device ms per launch (traced): full list {fm['epoch_full']:.4f}"
           f", its w > 0 subset {fm['epoch_subset']:.4f} (runs "
           f"{rnd(f_k['epoch_full'])} / {rnd(f_k['epoch_subset'])}, over "
@@ -1035,65 +1091,21 @@ def main() -> None:
           f"{rnd(f_call['epoch_full'])} / {rnd(f_call['epoch_subset'])}; "
           f"plain fold {f_plain:.1f} ms on the host CPU (a scalar loop)",
           flush=True)
-    print(f"[6] F vocab-tier epoch fold {fm['vocab_epoch']:.4f} ms per "
+    print(f"[8] F vocab-tier epoch fold {fm['vocab_epoch']:.4f} ms per "
           f"launch (runs {rnd(f_k['vocab_epoch'])}, over "
           f"{f_n['vocab_epoch']} traced launches of 10; per call "
           f"{rnd(f_call['vocab_epoch'])}); prefill launch {prefill_k:.3f} "
-          f"ms; ns per walk step: epoch "
+          f"ms (traced; {prefill_ms:.3f} ms by events in phase 3); ns per "
+          f"walk step: epoch "
           f"{ns_step['epoch']:.1f} ({f_steps['epoch']} find steps of the "
           f"weighted keys), vocab epoch {ns_step['vocab_epoch']:.1f} "
           f"({f_steps['vocab_epoch']} plen steps), prefill "
           f"{ns_step['prefill']:.1f} ({pre_steps} plen steps; an insert "
           f"walks about three times)", flush=True)
-    print(f"[6] pointer chase, one thread: {chase['l2']:.1f} ns per "
+    print(f"[8] pointer chase, one thread: {chase['l2']:.1f} ns per "
           f"dependent load in L2 (4 MB), {chase['hbm']:.1f} ns from a "
           f"256 MB array; all F states equal their plain folds, so the "
           f"full list's equal the subset's", flush=True)
-
-    # ---- phase 7: where a paper-scale serving epoch's time goes ---------
-    k0 = torch.as_tensor(keys[0], device=dev)
-    u0 = torch.as_tensor(upd[0], device=dev)
-    work = sx.clone(st3)
-    layers = {
-        "search": lambda: ops.splay_search(plane3, k0),
-        "find_batch": lambda: sx.find_batch(st3, k0),
-        "fold_entries": lambda: sx.fold_entries(st3, k0, u0, True),
-        "state_clone": lambda: sx.clone(st3),
-        "fold_kernel": lambda: fold.fold_weighted(sx.clone(work), *entries),
-        "refresh": lambda: dix.refresh_device(work, plane3, max_new=B,
-                                              return_overflow=True),
-        "epoch": lambda: sx.run_epoch(st3, plane3, kinds[0], keys[0],
-                                      upd[0], aggregate=True,
-                                      plane_search=True),
-    }
-    split = {}
-    for name, fn in layers.items():
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        split[name] = round(1e3 * (time.perf_counter() - t) / 5, 4)
-    print(f"[7] one epoch, host clock ms (fold_kernel includes a state "
-          f"clone; fold_entries includes find_batch): {split}", flush=True)
-    traced(torch, "epoch", layers["epoch"], split["epoch"])
-
-    # the vocab tier: one prefill-chunk lookup (one fused gather), the
-    # same chunk through the reference's composition, and one stream flush
-    tier = {"lookup": lambda: cache.lookup(table, batches[-1]),
-            "lookup as the reference composes it":
-                lambda: composition(batches[-1]),
-            "flush": lambda: cache.observe_serving(flushes[0])}
-    for name, fn in tier.items():
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        traced(torch, f"vocab-tier {name}", fn,
-               round(1e3 * (time.perf_counter() - t) / 5, 4))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,4 @@
-"""Kernel F's inputs and timings, shared by ``chip_smoke.py`` (phase 6)
+"""Kernel F's inputs and timings, shared by ``chip_smoke.py`` (phase 8)
 and ``scripts/torch_fold_ab.py``.
 
 Every function takes the modules of the tree under test as arguments
@@ -66,11 +66,14 @@ def tier_epoch_ops(torch, sx, wl, vocab: int, device):
 def kernel_ms(torch, fn, match: str = "fold_kernel"):
     """Run ``fn`` once under ``torch.profiler``; returns its result and
     the device ms of each traced kernel whose name holds ``match``, in
-    launch order (an empty list when the trace holds none)."""
+    launch order (an empty list when the trace holds none).  A session
+    that follows others in the process can miss its first device
+    activity, so a one-element fill runs first and takes that place."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.ones((1,), device="cuda")
         out = fn()
         torch.cuda.synchronize()
     ev = sorted((e.time_range.start, e.time_range.end)

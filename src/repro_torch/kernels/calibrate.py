@@ -20,7 +20,8 @@ from repro_torch.kernels import build
 def chase_ns(n: int, steps: int, seed: int = 4,
              device: str = "cuda") -> float:
     """ns per dependent load over ``steps`` loads of a random cycle of
-    ``n`` slots, read once before the timed chase.  Two chases of
+    ``n`` slots, read once before the timed chase.  After an untimed
+    chase (the first launch also loads the module), two chases of
     ``steps // 10`` and ``steps`` loads, timed by CUDA events; their
     difference over ``0.9 * steps`` drops the launch."""
     dev = torch.device(device)
@@ -39,7 +40,7 @@ def chase_ns(n: int, steps: int, seed: int = 4,
     out = torch.empty((1,), dtype=torch.int32, device=dev)
     nxt.sum()
     ms = []
-    for n_steps in (steps // 10, steps):
+    for n_steps in (steps // 10, steps // 10, steps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -49,4 +50,4 @@ def chase_ns(n: int, steps: int, seed: int = 4,
         build.check(lib, code, "pointer_chase launch")
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
-    return 1e6 * (ms[1] - ms[0]) / (steps - steps // 10)
+    return 1e6 * (ms[2] - ms[1]) / (steps - steps // 10)
