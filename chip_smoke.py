@@ -472,7 +472,6 @@ def main() -> None:
                  device=dev)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-
     t = time.perf_counter()
     e0.record()
     st, res, pre_plen = sx.run_ops(st, *pre_args)
