@@ -63,9 +63,10 @@ def tier_epoch_ops(torch, sx, wl, vocab: int, device):
                  for x in (kinds, tok, upd))
 
 
-def kernel_ms(torch, fn, match: str = "fold_kernel"):
+def kernel_ms(torch, fn, match=("fold_kernel",)):
     """Run ``fn`` once under ``torch.profiler``; returns its result and
-    the device ms of each traced kernel whose name holds ``match``, in
+    the device ms of each traced kernel whose name holds one of the
+    strings ``match``, in
     launch order (an empty list when the trace holds none).  A session
     that follows others in the process can miss its first device
     activity, so a one-element fill runs first and takes that place."""
@@ -78,7 +79,8 @@ def kernel_ms(torch, fn, match: str = "fold_kernel"):
         torch.cuda.synchronize()
     ev = sorted((e.time_range.start, e.time_range.end)
                 for e in prof.events()
-                if e.device_type == DeviceType.CUDA and match in e.name)
+                if e.device_type == DeviceType.CUDA
+                and any(m in e.name for m in match))
     return out, [(b - a) / 1e3 for a, b in ev]
 
 

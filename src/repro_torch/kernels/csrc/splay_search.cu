@@ -89,157 +89,6 @@ __device__ __forceinline__ void cover(int l, int h, int W, int tile,
   nt = max(-floordiv(base - (end + 1), tile), 1);
 }
 
-__global__ void tiered_kernel(const int* __restrict__ keys,
-                              const int* __restrict__ rank_map,
-                              const int* __restrict__ widths,
-                              const int* __restrict__ queries, int L,
-                              int W, int nq, bool* __restrict__ found_out,
-                              int* __restrict__ rank_out,
-                              int* __restrict__ level_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const int q = queries[i];
-  int lo = -1, hi = widths[0], p = -1, level = L;
-  bool found = false;
-  for (int r = 0; r < L; ++r) {
-    const int* row = keys + static_cast<int64_t>(r) * W;
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) / 2;
-      if (__ldg(row + clampi(mid, 0, W - 1)) <= q) {
-        lo = mid;
-      } else {
-        hi = mid;
-      }
-    }
-    p = lo;
-    const bool hit = p >= 0 && __ldg(row + clampi(p, 0, W - 1)) == q;
-    if (hit && !found) {
-      level = r;
-      found = true;
-    }
-    if (r < L - 1) {
-      const int* rm = rank_map + static_cast<int64_t>(r) * W;
-      const int next_w = widths[r + 1];
-      const bool edge = p + 1 >= W || widths[r] == 0;
-      const int lo_n = p >= 0 ? __ldg(rm + clampi(p, 0, W - 1)) : -1;
-      hi = edge ? next_w : __ldg(rm + clampi(p + 1, 0, W - 1));
-      lo = lo_n;
-    }
-  }
-  found_out[i] = found;
-  rank_out[i] = p;
-  level_out[i] = level;
-}
-
-// union [ulo, uhi) of the unresolved lanes' windows (resolved lanes
-// contribute W / 0); every thread gets the result
-__device__ void union_window(int lo, int hi, bool resolved, int W,
-                             int* s_lo, int* s_hi, int& ulo, int& uhi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  const int in_warp = min(32, static_cast<int>(blockDim.x) - warp * 32);
-  const unsigned mask = in_warp == 32 ? 0xffffffffu : ((1u << in_warp) - 1);
-  const int a = __reduce_min_sync(mask, resolved ? W : lo);
-  const int b = __reduce_max_sync(mask, resolved ? 0 : hi);
-  if (lane == 0) {
-    s_lo[warp] = a;
-    s_hi[warp] = b;
-  }
-  __syncthreads();
-  ulo = s_lo[0];
-  uhi = s_hi[0];
-  for (int w = 1; w < nwarps; ++w) {
-    ulo = min(ulo, s_lo[w]);
-    uhi = max(uhi, s_hi[w]);
-  }
-  __syncthreads();
-}
-
-__global__ void pipelined_kernel(const int* __restrict__ keys,
-                                 const int* __restrict__ rank_map,
-                                 const int* __restrict__ bot_rank,
-                                 const int* __restrict__ widths,
-                                 const int* __restrict__ queries, int L,
-                                 int W, int n_live, int tile,
-                                 bool* __restrict__ found_out,
-                                 int* __restrict__ rank_out,
-                                 int* __restrict__ level_out,
-                                 int* __restrict__ bytes_out) {
-  __shared__ int s_lo[32], s_hi[32];
-  const int gidx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool is_pad = gidx >= n_live;
-  const int q = queries[gidx];
-  const int bot_w = widths[L - 1];
-
-  int lo = is_pad ? 0 : -1, hi = is_pad ? 0 : widths[0];
-  int rank = 0, level = L;
-  bool found = false, resolved = is_pad;
-  bool done = __syncthreads_and(resolved);
-
-  int ulo, uhi, base, nt;
-  union_window(lo, hi, resolved, W, s_lo, s_hi, ulo, uhi);
-  cover(ulo, uhi, W, tile, base, nt);
-  int fetched = done ? 0 : 3 * nt * tile;  // meaningful on thread 0
-
-  for (int r = 0; r < L && !done; ++r) {
-    const int w_r = widths[r];
-    const int next_w = widths[min(r + 1, L - 1)];
-    const int* row = keys + static_cast<int64_t>(r) * W;
-    const int* rm = rank_map + static_cast<int64_t>(r) * W;
-    const int* br = bot_rank + static_cast<int64_t>(r) * W;
-
-    // foresight: bound row r+1's window union through row r's rank map
-    union_window(lo, hi, resolved, W, s_lo, s_hi, ulo, uhi);
-    const int l1 = ulo < 0 ? -1 : __ldg(rm + clampi(ulo, 0, W - 1));
-    const int h1 = (uhi >= W || w_r == 0)
-                       ? next_w
-                       : __ldg(rm + clampi(uhi, 0, W - 1));
-    cover(l1, h1, W, tile, base, nt);
-    if (r < L - 1) fetched += 3 * nt * tile;
-
-    if (!resolved) {
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) / 2;
-        if (__ldg(row + clampi(mid, 0, W - 1)) <= q) {
-          lo = mid;
-        } else {
-          hi = mid;
-        }
-      }
-      const int p = lo;
-      const int pc = clampi(p, 0, W - 1), pc1 = clampi(p + 1, 0, W - 1);
-      const bool edge = p + 1 >= W || w_r == 0;
-      const bool hit = p >= 0 && __ldg(row + pc) == q;
-      const int bl = p >= 0 ? __ldg(br + pc) : -1;
-      const int bh = edge ? bot_w : __ldg(br + pc1);
-      const int lo_n = p >= 0 ? __ldg(rm + pc) : -1;
-      const int hi_n = edge ? next_w : __ldg(rm + pc1);
-      if (hit) {
-        level = r;
-        rank = bl;
-        found = true;
-        resolved = true;
-      } else if (bh - bl == 1) {  // bottom rank pinned
-        rank = bl;
-        resolved = true;
-      }
-      lo = resolved ? 0 : lo_n;
-      hi = resolved ? 0 : hi_n;
-    }
-    done = __syncthreads_and(resolved);
-  }
-  found_out[gidx] = found;
-  rank_out[gidx] = rank;
-  level_out[gidx] = level;
-  if (threadIdx.x == 0) bytes_out[blockIdx.x] = fetched * 4;
-}
-
-constexpr int kFullTile = 128;     // queries of a cluster tile
-constexpr int kFullR = 8;          // queries a thread holds
-constexpr int kFullThreads = 256;
-constexpr int kFullGroups = kFullTile / kFullR;        // 16
-constexpr int kFullParts = kFullThreads / kFullGroups; // 16 column parts
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -254,6 +103,250 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
 }
+
+constexpr int kLast = 3;  // candidates a row's last trip fetches whole
+constexpr int kFan = 4;   // a narrowing trip reads kFan - 1 pivots
+
+__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// entries of row r a block stages from each of keys, rank_map and
+// bot_rank: the live prefix and its pad entry, rounded up to a 16-byte
+// word, at most the width (descent_plan in splay_search.py mirrors it)
+__device__ __forceinline__ int stage_len(int w, int W) {
+  return min(round4(w + 1), W);
+}
+
+// rows of the plane the block stages: the leading rows whose three
+// arrays fit the budget together
+__device__ __forceinline__ int staged_rows(const int* w, int L, int W,
+                                           int budget) {
+  int off = 0, ns = 0;
+  for (; ns < L; ++ns) {
+    const int need = 12 * round4(stage_len(w[ns], W));
+    if (off + need > budget) break;
+    off += need;
+  }
+  return ns;
+}
+
+// a row's entry j: its staged copy (j < n) or global memory through L1
+__device__ __forceinline__ int rd(const int* g, const int* s, int n, int j) {
+  return j < n ? s[j] : __ldg(g + j);
+}
+
+// Dynamic shared memory: mbarriers [L] (8 B), widths [L], B2's per-row
+// union and run flag [3, L], then the staging area (budget bytes).
+__host__ __device__ __forceinline__ int descent_fixed_smem(int L) {
+  return (24 * L + 127) & ~127;
+}
+
+template <bool kPipelined>
+__global__ void descent_kernel(const int* __restrict__ keys,
+                               const int* __restrict__ rank_map,
+                               const int* __restrict__ bot_rank,
+                               const int* __restrict__ widths,
+                               const int* __restrict__ queries, int L, int W,
+                               int n_live, int tile, int budget, int bulk,
+                               bool* __restrict__ found_out,
+                               int* __restrict__ rank_out,
+                               int* __restrict__ level_out,
+                               int* __restrict__ bytes_out,
+                               int* __restrict__ staged_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int* s_w = reinterpret_cast<int*>(smem + 8 * L);
+  int* s_lo = s_w + L;
+  int* s_hi = s_lo + L;
+  int* s_run = s_hi + L;
+  int* stage = reinterpret_cast<int*>(smem + descent_fixed_smem(L));
+  const int t = threadIdx.x, T = blockDim.x;
+
+  for (int r = t; r < L; r += T) {
+    s_w[r] = widths[r];
+    s_lo[r] = W;
+    s_hi[r] = 0;
+    s_run[r] = 0;
+  }
+  if (t == 0 && bulk) {  // one TMA bulk copy per array and staged row
+    const int ns = staged_rows(widths, L, W, budget);
+    for (int r = 0; r < ns; ++r)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(bars + r)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    int off = 0;
+    for (int r = 0; r < ns; ++r) {
+      const int n = stage_len(widths[r], W), n4 = round4(n);
+      const uint32_t bar = smem_addr(bars + r);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar), "r"(12u * n) : "memory");
+      const int* src[3] = {keys, rank_map, bot_rank};
+      for (int a = 0; a < 3; ++a)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+            "::bytes [%0], [%1], %2, [%3];"
+            :: "r"(smem_addr(stage + off + a * n4)),
+               "l"(src[a] + static_cast<int64_t>(r) * W), "r"(4u * n),
+               "r"(bar) : "memory");
+      off += 3 * n4;
+    }
+  }
+  __syncthreads();
+  const int ns = staged_rows(s_w, L, W, budget);
+  if (!bulk && ns > 0) {  // plain loads, then one barrier
+    int off = 0;
+    for (int r = 0; r < ns; ++r) {
+      const int n = stage_len(s_w[r], W), n4 = round4(n);
+      const int64_t base = static_cast<int64_t>(r) * W;
+      for (int e = t; e < 3 * n; e += T) {
+        const int a = e / n, j = e - a * n;
+        const int* src = a == 0 ? keys : a == 1 ? rank_map : bot_rank;
+        stage[off + a * n4 + j] = __ldg(src + base + j);
+      }
+      off += 3 * n4;
+    }
+    __syncthreads();
+  }
+  if (blockIdx.x == 0 && t == 0) *staged_out = ns;
+
+  const int gidx = blockIdx.x * T + t;
+  const int total = gridDim.x * T;  // B2: the padded batch
+  const int q = gidx < (kPipelined ? total : n_live) ? queries[gidx] : 0;
+  const int bot_w = s_w[L - 1];
+  int lo = -1, hi = s_w[0], rank = 0, level = L;
+  bool found = false, resolved = gidx >= n_live;
+  int off = 0;
+  for (int r = 0; r < L && !resolved; ++r) {
+    const int w_r = s_w[r], next_w = s_w[min(r + 1, L - 1)];
+    const int64_t base = static_cast<int64_t>(r) * W;
+    const int *gk = keys + base, *grm = rank_map + base, *gbr = bot_rank + base;
+    const int *sk = stage, *srm = stage, *sbr = stage;
+    int n = 0;
+    if (r < ns) {
+      n = stage_len(w_r, W);
+      const int n4 = round4(n);
+      sk = stage + off;
+      srm = sk + n4;
+      sbr = srm + n4;
+      off += 3 * n4;
+      if (bulk) bar_wait(smem_addr(bars + r), 0);
+    }
+    if (kPipelined) {  // this lane is unresolved on entry to row r
+      atomicMin(s_lo + r, lo);
+      atomicMax(s_hi + r, hi);
+      s_run[r] = 1;
+    }
+
+    // narrowing trips: kFan - 1 independent pivots each
+    while (hi - lo - 1 > kLast) {
+      const int64_t span = static_cast<int64_t>(hi) - lo;
+      int c = 0;
+#pragma unroll
+      for (int k = 1; k < kFan; ++k) {
+        const int j = lo + static_cast<int>(k * span / kFan);
+        c += rd(gk, sk, n, clampi(j, 0, W - 1)) <= q;
+      }
+      const int nlo = lo + static_cast<int>(c * span / kFan);
+      hi = lo + static_cast<int>((c + 1) * span / kFan);
+      lo = nlo;
+    }
+
+    // the last trip: every candidate key, and the rank-map and bot-rank
+    // entries p and p + 1 can take, all loads independent
+    const bool need_rm = r < L - 1, need_br = kPipelined || r < L - 1;
+    int kv[kLast + 1], rv[kLast + 2], bv[kLast + 2];
+#pragma unroll
+    for (int k = 0; k <= kLast + 1; ++k) {
+      const int j = lo + k;
+      if (k <= kLast)
+        kv[k] = (k == 0 ? lo >= 0 : j < hi) ? rd(gk, sk, n, clampi(j, 0, W - 1))
+                                            : 0;
+      // entry j serves as p (j < hi, or lo itself) or as p + 1 (never
+      // read past the width or in an empty row: edge)
+      const bool in = k == 0 ? lo >= 0
+                             : j < W && (k == 1 || j <= hi) &&
+                                   !(w_r == 0 && j >= hi);
+      const int jc = clampi(j, 0, W - 1);
+      rv[k] = in && need_rm ? rd(grm, srm, n, jc) : 0;
+      bv[k] = in && need_br ? rd(gbr, sbr, n, jc) : 0;
+    }
+    int c = 0;
+#pragma unroll
+    for (int k = 1; k <= kLast; ++k) c += (lo + k < hi) && kv[k] <= q;
+    int kp = kv[0], r0 = rv[0], r1 = rv[1], b0 = bv[0], b1 = bv[1];
+#pragma unroll
+    for (int k = 1; k <= kLast; ++k)
+      if (k == c) {
+        kp = kv[k];
+        r0 = rv[k];
+        r1 = rv[k + 1];
+        b0 = bv[k];
+        b1 = bv[k + 1];
+      }
+    const int p = lo + c;
+    const bool edge = p + 1 >= W || w_r == 0;
+    const bool hit = p >= 0 && kp == q;
+    const int bl = p >= 0 ? b0 : -1, bh = edge ? bot_w : b1;
+    if (!kPipelined && r == L - 1) {  // B1's bottom row: rank = p
+      if (hit) {
+        found = true;
+        level = r;
+      }
+      rank = p;
+      resolved = true;
+    } else if (hit) {
+      found = true;
+      level = r;
+      rank = bl;
+      resolved = true;
+    } else if (bh - bl == 1) {  // bottom rank pinned
+      rank = bl;
+      resolved = true;
+    }
+    lo = p >= 0 ? r0 : -1;
+    hi = edge ? next_w : r1;
+  }
+  if (kPipelined ? gidx < total : gidx < n_live) {
+    found_out[gidx] = found;
+    rank_out[gidx] = rank;
+    level_out[gidx] = level;
+  }
+
+  if (kPipelined) {  // the reference's issue-time byte count, from the unions
+    __syncthreads();
+    if (t < 32) {
+      int sum = 0;
+      for (int r = t; r < L - 1; r += 32) {
+        if (!s_run[r]) continue;
+        const int* rm = rank_map + static_cast<int64_t>(r) * W;
+        const int ulo = s_lo[r], uhi = s_hi[r];
+        const int l1 = ulo < 0 ? -1 : __ldg(rm + clampi(ulo, 0, W - 1));
+        const int h1 = (uhi >= W || s_w[r] == 0)
+                           ? s_w[r + 1]
+                           : __ldg(rm + clampi(uhi, 0, W - 1));
+        int cb, nt;
+        cover(l1, h1, W, tile, cb, nt);
+        sum += 3 * nt * tile;
+      }
+      sum = __reduce_add_sync(T >= 32 ? 0xffffffffu : (1u << T) - 1, sum);
+      if (t == 0) {
+        if (s_run[0]) {
+          int cb, nt;
+          cover(s_lo[0], s_hi[0], W, tile, cb, nt);
+          sum += 3 * nt * tile;
+        }
+        bytes_out[blockIdx.x] = sum * 4;
+      }
+    }
+  }
+  if (bulk && t == 0)  // no copy may land after the block has left
+    for (int r = 0; r < ns; ++r) bar_wait(smem_addr(bars + r), 0);
+}
+
+constexpr int kFullTile = 128;     // queries of a cluster tile
+constexpr int kFullR = 8;          // queries a thread holds
+constexpr int kFullThreads = 256;
+constexpr int kFullGroups = kFullTile / kFullR;        // 16
+constexpr int kFullParts = kFullThreads / kFullGroups; // 16 column parts
 
 // Dynamic shared memory: mbarrier (16 B), queries [tile], counts
 // [L, tile], hit flags [L, tile] (rounded to 16 B), panel [prows, pcols].
@@ -388,29 +481,38 @@ __global__ void __launch_bounds__(kFullThreads)
 
 }  // namespace
 
-extern "C" int splay_search_tiered(const int* keys, const int* rank_map,
-                                   const int* widths, const int* queries,
-                                   int L, int W, int nq, int block,
-                                   bool* found, int* rank, int* level,
-                                   void* stream) {
-  const int grid = (nq + block - 1) / block;
-  tiered_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, rank_map, widths, queries, L, W, nq, found, rank, level);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int splay_search_pipelined(const int* keys, const int* rank_map,
-                                      const int* bot_rank,
-                                      const int* widths,
-                                      const int* queries, int L, int W,
-                                      int n_blocks, int query_block,
-                                      int n_live, int tile, bool* found,
-                                      int* rank, int* level, int* bytes,
-                                      void* stream) {
-  pipelined_kernel<<<n_blocks, query_block, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, rank_map, bot_rank, widths, queries, L, W, n_live, tile, found,
-      rank, level, bytes);
+// B1 (pipelined = 0) and B2 (pipelined = 1): one block of `block`
+// threads per `block` queries.  B1's n_live is the query count and its
+// rank the bottom row's p; B2's lanes at or past n_live are batch
+// padding, resolved from the start, and bytes[block] gets its count.
+// `budget` (a multiple of 16) bounds the staged rows; the block asks
+// for descent_fixed_smem(L) + budget bytes of dynamic shared memory.
+extern "C" int splay_descent(int pipelined, const int* keys,
+                             const int* rank_map, const int* bot_rank,
+                             const int* widths, const int* queries, int L,
+                             int W, int n_blocks, int block, int n_live,
+                             int tile, int budget, int bulk, bool* found,
+                             int* rank, int* level, int* bytes, int* staged,
+                             void* stream) {
+  const int smem = descent_fixed_smem(L) + budget;
+  static int set_bytes[2] = {48 * 1024, 48 * 1024};
+  cudaError_t err;
+  if (smem > set_bytes[pipelined]) {  // once per size: not under capture
+    err = cudaFuncSetAttribute(
+        pipelined ? descent_kernel<true> : descent_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set_bytes[pipelined] = smem;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pipelined)
+    descent_kernel<true><<<n_blocks, block, smem, s>>>(
+        keys, rank_map, bot_rank, widths, queries, L, W, n_live, tile,
+        budget, bulk, found, rank, level, bytes, staged);
+  else
+    descent_kernel<false><<<n_blocks, block, smem, s>>>(
+        keys, rank_map, bot_rank, widths, queries, L, W, n_live, tile,
+        budget, bulk, found, rank, level, bytes, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,19 +2,26 @@
 the replicated half of ``repro.kernels.splay_search``.
 
 Each splay level is a dense sorted row; a query descends rows top-down
-(row 0 = hottest), binary-searching the rank window its predecessor in
-the row above bounds (rows are nested).  Two descents compute the same
-``(found, rank, level_found)`` triple, each as a CUDA kernel
-(``csrc/splay_search.cu``) beside its plain PyTorch version:
+(row 0 = hottest), searching the rank window its predecessor in the row
+above bounds (rows are nested).  Two descents compute the same
+``(found, rank, level_found)`` triple on one CUDA kernel, the descent
+engine (``csrc/splay_search.cu``), each beside its plain PyTorch
+version:
 
-* tiered (B1): every row, every query — :func:`splay_search_tiered_plain`;
-* pipelined (B2): query blocks that stop once every lane has resolved
-  (a hit answered through ``bot_rank``, or a width-1 bottom-row
-  projection), plus the reference's per-block issue-time byte counter
-  of its ``gcd(W, 256)``-lane tile fetches —
-  :func:`splay_search_pipelined_plain`.  Widths whose tile count
+* tiered (B1): one thread per query, each lane walking until it
+  resolves — :func:`splay_search_tiered_plain`;
+* pipelined (B2): the same walk in query blocks, plus the reference's
+  per-block issue-time byte counter of its ``gcd(W, 256)``-lane tile
+  fetches, rebuilt from per-row unions of the unresolved lanes' windows
+  — :func:`splay_search_pipelined_plain`.  Widths whose tile count
   exceeds 64 take the tiered descent and report its whole-row byte
   model, exactly as the reference does.
+
+A lane resolves on a hit (rank ``bot_rank[r, p]``) or once its window's
+projection onto the bottom row has width 1; within a row it reads its
+window's few candidates at once instead of probing them one by one, so
+each row is one dependent trip.  Each block stages the plane's leading
+rows in shared memory (:func:`descent_plan`).
 
 A third, the seed baseline (B5), counts ``row <= q`` across every row's
 full width instead of descending — :func:`splay_search_full_plain`.
@@ -51,11 +58,23 @@ DEFAULT_QUERY_BLOCK = 256
 # that is <= 256.  Widths with more tiles than this take the tiered
 # descent (the reference's rule, kept with its byte model).
 _MAX_PIPE_TILES = 64
-_TIERED_BLOCK = 256
+_SMEM_BLOCK = 232448               # 227 KB of shared memory a block
+
+# The descent engine (B1 and B2): a narrowing trip reads _FAN - 1 pivots
+# at once; a window of at most _LAST candidates takes one last trip that
+# fetches them all with the rank-map and bot-rank entries p and p + 1
+# can take.  B1 runs _TIERED_BLOCK queries a block; each block stages
+# the plane's leading rows in _DESCENT_BUDGET bytes of shared memory.
+_FAN, _LAST = 4, 3
+_TIERED_BLOCK = 128
+_DESCENT_BUDGET = 98304
 
 # launches of the CUDA kernels (plain CPU runs do not count)
 LAUNCHES = {"splay_search_tiered": 0, "splay_search_pipelined": 0,
             "splay_search_full": 0}
+# rows the last launch of each descent staged (a one-element device
+# tensor, read only by checks: the wrappers never read it back)
+STAGED = {"splay_search_tiered": None, "splay_search_pipelined": None}
 
 
 def rank_windows(level_keys: torch.Tensor) -> torch.Tensor:
@@ -138,64 +157,174 @@ def _pad_queries(queries: torch.Tensor, query_block: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# B1: tiered descent
+# B1 and B2: one descent engine (csrc/splay_search.cu descent_kernel)
 # ---------------------------------------------------------------------------
 
-def splay_search_tiered_plain(level_keys, rank_map, widths, queries):
-    """Plain version of B1: the rank-windowed descent, all queries at
-    once, row by row, with the reference's fixed probe count.  Returns
-    ``(found bool, rank int32, level_found int32)``."""
+class DescentPlan(NamedTuple):
+    rows: int         # leading rows a block stages in shared memory
+    nbytes: int       # their keys, rank-map and bot-rank entries, bytes
+    bulk: bool        # TMA bulk copies (16-byte rows), else plain loads
+    smem: int         # dynamic shared memory a block asks for
+
+
+def _descent_fixed_smem(n_levels: int) -> int:
+    """mbarriers [L] + widths [L] + B2's row unions and flags [3, L]."""
+    return (24 * n_levels + 127) // 128 * 128
+
+
+def _stage_budget(n_levels: int, budget: int) -> int:
+    """The staging bytes a block gets: ``budget`` cut to what a block's
+    shared memory leaves beside the fixed part, in 16-byte words."""
+    room = _SMEM_BLOCK - _descent_fixed_smem(n_levels)
+    return max(0, min(int(budget), room)) // 16 * 16
+
+
+def _stage_len(w: int, width: int) -> int:
+    """Entries of a row staged per array: the live prefix and its pad
+    entry, rounded up to a 16-byte word, at most the width."""
+    return min((w + 1 + 3) // 4 * 4, width)
+
+
+def descent_plan(widths, width: int, budget: int = None,
+                 aligned: bool = True) -> DescentPlan:
+    """The descent kernel's staging, which the kernel itself decides on
+    the card from the widths: the leading rows whose keys, rank-map and
+    bot-rank entries (:func:`_stage_len` each, in 16-byte words) fit the
+    budget together.  ``aligned``: the three arrays' bases are 16-byte
+    multiples, which with ``width % 4 == 0`` lets the rows go by TMA bulk
+    copies."""
+    widths = [int(w) for w in widths]
+    n_levels = len(widths)
+    budget = _stage_budget(n_levels, _DESCENT_BUDGET if budget is None
+                           else budget)
+    off = rows = 0
+    for w in widths:
+        need = 12 * ((_stage_len(w, width) + 3) // 4 * 4)
+        if off + need > budget:
+            break
+        off += need
+        rows += 1
+    return DescentPlan(rows, off, bool(aligned and width % 4 == 0),
+                       _descent_fixed_smem(n_levels) + budget)
+
+
+def _row_step(row, rm_row, br_row, lo, hi, q, width: int, w_r: int,
+              next_w: int, bot_w: int, active):
+    """One row of the descent for the ``active`` lanes, as the kernel
+    runs it: narrowing trips of ``_FAN - 1`` pivots while the window
+    ``(lo, hi)`` holds more than ``_LAST`` candidates, then the count of
+    the candidates ``<= q``.  On sorted rows the count is the binary
+    search's predecessor.  Returns ``(p, hit, bl, bh, lo_n, hi_n)``:
+    the predecessor, its hit, its bottom-row projection ``[bl, bh)``
+    and the next row's window (int64)."""
+    def at(t, j):
+        return t[torch.clamp(j, 0, width - 1)].long()
+
+    while True:
+        nar = active & (hi - lo - 1 > _LAST)
+        if not bool(nar.any()):
+            break
+        span = hi - lo
+        c = sum((at(row, lo + k * span // _FAN) <= q).long()
+                for k in range(1, _FAN))
+        lo, hi = (torch.where(nar, lo + c * span // _FAN, lo),
+                  torch.where(nar, lo + (c + 1) * span // _FAN, hi))
+    c = sum(((lo + k < hi) & (at(row, lo + k) <= q)).long()
+            for k in range(1, _LAST + 1))
+    p = lo + c
+    edge = (p + 1 >= width) | (w_r == 0)
+    hit = (p >= 0) & (at(row, p) == q)
+    bl = torch.where(p >= 0, at(br_row, p), -1)
+    bh = torch.where(edge, bot_w, at(br_row, p + 1))
+    lo_n = torch.where(p >= 0, at(rm_row, p), -1)
+    hi_n = torch.where(edge, next_w, at(rm_row, p + 1))
+    return p, hit, bl, bh, lo_n, hi_n
+
+
+def splay_search_tiered_plain(level_keys, rank_map, widths, queries,
+                              bot_rank=None):
+    """Plain version of B1, all queries at once, row by row: each lane
+    walks until it resolves — a hit (rank ``bot_rank[r, p]``), or a
+    width-1 bottom-row projection (rank pinned) — else to the bottom
+    row, whose ``p`` is its rank.  On a packed plane the triple is the
+    full walk's: no later row changes ``level_found``, and the bottom
+    row's ``p`` is the projection.  ``bot_rank`` is derived when
+    absent.  Returns ``(found bool, rank int32, level_found int32)``."""
+    if bot_rank is None:
+        bot_rank = bottom_ranks(level_keys)
     n_levels, width = level_keys.shape
     dev = level_keys.device
-    q = queries
-    nq = q.shape[0]
     w = widths.tolist()
-    lo = torch.full((nq,), -1, dtype=torch.int32, device=dev)
-    hi = torch.full((nq,), w[0], dtype=torch.int32, device=dev)
+    nq = queries.shape[0]
+    q = queries.long()
+    lo = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+    hi = torch.full((nq,), w[0], dtype=torch.int64, device=dev)
     found = torch.zeros((nq,), dtype=torch.bool, device=dev)
-    level = torch.full((nq,), n_levels, dtype=torch.int32, device=dev)
-    p = lo
+    resolved = torch.zeros((nq,), dtype=torch.bool, device=dev)
+    level = torch.full((nq,), n_levels, dtype=torch.int64, device=dev)
+    rank = torch.zeros((nq,), dtype=torch.int64, device=dev)
     for r in range(n_levels):
-        row = level_keys[r]
-        for _ in range(_n_steps(width)):
-            active = hi - lo > 1
-            mid = torch.div(lo + hi, 2, rounding_mode="floor")
-            le = row[torch.clamp(mid, 0, width - 1).long()] <= q
-            lo, hi = (torch.where(active & le, mid, lo),
-                      torch.where(active & ~le, mid, hi))
-        p = lo
-        pc = torch.clamp(p, 0, width - 1).long()
-        hit = (p >= 0) & (row[pc] == q)
-        level = torch.where(hit & ~found, r, level)
+        act = ~resolved
+        if not bool(act.any()):
+            break
+        p, hit, bl, bh, lo_n, hi_n = _row_step(
+            level_keys[r], rank_map[r], bot_rank[r], lo, hi, q, width, w[r],
+            w[min(r + 1, n_levels - 1)], w[-1], act)
+        hit = act & hit
+        level = torch.where(hit, r, level)
         found = found | hit
-        if r < n_levels - 1:
-            rm = rank_map[r]
-            pc1 = torch.clamp(p + 1, 0, width - 1).long()
-            edge = (p + 1 >= width) | (w[r] == 0)
-            lo = torch.where(p >= 0, rm[pc], -1)
-            hi = torch.where(edge, w[r + 1], rm[pc1])
-    return found, p.to(torch.int32), level
+        if r == n_levels - 1:
+            rank = torch.where(act, p, rank)
+            break
+        now = hit | (act & (bh - bl == 1))
+        rank = torch.where(now, bl, rank)
+        resolved = resolved | now
+        lo, hi = torch.where(act, lo_n, lo), torch.where(act, hi_n, hi)
+    return found, rank.to(torch.int32), level.to(torch.int32)
 
 
-def _tiered_kernel(level_keys, rank_map, widths, queries):
+def _descent_kernel(pipelined: bool, level_keys, rank_map, widths,
+                    bot_rank, queries, n_live: int, block: int,
+                    budget: int = None):
+    """One launch of the descent engine: B1 (``pipelined=False``, one
+    thread per query, ``block`` threads a block) or B2 (one block per
+    query block of ``block`` lanes, with its byte counter).  The kernel
+    stages the plane's leading rows in ``budget`` bytes of shared memory
+    and records how many in :data:`STAGED` (a device tensor, not read
+    back here)."""
+    if block > 1024:
+        raise ValueError(f"a block of {block} exceeds the 1024 threads of "
+                         "a CUDA block")
     lib = build.load("splay_search")
-    fn = lib.splay_search_tiered
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 4)
+    fn = lib.splay_descent
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
     n_levels, width = level_keys.shape
-    nq = queries.shape[0]
+    nq_p = queries.shape[0]
+    n_blocks = -(-nq_p // block)
     dev = level_keys.device
-    found = torch.empty((nq,), dtype=torch.bool, device=dev)
-    rank = torch.empty((nq,), dtype=torch.int32, device=dev)
-    level = torch.empty((nq,), dtype=torch.int32, device=dev)
+    found = torch.empty((nq_p,), dtype=torch.bool, device=dev)
+    rank = torch.empty((nq_p,), dtype=torch.int32, device=dev)
+    level = torch.empty((nq_p,), dtype=torch.int32, device=dev)
+    nbytes = torch.empty((n_blocks if pipelined else 1,), dtype=torch.int32,
+                         device=dev)
+    staged = torch.empty((1,), dtype=torch.int32, device=dev)
+    budget = _stage_budget(n_levels, _DESCENT_BUDGET if budget is None
+                           else budget)
+    bulk = width % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (level_keys, rank_map, bot_rank))
     p = build.ptr
-    code = fn(p(level_keys), p(rank_map), p(widths), p(queries), n_levels,
-              width, nq, _TIERED_BLOCK, p(found), p(rank), p(level),
+    name = "splay_search_pipelined" if pipelined else "splay_search_tiered"
+    code = fn(int(pipelined), p(level_keys), p(rank_map), p(bot_rank),
+              p(widths), p(queries), n_levels, width, n_blocks, block,
+              n_live, math.gcd(width, 256), budget, int(bulk), p(found),
+              p(rank), p(level), p(nbytes), p(staged),
               build.stream_of(level_keys))
-    build.check(lib, code, "splay_search_tiered launch")
-    LAUNCHES["splay_search_tiered"] += 1
-    return found, rank, level
+    build.check(lib, code, f"{name} launch")
+    LAUNCHES[name] += 1
+    STAGED[name] = staged
+    return found, rank, level, nbytes
 
 
 def _operands(level_keys, queries, *companions):
@@ -211,9 +340,13 @@ def _operands(level_keys, queries, *companions):
 
 
 def _splay_search_arrays(level_keys, queries, query_block: int =
-                         DEFAULT_QUERY_BLOCK, rank_map=None, widths=None):
-    """B1 over a bare matrix (companions derived when absent): CUDA
-    tensors launch the kernel, CPU tensors run the plain version."""
+                         DEFAULT_QUERY_BLOCK, rank_map=None, widths=None,
+                         bot_rank=None, *, _block: int = None,
+                         _budget: int = None):
+    """B1 over a bare matrix (companions derived when absent, on the
+    plane's device): CUDA tensors launch the kernel, CPU tensors run the
+    plain version.  ``_block`` and ``_budget`` override the kernel's
+    block size and staging budget (tests and measurements)."""
     n_levels, width = level_keys.shape
     nq = queries.shape[0]
     dev = level_keys.device
@@ -224,20 +357,20 @@ def _splay_search_arrays(level_keys, queries, query_block: int =
         rank_map = rank_windows(level_keys)
     if widths is None:
         widths = row_widths(level_keys)
-    level_keys, queries, rank_map, widths = _operands(
-        level_keys, queries, rank_map, widths)
+    if bot_rank is None:
+        bot_rank = bottom_ranks(level_keys)
+    level_keys, queries, rank_map, widths, bot_rank = _operands(
+        level_keys, queries, rank_map, widths, bot_rank)
     qp = _pad_queries(queries, query_block)
     if dev.type == "cpu":
         f, r, lv = splay_search_tiered_plain(level_keys, rank_map, widths,
-                                             qp)
+                                             qp, bot_rank)
     else:
-        f, r, lv = _tiered_kernel(level_keys, rank_map, widths, qp)
+        f, r, lv, _ = _descent_kernel(
+            False, level_keys, rank_map, widths, bot_rank, qp, qp.shape[0],
+            _TIERED_BLOCK if _block is None else _block, _budget)
     return f[:nq], r[:nq], lv[:nq]
 
-
-# ---------------------------------------------------------------------------
-# B2: pipelined descent with block-level early exit
-# ---------------------------------------------------------------------------
 
 def _cover(lo, hi, width: int, tile: int):
     """Tile-aligned cover [base, base + nt*tile) of a window [lo, hi]:
@@ -254,118 +387,70 @@ def splay_search_pipelined_plain(level_keys, rank_map, widths, bot_rank,
                                  queries, n_live: int, query_block: int):
     """Plain version of B2 (``queries`` padded to the block multiple;
     lanes at or past ``n_live`` are batch padding, resolved from the
-    start).  Every block runs the reference's row loop: the union window
-    of its unresolved lanes, the foresight cover of the next row (whose
-    tiles the byte counter charges while the block still runs), then
-    the row's binary refinement.  Reads come straight from the rows —
-    within the cover, which is all an unresolved lane ever reads, they
-    equal the reference's buffered tiles.  Returns ``(found, rank,
-    level_found, bytes [n_blocks])``."""
+    start).  Each lane walks on its own until it resolves (a hit, rank
+    ``bot_rank[r, p]``; or a width-1 bottom-row projection); a lane that
+    never does keeps rank 0.  On entry to each row the unresolved lanes
+    fold their windows into the block's union for that row.  The
+    reference's per-block issue-time byte counter is then rebuilt from
+    the unions: the cover of the first union, and for every row below
+    the top that some lane entered unresolved — exactly the rows the
+    reference's block runs — the foresight cover of row r+1 bounded
+    through row r's rank map, ``3 * nt * tile * 4`` bytes each.  Returns
+    ``(found, rank, level_found, bytes [n_blocks])``."""
     n_levels, width = level_keys.shape
     dev = level_keys.device
     nq_p = queries.shape[0]
     nb = nq_p // query_block
     tile = math.gcd(width, 256)
     w = widths.tolist()
-    bot_w = w[n_levels - 1]
-    q = queries.view(nb, query_block)
-    gidx = torch.arange(nq_p, device=dev).view(nb, query_block)
-    is_pad = gidx >= n_live
-
-    def i32(v):
-        return torch.full((nb, query_block), v, dtype=torch.int32,
-                          device=dev)
-
-    lo = torch.where(is_pad, 0, i32(-1))
-    hi = torch.where(is_pad, 0, i32(w[0]))
-    found = torch.zeros((nb, query_block), dtype=torch.bool, device=dev)
-    rank = i32(0)
-    level = i32(n_levels)
-    resolved = is_pad.clone()
-    done = resolved.all(1)
-
-    def union_window(lo_, hi_, res):
-        return (torch.where(res, width, lo_).amin(1),
-                torch.where(res, 0, hi_).amax(1))
-
-    base, nt = _cover(*union_window(lo, hi, resolved), width, tile)
-    fetched = torch.where(done, 0, 3 * nt * tile)
+    q = queries.long()
+    resolved = torch.arange(nq_p, device=dev) >= n_live
+    lo = torch.full((nq_p,), -1, dtype=torch.int64, device=dev)
+    hi = torch.full((nq_p,), w[0], dtype=torch.int64, device=dev)
+    found = torch.zeros((nq_p,), dtype=torch.bool, device=dev)
+    rank = torch.zeros((nq_p,), dtype=torch.int64, device=dev)
+    level = torch.full((nq_p,), n_levels, dtype=torch.int64, device=dev)
+    runs, ulos, uhis = [], [], []
     for r in range(n_levels):
-        run = ~done
-        next_w = w[min(r + 1, n_levels - 1)]
-        row, rm_row, br_row = level_keys[r], rank_map[r], bot_rank[r]
-        ulo, uhi = union_window(lo, hi, resolved)
+        act = ~resolved
+        runs.append(act.view(nb, query_block).any(1))
+        ulos.append(torch.where(act, lo, width).view(nb, query_block)
+                    .amin(1))
+        uhis.append(torch.where(act, hi, 0).view(nb, query_block).amax(1))
+        if not bool(act.any()):
+            break
+        p, hit, bl, bh, lo_n, hi_n = _row_step(
+            level_keys[r], rank_map[r], bot_rank[r], lo, hi, q, width, w[r],
+            w[min(r + 1, n_levels - 1)], w[-1], act)
+        hit = act & hit
+        pinned = act & ~hit & (bh - bl == 1)
+        level = torch.where(hit, r, level)
+        rank = torch.where(hit | pinned, bl, rank)
+        found = found | hit
+        resolved = resolved | hit | pinned
+        lo, hi = torch.where(act, lo_n, lo), torch.where(act, hi_n, hi)
+
+    _, nt = _cover(ulos[0], uhis[0], width, tile)
+    fetched = torch.where(runs[0], 3 * nt * tile, 0)
+    for r in range(min(len(runs), n_levels - 1)):
+        rm_row = rank_map[r].long()
+        ulo, uhi = ulos[r], uhis[r]
         l1 = torch.where(ulo < 0, -1,
-                         rm_row[torch.clamp(ulo, 0, width - 1).long()])
-        h1 = torch.where((uhi >= width) | (w[r] == 0), next_w,
-                         rm_row[torch.clamp(uhi, 0, width - 1).long()])
-        base, nt = _cover(l1, h1, width, tile)
-        if r < n_levels - 1:
-            fetched = fetched + torch.where(run, 3 * nt * tile, 0)
-
-        lo_, hi_ = lo, hi
-        for _ in range(_n_steps(width)):
-            active = hi_ - lo_ > 1
-            mid = torch.div(lo_ + hi_, 2, rounding_mode="floor")
-            le = row[torch.clamp(mid, 0, width - 1).long()] <= q
-            lo_, hi_ = (torch.where(active & le, mid, lo_),
-                        torch.where(active & ~le, mid, hi_))
-        p = lo_
-        pc = torch.clamp(p, 0, width - 1).long()
-        pc1 = torch.clamp(p + 1, 0, width - 1).long()
-        edge = (p + 1 >= width) | (w[r] == 0)
-        runl = run[:, None]
-        hit = runl & (p >= 0) & (row[pc] == q)
-        bl = torch.where(runl, torch.where(p >= 0, br_row[pc], -1), 0)
-        bh = torch.where(runl, torch.where(edge, bot_w, br_row[pc1]), 0)
-        lo_n = torch.where(runl, torch.where(p >= 0, rm_row[pc], -1), 0)
-        hi_n = torch.where(runl, torch.where(edge, next_w, rm_row[pc1]), 0)
-
-        hitn = hit & ~resolved
-        pinned = runl & ~hit & ~resolved & (bh - bl == 1)
-        level = torch.where(hitn, r, level)
-        rank = torch.where(hitn | pinned, bl, rank)
-        found = found | hitn
-        resolved = resolved | hitn | pinned
-        lo = torch.where(resolved, 0, lo_n)
-        hi = torch.where(resolved, 0, hi_n)
-        done = done | resolved.all(1)
-    return (found.view(-1), rank.view(-1).to(torch.int32),
-            level.view(-1).to(torch.int32), (fetched * 4).to(torch.int32))
-
-
-def _pipelined_kernel(level_keys, rank_map, widths, bot_rank, queries,
-                      n_live: int, query_block: int):
-    if query_block > 1024:
-        raise ValueError(f"query_block {query_block} exceeds the 1024 "
-                         "threads of a CUDA block")
-    lib = build.load("splay_search")
-    fn = lib.splay_search_pipelined
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
-    n_levels, width = level_keys.shape
-    nq_p = queries.shape[0]
-    nb = nq_p // query_block
-    dev = level_keys.device
-    found = torch.empty((nq_p,), dtype=torch.bool, device=dev)
-    rank = torch.empty((nq_p,), dtype=torch.int32, device=dev)
-    level = torch.empty((nq_p,), dtype=torch.int32, device=dev)
-    nbytes = torch.empty((nb,), dtype=torch.int32, device=dev)
-    p = build.ptr
-    code = fn(p(level_keys), p(rank_map), p(bot_rank), p(widths),
-              p(queries), n_levels, width, nb, query_block, n_live,
-              math.gcd(width, 256), p(found), p(rank), p(level), p(nbytes),
-              build.stream_of(level_keys))
-    build.check(lib, code, "splay_search_pipelined launch")
-    LAUNCHES["splay_search_pipelined"] += 1
-    return found, rank, level, nbytes
+                         rm_row[torch.clamp(ulo, 0, width - 1)])
+        h1 = torch.where((uhi >= width) | (w[r] == 0), w[r + 1],
+                         rm_row[torch.clamp(uhi, 0, width - 1)])
+        _, nt = _cover(l1, h1, width, tile)
+        fetched = fetched + torch.where(runs[r], 3 * nt * tile, 0)
+    return (found, rank.to(torch.int32), level.to(torch.int32),
+            (fetched * 4).to(torch.int32))
 
 
 def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
                                    DEFAULT_QUERY_BLOCK, rank_map=None,
-                                   widths=None, bot_rank=None):
-    """B2 over a bare matrix: ``(found, rank, level_found, bytes)``."""
+                                   widths=None, bot_rank=None, *,
+                                   _budget: int = None):
+    """B2 over a bare matrix: ``(found, rank, level_found, bytes)``.
+    ``_budget`` overrides the kernel's staging budget."""
     n_levels, width = level_keys.shape
     nq = queries.shape[0]
     dev = level_keys.device
@@ -383,7 +468,8 @@ def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
         # no divisor near 256: take the tiered descent and report its
         # whole-row byte model (keys + rank-map rows, 4 bytes a lane)
         f, r, lv = _splay_search_arrays(level_keys, queries, query_block,
-                                        rank_map=rank_map, widths=widths)
+                                        rank_map=rank_map, widths=widths,
+                                        bot_rank=bot_rank, _budget=_budget)
         return f, r, lv, torch.full((n_blocks,), 2 * n_levels * width * 4,
                                     dtype=torch.int32, device=dev)
     level_keys, queries, rank_map, widths, bot_rank = _operands(
@@ -393,8 +479,9 @@ def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
         f, r, lv, nb = splay_search_pipelined_plain(
             level_keys, rank_map, widths, bot_rank, qp, nq, query_block)
     else:
-        f, r, lv, nb = _pipelined_kernel(level_keys, rank_map, widths,
-                                         bot_rank, qp, nq, query_block)
+        f, r, lv, nb = _descent_kernel(True, level_keys, rank_map, widths,
+                                       bot_rank, qp, nq, query_block,
+                                       _budget)
     return f[:nq], r[:nq], lv[:nq], nb
 
 
@@ -435,7 +522,6 @@ def splay_search_full_plain(level_keys, queries, query_block: int):
 # the shared memory a block may hold (csrc/splay_search.cu full_kernel)
 _FULL_TILE = 128
 _FULL_CLUSTER = 8                  # the portable cluster size
-_SMEM_BLOCK = 232448               # 227 KB of shared memory a block
 
 
 class FullPlan(NamedTuple):
@@ -591,7 +677,8 @@ def splay_search(level_keys, queries, query_block: int =
         return f, r, lv
     return _splay_search_arrays(level_keys, queries,
                                 query_block=query_block,
-                                rank_map=rank_map, widths=widths)
+                                rank_map=rank_map, widths=widths,
+                                bot_rank=bot_rank)
 
 
 def splay_search_pipelined(level_keys, queries, query_block: int =
