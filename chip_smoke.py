@@ -11,9 +11,9 @@ Phases:
    parallel) and print what ``-Xptxas -v`` reports;
 2. each kernel against its plain PyTorch version on the same inputs,
    bit-exact on every output (the pipelined search's byte counter
-   included): B1 tiered search at W=131072, L=24, q=65536; B2 pipelined
-   search at W=16384 (64 tiles), W=1008 (16-lane tiles) and an odd
-   batch; F update fold on a 2,000-key prefill plus 4 mixed epochs; B3,
+   included): B1 tiered search at W=131072, L=24, q=65536, at each
+   block size; B2 pipelined search at W=16384 (64 tiles), W=1008
+   (16-lane tiles) and an odd batch, each on clusters of 1 to 8 CTAs; F update fold on a 2,000-key prefill plus 4 mixed epochs; B3,
    B4 and the fused two-tier gather on float32, bfloat16, int32 and
    uint8 tables at d=4096 (TMA bulk copies) and d=1001 and 37 (vector
    words), q in {0, 1, 333, 8192} with out-of-range ids, int64 ids, and
@@ -50,7 +50,11 @@ Phases:
 6. timings of each kernel at the main path's shapes beside its plain
    version, its bound and, where one PyTorch call computes the same
    function (``index_select`` for B3, B4 and the fused gather), that
-   call; the fused gather at q=8192 and q=256 also beside the
+   call; B1 and B2 (``scripts/search_timing.py``) per launch from a
+   trace, by CUDA-graph replay and by the eager loop, with the plane's
+   widths, the rows walked per query and per warp, and the chain figure
+   (dependent loads on the longest lane x the pointer chase's ns per
+   dependent load in L2); the fused gather at q=8192 and q=256 also beside the
    reference's composition (B3 + B4 + a where-merge); an L2 probe of
    the hot buffer (an all-hot chunk right after an all-cold one).
    B5's bound is restated at the card's own int32 rate (SMs x 64 x
@@ -157,48 +161,6 @@ def row_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def graph_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
-    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed ``rounds`` times between two events.  The host's cost
-    of a call (tens of microseconds for a Python wrapper, as long as a
-    gather of a few MB runs) stays out of it; :func:`cuda_ms` measures
-    the longer of the two."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(rounds):
-        g.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / (reps * rounds)
-
-
 def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
     """Run ``fn`` once under ``torch.profiler`` and print the device's
     busy time: the union of the intervals of the traced device
@@ -246,6 +208,7 @@ def main() -> None:
     sys.path.insert(0, str(HERE / "src"))
     sys.path.insert(1, str(HERE / "scripts"))
     import fold_timing as ft
+    import search_timing as stm
     from repro_torch.configs.minitron_8b import CONFIG as minitron
     from repro_torch.core import device_index as dix
     from repro_torch.core import splaylist as sx
@@ -286,20 +249,27 @@ def main() -> None:
                                  n_levels)
         return plane, torch.as_tensor(qs, device=dev)
 
+    # B1 at each block size and B2 on clusters of 1 to 8 CTAs a query
+    # block (the default first)
     plane, qs = fixture_plane(131072, 24, 65536, 0)
     qs = torch.cat([qs, torch.as_tensor(
         [ssk.NEG_INF_KEY, -1, 2 ** 24, ssk.PAD_KEY - 1], device=dev,
         dtype=torch.int32)])
-    got = ssk._splay_search_arrays(plane.keys, qs, 256, plane.rank_map,
-                                   plane.widths)
     want = ssk.splay_search_tiered_plain(
-        plane.keys, plane.rank_map, plane.widths,
-        ssk._pad_queries(qs, 256))
-    torch.cuda.synchronize()
-    e = max_abs_err(got, (w[:qs.shape[0]] for w in want))
-    check(e == 0, f"B1 disagrees with its plain version (err {e})")
-    errs["splay_search_tiered"] = e
-    print(f"[2] B1 W=131072 L=24 q={qs.shape[0]}: equal", flush=True)
+        plane.keys, plane.rank_map, plane.widths, ssk._pad_queries(qs, 256))
+    b1_err = 0
+    for block in (None, 32, 128, 256):
+        got = ssk._splay_search_arrays(plane.keys, qs, 256, plane.rank_map,
+                                       plane.widths, _block=block)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, (w[:qs.shape[0]] for w in want))
+        check(e == 0, f"B1 (block {block}) disagrees with its plain version "
+              f"(err {e})")
+        b1_err = max(b1_err, e)
+    errs["splay_search_tiered"] = b1_err
+    print(f"[2] B1 W=131072 L=24 q={qs.shape[0]}: equal at blocks of "
+          f"{ssk._TIERED_BLOCK} (default), 32, 128 and 256 threads",
+          flush=True)
 
     b2_err = 0
     for width, n_levels, nq, qb in ((16384, 24, 8192, 256),
@@ -307,19 +277,22 @@ def main() -> None:
                                     (1008, 12, 1001, 128)):
         plane, qs = fixture_plane(width, n_levels, nq, width + nq)
         check(width // math.gcd(width, 256) <= 64, "B2 shape falls back")
-        got = ssk._splay_search_pipelined_arrays(
-            plane.keys, qs, qb, plane.rank_map, plane.widths,
-            plane.bot_rank)
         want = ssk.splay_search_pipelined_plain(
             plane.keys, plane.rank_map, plane.widths, plane.bot_rank,
             ssk._pad_queries(qs, qb), nq, qb)
-        torch.cuda.synchronize()
-        e = max_abs_err(got, (*(w[:nq] for w in want[:3]), want[3]))
-        check(e == 0, f"B2 W={width} q={nq} disagrees (err {e})")
-        b2_err = max(b2_err, e)
-        print(f"[2] B2 W={width} L={n_levels} q={nq} qb={qb}: equal "
-              f"(bytes/block mean {got[3].float().mean().item():.0f})",
-              flush=True)
+        for cluster in (None, 1, 2, 8):
+            got = ssk._splay_search_pipelined_arrays(
+                plane.keys, qs, qb, plane.rank_map, plane.widths,
+                plane.bot_rank, _cluster=cluster)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, (*(w[:nq] for w in want[:3]), want[3]))
+            check(e == 0, f"B2 W={width} q={nq} (cluster {cluster}) "
+                  f"disagrees (err {e})")
+            b2_err = max(b2_err, e)
+        print(f"[2] B2 W={width} L={n_levels} q={nq} qb={qb}: equal on "
+              f"clusters of {ssk.pipe_cluster(qb)} (default), 1, 2 and 8 "
+              f"CTAs (bytes/block mean "
+              f"{got[3].float().mean().item():.0f})", flush=True)
     errs["splay_search_pipelined"] = b2_err
 
     def cpu_state(st):
@@ -715,15 +688,6 @@ def main() -> None:
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []
 
-    def search_bytes(pl, nq, arrays, n_blocks=0):
-        live = int(pl.widths.sum())
-        return 4 * nq + 9 * nq + 4 * pl.n_levels + 4 * arrays * live \
-            + 4 * n_blocks
-
-    def search_ops(pl, nq):
-        return nq * sum(max(int(w + 1).bit_length(), 1)
-                        for w in pl.widths.tolist())
-
     int_ops, n_sm, max_mhz = int_rate(torch)
     print(f"[6] int32 rate {int_ops:.4e} ops/s ({n_sm} SMs x "
           f"{INT32_PER_SM_CLK} x {max_mhz} MHz, clocks.max.sm)", flush=True)
@@ -743,36 +707,68 @@ def main() -> None:
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, **extra))
 
+    # one thread chasing i = next[i] through a random cycle (phase 8 uses
+    # it too): ns per dependent load from an array that stays in L2 (4 MB,
+    # read once first) and from one five times the L2 (256 MB).
+    # B1 and B2 on the main path's inputs (scripts/search_timing.py): the
+    # device time per launch from a trace (ms), per call by CUDA-graph
+    # replay, and the eager loop of wrapper calls; beside them the
+    # plane's widths, the rows each query and each warp walks, and the
+    # chain figure: the longest chain of dependent global loads of one
+    # lane x the chase's ns per dependent load in L2.  Bound: the
+    # queries, the outputs, the widths and the distinct plane entries the
+    # lanes' windows hold in the arrays the kernel reads, and one compare
+    # per candidate plus the hit's per row walked
+    chase = {"l2": calibrate.chase_ns(1 << 20, 20000),
+             "hbm": calibrate.chase_ns(1 << 26, 20000)}
     q1 = torch.as_tensor(keys[0], device=dev)
-    ms = cuda_ms(torch, lambda: ssk._splay_search_arrays(
-        plane3.keys, q1, 256, plane3.rank_map, plane3.widths), 50)
-    plain = cuda_ms(torch, lambda: ssk.splay_search_tiered_plain(
-        plane3.keys, plane3.rank_map, plane3.widths, q1), 3, 1)
-    e = max_abs_err(
-        ssk._splay_search_arrays(plane3.keys, q1, 256, plane3.rank_map,
-                                 plane3.widths),
-        ssk.splay_search_tiered_plain(plane3.keys, plane3.rank_map,
-                                      plane3.widths, q1))
-    check(e == 0, f"B1 disagrees on the main path's inputs (err {e})")
-    entry("splay_search_tiered", "paper_serving", "src/repro_torch/kernels/csrc/"
-          "splay_search.cu", "src/repro/kernels/splay_search.py:272", ms,
-          plain, search_bytes(plane3, B, 2), search_ops(plane3, B))
-
     q5 = q5s[0]
-    ms = cuda_ms(torch, lambda: ssk._splay_search_pipelined_arrays(
-        pl5.keys, q5, 256, pl5.rank_map, pl5.widths, pl5.bot_rank), 50)
-    plain = cuda_ms(torch, lambda: ssk.splay_search_pipelined_plain(
-        pl5.keys, pl5.rank_map, pl5.widths, pl5.bot_rank, q5, B5, 256),
-        3, 1)
-    e = max_abs_err(
-        ssk._splay_search_pipelined_arrays(pl5.keys, q5, 256, pl5.rank_map,
-                                           pl5.widths, pl5.bot_rank),
-        ssk.splay_search_pipelined_plain(pl5.keys, pl5.rank_map, pl5.widths,
-                                         pl5.bot_rank, q5, B5, 256))
-    check(e == 0, f"B2 disagrees on the main path's inputs (err {e})")
-    entry("splay_search_pipelined", "w16384_serving", "src/repro_torch/kernels/csrc/"
-          "splay_search.cu", "src/repro/kernels/splay_search.py:480", ms,
-          plain, search_bytes(pl5, B5, 3, B5 // 256), search_ops(pl5, B5))
+    for name, path, pl, q, call, plain_fn, line, arrays, n_blocks in (
+            ("splay_search_tiered", "paper_serving", plane3, q1, stm.b1_call,
+             lambda: ssk.splay_search_tiered_plain(
+                 plane3.keys, plane3.rank_map, plane3.widths, q1), 272, 2,
+             0),
+            ("splay_search_pipelined", "w16384_serving", pl5, q5,
+             stm.b2_call, lambda: ssk.splay_search_pipelined_plain(
+                 pl5.keys, pl5.rank_map, pl5.widths, pl5.bot_rank, q5, B5,
+                 256), 480, 3, B5 // 256)):
+        fn = call(ssk, pl, q)
+        traced_k, n_traced = stm.traced_ms(torch, fn)
+        g_ms = stm.graph_ms(torch, fn)
+        eager = stm.eager_ms(torch, fn, 50)
+        plain = stm.eager_ms(torch, plain_fn, 3, 1)
+        got, want = fn(), plain_fn()
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"{name} disagrees on the main path's inputs (err {e})")
+        widths = pl.widths.tolist()
+        st_ = stm.descent_stats(torch, pl, q, exits=arrays == 3)
+        nq = q.shape[0]
+        nbytes = 13 * nq + 4 * len(widths) + 4 * arrays * st_["entries"] \
+            + 4 * n_blocks
+        chain = stm.chain_us(st_["chain_loads"], chase["l2"])
+        entry(name, path, "src/repro_torch/kernels/csrc/splay_search.cu",
+              f"src/repro/kernels/splay_search.py:{line}", traced_k, plain,
+              nbytes, st_["compares"], ms_is="device time per launch, "
+              "traced", graph_ms=g_ms, eager_ms=eager,
+              traced_launches=n_traced, chain_loads=st_["chain_loads"],
+              chain_us=chain, rows_walked_mean=st_["rows_mean"],
+              warp_rows_max_mean=st_["warp_max_mean"],
+              warps_to_bottom=st_["warps_to_bottom"])
+        k = kernels[-1]
+        print(f"[6] {name} W={pl.keys.shape[1]} L={len(widths)} q={nq}: "
+              f"{traced_k:.5f} ms per launch (traced, {n_traced} launches), "
+              f"{g_ms:.5f} by graph replay, eager loop {eager:.5f}; plain "
+              f"{plain:.3f} ms; bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}); widths {widths}; rows walked until "
+              f"resolved per query {st_['rows_mean']:.3f}, per warp (max) "
+              f"{st_['warp_max_mean']:.3f}, warps reaching the bottom row "
+              f"{st_['warps_to_bottom']:.3f}; longest chain "
+              f"{st_['chain_loads']} dependent loads x {chase['l2']:.1f} ns "
+              f"= {chain:.3f} us (the parent's binary walk "
+              f"{st_['parent_chain_loads']} loads = "
+              f"{stm.chain_us(st_['parent_chain_loads'], chase['l2']):.3f}"
+              " us)", flush=True)
 
     # B5: one batch over the served W=16384 plane; its work is one int32
     # compare for each element of every row the reference's block runs
@@ -782,10 +778,10 @@ def main() -> None:
     # counts the compares alone; the bound with an add beside each
     # compare, and the fp32-rate bound of the earlier runs, are printed
     # beside it
-    ms = cuda_ms(torch, lambda: ssk._splay_search_full_arrays(
+    ms = stm.eager_ms(torch, lambda: ssk._splay_search_full_arrays(
         pl5.keys, q5, 256), 20)
     q5p = ssk._pad_queries(q5, 256)
-    plain = cuda_ms(torch, lambda: ssk.splay_search_full_plain(
+    plain = stm.eager_ms(torch, lambda: ssk.splay_search_full_plain(
         pl5.keys, q5p, 256), 3, 1)
     f_got = ssk._splay_search_full_arrays(pl5.keys, q5, 256)
     f_want = ssk.splay_search_full_plain(pl5.keys, q5p, 256)
@@ -846,16 +842,16 @@ def main() -> None:
     cold = torch.where(r >= 0, 0, pids)
     ranks = torch.clamp(r, min=0)
     ops.reset_launch_counts()
-    comp_eager = cuda_ms(torch, lambda: composition(pids), 50)
+    comp_eager = stm.eager_ms(torch, lambda: composition(pids), 50)
     read_launches("composition", ("gather_hot", "gather_rows"))
     for name, fn, src, idx, path in (
             ("gather_rows", hg.gather_rows, table, cold, "vocab_tier"),
             ("gather_hot", hg.gather_hot, hot_buf, ranks, "composition")):
         idx_l = idx.long()
-        eager = cuda_ms(torch, lambda: fn(src, idx), 50)
-        ms = graph_ms(torch, lambda: fn(src, idx))
-        plain = graph_ms(torch, lambda: hg.gather_rows_ref(src, idx))
-        lib = graph_ms(torch, lambda: torch.index_select(src, 0, idx_l))
+        eager = stm.eager_ms(torch, lambda: fn(src, idx), 50)
+        ms = stm.graph_ms(torch, lambda: fn(src, idx))
+        plain = stm.graph_ms(torch, lambda: hg.gather_rows_ref(src, idx))
+        lib = stm.graph_ms(torch, lambda: torch.index_select(src, 0, idx_l))
         e = row_err(fn(src, idx), torch.index_select(src, 0, idx_l))
         check(e == 0.0, f"{name} disagrees with index_select (err {e})")
         n_rows = distinct_rows(src.shape[0], idx)
@@ -876,14 +872,14 @@ def main() -> None:
     for ids in (pids, batches[0]):
         ids_l = ids.long()
         nq = ids.numel()
-        eager = cuda_ms(torch, lambda: hg.hot_gather(table, hot_buf,
+        eager = stm.eager_ms(torch, lambda: hg.hot_gather(table, hot_buf,
                                                      hot_rank, ids), 50)
-        ms = graph_ms(torch, lambda: hg.hot_gather(table, hot_buf, hot_rank,
+        ms = stm.graph_ms(torch, lambda: hg.hot_gather(table, hot_buf, hot_rank,
                                                    ids))
-        plain = graph_ms(torch, lambda: hg.hot_gather_ref(
+        plain = stm.graph_ms(torch, lambda: hg.hot_gather_ref(
             table, hot_buf, hot_rank, ids))
-        comp = graph_ms(torch, lambda: composition(ids))
-        lib = graph_ms(torch, lambda: torch.index_select(table, 0, ids_l))
+        comp = stm.graph_ms(torch, lambda: composition(ids))
+        lib = stm.graph_ms(torch, lambda: torch.index_select(table, 0, ids_l))
         got = hg.hot_gather(table, hot_buf, hot_rank, ids)
         check(torch.equal(got, torch.index_select(table, 0, ids_l)),
               f"the fused gather q={nq} differs from index_select")
@@ -934,7 +930,7 @@ def main() -> None:
     def cold_call():
         hg.hot_gather(table, hot_buf, hot_rank, cold_chunk)
 
-    cold_only = graph_ms(torch, cold_call)
+    cold_only = stm.graph_ms(torch, cold_call)
     l2 = {}
     for name, fn in (
             ("fused", lambda: hg.hot_gather(table, hot_buf, hot_rank,
@@ -944,10 +940,10 @@ def main() -> None:
         def pair():
             cold_call()
             fn()
-        l2[name] = (graph_ms(torch, pair) - cold_only, graph_ms(torch, fn))
+        l2[name] = (stm.graph_ms(torch, pair) - cold_only, stm.graph_ms(torch, fn))
     block = torch.empty((8192, D), dtype=table.dtype, device=dev)
-    zero_ms = graph_ms(torch, lambda: block.zero_())
-    copy_ms = graph_ms(torch, lambda: block.copy_(table[:8192]))
+    zero_ms = stm.graph_ms(torch, lambda: block.zero_())
+    copy_ms = stm.graph_ms(torch, lambda: block.copy_(table[:8192]))
     n_hot_rows = int(torch.unique(hot_chunk).numel())
     print(f"[6] L2 probe (all-hot chunk, {n_hot_rows} distinct hot rows): "
           f"after an all-cold chunk (by difference; cold chunk alone "
@@ -1063,11 +1059,6 @@ def main() -> None:
                "vocab_epoch": 1e6 * fm["vocab_epoch"]
                / f_steps["vocab_epoch"],
                "prefill": 1e6 * prefill_k / pre_steps}
-    # one thread chasing i = next[i] through a random cycle: ns per
-    # dependent load from an array that stays in L2 (4 MB, read once
-    # first) and from one five times the L2 (256 MB)
-    chase = {"l2": calibrate.chase_ns(1 << 20, 20000),
-             "hbm": calibrate.chase_ns(1 << 26, 20000)}
 
     entry("splay_fold", "paper_serving", "src/repro_torch/kernels/csrc/"
           "splay_fold.cu", "src/repro/core/splaylist.py:629",

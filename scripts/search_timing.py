@@ -61,25 +61,22 @@ def w16384_plane(torch, sx, wl, dix, device):
 
 
 def b1_call(ssk, plane, q, **private):
-    """One B1 call over the plane's arrays: ``bot_rank`` passed where
-    the tree's wrapper takes it (else it would derive it per call), and
-    ``private`` launch arguments (``_block``, ``_budget``) where it
-    takes them."""
+    """One B1 call over the plane's arrays; ``private`` launch arguments
+    (``_block``) where the tree's wrapper takes them."""
     params = inspect.signature(ssk._splay_search_arrays).parameters
     kw = {k: v for k, v in private.items() if k in params}
-    if "bot_rank" in params:
-        kw["bot_rank"] = plane.bot_rank
     return lambda: ssk._splay_search_arrays(
         plane.keys, q, 256, plane.rank_map, plane.widths, **kw)
 
 
-def b2_call(ssk, plane, q, **private):
-    """One B2 call over the plane's arrays (query block 256)."""
+def b2_call(ssk, plane, q, query_block: int = 256, **private):
+    """One B2 call over the plane's arrays; ``private`` launch
+    arguments where the tree's wrapper takes them."""
     params = inspect.signature(ssk._splay_search_pipelined_arrays).parameters
     kw = {k: v for k, v in private.items() if k in params}
     return lambda: ssk._splay_search_pipelined_arrays(
-        plane.keys, q, 256, plane.rank_map, plane.widths, plane.bot_rank,
-        **kw)
+        plane.keys, q, query_block, plane.rank_map, plane.widths,
+        plane.bot_rank, **kw)
 
 
 def eager_ms(torch, fn, reps: int = 50, warmup: int = 2) -> float:
@@ -133,17 +130,20 @@ def traced_ms(torch, fn, reps: int = 20):
     return (float(np.median(ks)) if ks else float("nan")), len(ks)
 
 
-def descent_stats(torch, plane, q, staged_rows: int, last: int = 3,
+def descent_stats(torch, plane, q, exits: bool, last: int = 3,
                   fan: int = 4):
-    """What the lanes of a batch walk, on the card, with torch ops: rows
-    walked until a lane resolves (a hit, or a width-1 bottom-row
-    projection; ``level_found + 1`` for a hit), per query and per warp
-    of 32 queries; and the longest chain of dependent loads that leave
-    the block's shared memory (rows at or past ``staged_rows``), for the
-    per-lane-exit descent (one trip per row once its window holds at
-    most ``last`` candidates, one more per ``fan``-ary narrowing) and
-    for the parent's full walk (its binary probes, then one trip for
-    the hit check and the rank map, on every live row)."""
+    """What the lanes of a batch walk, with torch ops on the plane's
+    device.  Rows walked until a lane resolves (a hit, ``level_found +
+    1``, or a width-1 bottom-row projection), per query and per warp of
+    32 queries.  The plane entries the lanes' windows hold, distinct per
+    row, and the compares they need (a compare per candidate plus the
+    hit's), over the rows the kernel walks: every row for B1, the rows
+    up to resolution for B2 (``exits``); the bound counts these.  And
+    the longest chain of dependent global loads of one lane: the descent
+    engine's (one trip per row it reads, once its window holds at most
+    ``last`` candidates, one more per ``fan``-ary narrowing) and the
+    parent's binary descent (its probes, then one trip for the hit
+    check and the rank map, on every live row)."""
     keys, rm, br = plane.keys, plane.rank_map, plane.bot_rank
     n_levels, width = keys.shape
     w = plane.widths.tolist()
@@ -158,13 +158,22 @@ def descent_stats(torch, plane, q, staged_rows: int, last: int = 3,
     chain_new = torch.zeros((nq,), dtype=i32, device=dev)
     chain_old = torch.zeros((nq,), dtype=i32, device=dev)
     windows = []
+    entries = compares = 0
     for r in range(n_levels):
         row = keys[r].long()
-        live = ~resolved
-        windows.append((hi - lo - 1)[live].clamp(min=0).float().mean().item()
-                       if bool(live.any()) else 0.0)
-        # the parent: binary probes while hi - lo > 1, every lane, then a
-        # trip for row[p] and the rank map on a live row
+        walk = ~resolved if exits else torch.ones_like(resolved)
+        if bool(walk.any()):
+            seen = torch.zeros((width,), dtype=torch.bool, device=dev)
+            for k in range(int((hi - lo)[walk].max()) + 1):
+                j = lo + k
+                ok = walk & (j >= 0) & (j <= hi) & (j < width)
+                seen[j[ok]] = True
+            entries += int(seen.sum())
+            compares += int(((hi - lo - 1).clamp(min=0) + 1)[walk].sum())
+            windows.append(float((hi - lo - 1)[walk].clamp(min=0)
+                                 .float().mean()))
+        # the parent: binary probes while hi - lo > 1, then a trip for
+        # row[p] and the rank map on a live row
         blo, bhi = lo.clone(), hi.clone()
         probes = torch.zeros_like(chain_old)
         while bool((bhi - blo > 1).any()):
@@ -176,11 +185,11 @@ def descent_stats(torch, plane, q, staged_rows: int, last: int = 3,
             probes += act.to(i32)
         if w[r] > 0:
             chain_old += probes + 1
-        # the per-lane-exit descent: fan-ary narrowing, then one trip
+        # the descent engine: fan-ary narrowing, then the last trip
         trips = torch.zeros_like(chain_new)
         nlo, nhi = lo.clone(), hi.clone()
-        while bool((live & (nhi - nlo - 1 > last)).any()):
-            act = live & (nhi - nlo - 1 > last)
+        while bool((nhi - nlo - 1 > last).any()):
+            act = nhi - nlo - 1 > last
             span = nhi - nlo
             c = torch.zeros_like(nlo)
             for k in range(1, fan):
@@ -193,17 +202,15 @@ def descent_stats(torch, plane, q, staged_rows: int, last: int = 3,
         for k in range(1, last + 1):
             j = nlo + k
             p += ((j < nhi) & (row[j.clamp(0, width - 1)] <= q)).long()
-        walked = live & ((hi > 0) | (lo >= 0) | (w[r] > 0))
-        trips += walked.to(i32)
-        if r >= staged_rows:
-            chain_new += torch.where(live, trips, 0)
+        trips += ((nhi > nlo + 1) | (nlo >= 0) | (w[r] > 0)).to(i32)
+        chain_new += torch.where(walk, trips, 0)
         pc = p.clamp(0, width - 1)
         edge = (p + 1 >= width) | (w[r] == 0)
         hit = (p >= 0) & (row[pc] == q)
         bl = torch.where(p >= 0, br[r][pc].long(), -1)
         bh = torch.where(edge, w[-1], br[r][(p + 1).clamp(0, width - 1)]
                          .long())
-        now = live & (hit | (bh - bl == 1))
+        now = ~resolved & (hit | (bh - bl == 1))
         rows = torch.where(now, r + 1, rows)
         resolved |= now
         if r < n_levels - 1:
@@ -211,18 +218,18 @@ def descent_stats(torch, plane, q, staged_rows: int, last: int = 3,
             hi = torch.where(edge, w[r + 1],
                              rm[r][(p + 1).clamp(0, width - 1)].long())
     pad = (-nq) % 32
-    warp_rows = torch.nn.functional.pad(rows, (0, pad)).view(-1, 32)
-    warp_max = warp_rows.max(1).values
+    warp_max = torch.nn.functional.pad(rows, (0, pad)).view(-1, 32).max(1)
     return {
         "rows_mean": float(rows.float().mean()),
-        "warp_max_mean": float(warp_max.float().mean()),
-        "warps_to_bottom": float((warp_max == n_levels).float().mean()),
+        "warp_max_mean": float(warp_max.values.float().mean()),
+        "warps_to_bottom": float((warp_max.values == n_levels).float()
+                                 .mean()),
         "rows_hist": {int(k): int(v) for k, v in zip(
             *torch.unique(rows, return_counts=True))},
         "window_mean": [round(x, 3) for x in windows],
+        "entries": entries, "compares": compares,
         "chain_loads": int(chain_new.max()),
         "parent_chain_loads": int(chain_old.max()),
-        "staged_rows": staged_rows,
     }
 
 

@@ -17,8 +17,9 @@ alternates: parent, change, change, parent, ...); each child times B1
 and B2 per launch from a ``torch.profiler`` trace, per call by
 CUDA-graph replay and by an eager loop, and checks its answers against
 its own plain version.  ``--sweep`` has the change tree's child also
-time B1 over its block sizes and shared-memory budgets, and B2 over the
-budgets.
+time B1 over its block sizes and B2 over its cluster sizes; ``--probe`` has each tree's first child time B1 on a batch of
+one hot key, the sorted batch, the bottom row alone and the plane's
+leading k rows alone (the walk cut at row k - 1).
 
 Prints the descent statistics of both batches (``search_timing.
 descent_stats``), then one JSON line: each tree's runs, the medians,
@@ -77,7 +78,7 @@ class _Plane:
             setattr(self, f, d[f].to(dev))
 
 
-def child(src: str, inputs: Path, sweep: bool) -> None:
+def child(src: str, inputs: Path, sweep: bool, probe: bool) -> None:
     import torch
     ssk = _import_tree(src)
     dev = torch.device("cuda")
@@ -101,29 +102,48 @@ def child(src: str, inputs: Path, sweep: bool) -> None:
                      "eager_ms": stm.eager_ms(torch, fn),
                      "equal_plain": equal,
                      "checksum": [int(t.long().sum()) for t in got]}
-        if sweep:
-            configs = ([{"_block": b, "_budget": g} for b in (64, 128, 256)
-                        for g in (0, 49152, 98304, 196608)] if name == "b1"
-                       else [{"_budget": g} for g in (0, 49152, 98304,
-                                                      196608)])
+        if sweep:  # B1's block sizes; B2's cluster sizes
+            calls = ([({"_block": b}, make(ssk, plane, q, _block=b))
+                      for b in (32, 64, 128, 256)] if name == "b1" else
+                     [({"_cluster": c}, make(ssk, plane, q, _cluster=c))
+                      for c in (1, 2, 4, 8)])
             rows = []
-            for cfg in configs:
-                f = make(ssk, plane, q, **cfg)
+            for cfg, f in calls:
                 ok = all(torch.equal(a.cpu(), b.cpu())
-                         for a, b in zip(f(), want))
+                         for a, b in zip(f()[:3], want[:3]))
                 t, n = stm.traced_ms(torch, f)
-                rows.append({**cfg, "traced_ms": t, "graph_ms":
-                             stm.graph_ms(torch, f), "equal_plain": ok,
-                             "staged": int(ssk.STAGED[
-                                 "splay_search_tiered" if name == "b1"
-                                 else "splay_search_pipelined"])})
+                rows.append({**cfg, "traced_ms": t, "equal_plain": ok,
+                             "graph_ms": stm.graph_ms(torch, f)})
             out[name]["sweep"] = rows
+        if probe and name == "b1":
+            out["probe"] = _probe(torch, ssk, plane, q)
     print(json.dumps(out), flush=True)
 
 
-def run_child(src, inputs, sweep=False) -> dict:
+def _probe(torch, ssk, plane, q):
+    """B1 (the tree's defaults) by graph replay on variants of its
+    inputs: every query the batch's most frequent key (one path, each
+    load one sector a warp), the batch sorted (neighbouring lanes on
+    neighbouring entries), and the bottom row alone (launch and one
+    row)."""
+    vals, counts = torch.unique(q, return_counts=True)
+    hot = torch.full_like(q, int(vals[counts.argmax()]))
+    one = _Plane({f: getattr(plane, f)[-1:] for f in FIELDS}, q.device)
+    out = {"hot": stm.graph_ms(torch, stm.b1_call(ssk, plane, hot)),
+           "sorted": stm.graph_ms(torch, stm.b1_call(
+               ssk, plane, torch.sort(q).values)),
+           "bottom_row": stm.graph_ms(torch, stm.b1_call(ssk, one, q))}
+    # the plane's leading k rows alone: the same walk, cut at row k - 1
+    for k in (1, 8, 10, 12, 14, 16, 18, 20, 22, 24):
+        top = _Plane({f: getattr(plane, f)[:k] for f in FIELDS}, q.device)
+        out[f"rows_{k}"] = stm.graph_ms(torch, stm.b1_call(ssk, top, q))
+    return out
+
+
+def run_child(src, inputs, sweep=False, probe=False) -> dict:
     cmd = [sys.executable, str(Path(__file__).resolve()), "--child", src,
-           "--inputs", str(inputs)] + (["--sweep"] if sweep else [])
+           "--inputs", str(inputs)] + (["--sweep"] if sweep else []) \
+        + (["--probe"] if probe else [])
     p = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if p.returncode != 0:
         sys.exit(f"child {src} failed:\n{p.stdout[-4000:]}\n"
@@ -137,6 +157,7 @@ def main() -> None:
     ap.add_argument("--change")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--probe", action="store_true")
     ap.add_argument("--child")
     ap.add_argument("--inputs")
     args = ap.parse_args()
@@ -144,7 +165,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     if args.child:
-        child(args.child, Path(args.inputs), args.sweep)
+        child(args.child, Path(args.inputs), args.sweep, args.probe)
         return
     inputs = HERE.parent / "build" / "search_ab_inputs.pt"
     inputs.parent.mkdir(parents=True, exist_ok=True)
@@ -161,19 +182,22 @@ def main() -> None:
     dev = torch.device("cuda")
     for name in ("b1", "b2"):
         plane = _Plane(data[name], dev)
-        stats = stm.descent_stats(torch, plane, data[name]["q"].to(dev), 0)
+        stats = stm.descent_stats(torch, plane, data[name]["q"].to(dev),
+                                  exits=name == "b2")
         print(f"{name}: widths {data[name]['widths'].tolist()}; {stats}",
               flush=True)
     runs = {"parent": [], "change": []}
-    sweep = None
+    sweep, probes = None, {}
     for i in range(args.pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for who in order:
             src = args.parent if who == "parent" else args.change
             r = run_child(src, inputs, sweep=args.sweep and sweep is None
-                          and who == "change")
+                          and who == "change", probe=args.probe and i < 2)
             if "sweep" in r.get("b1", {}):
                 sweep = {k: r[k].pop("sweep") for k in ("b1", "b2")}
+            if "probe" in r:
+                probes[who] = r.pop("probe")
             runs[who].append(r)
     summary = {}
     for name in ("b1", "b2"):
@@ -196,7 +220,8 @@ def main() -> None:
         summary[name] = s
     print(json.dumps({"card": _card(), "pairs": args.pairs,
                       "parent": args.parent, "change": args.change,
-                      "summary": summary, "sweep": sweep}))
+                      "summary": summary, "sweep": sweep,
+                      "probe": probes}))
 
 
 if __name__ == "__main__":

@@ -1,32 +1,43 @@
 // Kernels B1 and B2: the batched rank-windowed splay descent over the
-// level-array plane; kernel B5: the seed baseline's full-width count.
+// level-array plane, one engine (descent_kernel); kernel B5: the seed
+// baseline's full-width count.
 //
 // B1 splay_search_tiered replaces the Pallas _kernel_tiered
-// (src/repro/kernels/splay_search.py:272).  One thread per query, one
-// block per query block; the row loop runs inside the kernel (the TPU
-// grid's sequential level axis).  In each row the thread binary-searches
-// its inherited window [lo, hi), notes the first hit, and narrows the
-// next row's window through rank_map[r, p] .. rank_map[r, p + 1].
-// Bound: latency.  Each probe is a dependent load, L * log2(W) of them
-// per query; keys and rank_map are read straight from global memory
-// through L2 (the hot top rows stay cached), and one thread per query
-// keeps enough independent chains in flight to hide part of it.
-//
-// B2 splay_search_pipelined replaces the Pallas _kernel_pipelined
-// (src/repro/kernels/splay_search.py:480).  One block of QB threads per
-// query block computes the same triple plus the reference's per-block
-// issue-time byte counter: a block-wide reduction gives the unresolved
-// lanes' union window, every thread derives the tile cover and the
-// foresight bound of row r+1 through row r's rank map (block-uniform),
-// thread 0 accumulates 3 * nt * tile * 4 bytes per issued row, and a
-// block-wide vote ends the row loop once every lane has resolved (a hit
-// answered through bot_rank, or a width-1 bottom-row projection).
-// Bound: latency, as B1.  This first version reads the covered tiles
-// straight from global memory instead of staging them in shared memory
-// (2 slots x 3 arrays x W x 4 B is 393 KB at W = 16384, over the 227 KB
-// a block may hold), so the byte counter is the reference's issue-time
-// model, not bytes this kernel moved.  cp.async/TMA staging is later
-// work.
+// (src/repro/kernels/splay_search.py:272), B2 splay_search_pipelined
+// the Pallas _kernel_pipelined (:480).  One thread per query walks the
+// rows top-down: in row r it finds its predecessor p inside the window
+// (lo, hi) that row r - 1 bounds, notes the first hit, and takes row
+// r + 1's window from rank_map[r, p] .. rank_map[r, p + 1].
+// Bound: the chain of dependent loads, one row after the other (the
+// plane's live entries, a few MB, stay in L2; the bytes bound is under
+// a microsecond).  What the design does about it:
+// * One dependent trip a row.  A window of at most kLast candidates (0
+//   to 3 in nearly every row of the paper plane) is read whole, with
+//   the rank-map (and bot-rank) entries p and p + 1 can take: kWords
+//   16-byte words of each array, issued together; the count of
+//   candidates <= q is the binary search's predecessor on a sorted row.
+//   A wider window first narrows kFan-ary.  The keys' compares read the
+//   query through the other arrays' words (masked by a zero the
+//   compiler cannot see): without that the compiler issued the rank-map
+//   loads after the compares, two L2 round trips a row.
+// * The walk starts at the first live row (a warp ballot over the
+//   widths); the empty rows above it change nothing.
+// * B1 walks every row; its rank is the bottom row's p.  A per-lane exit
+//   through bot_rank cost more than it saved: every warp holds a lane
+//   that walks to the bottom row.
+// * B2's lanes each stop once resolved (a hit, rank bot_rank[r, p], or a
+//   pinned bottom projection) and fold their windows into per-row
+//   unions by min/max atomics on entry to each row, with no per-row
+//   barrier; after the walk one warp rebuilds the reference's per-block
+//   issue-time byte counter from the unions: the first cover, plus the
+//   foresight cover of row r + 1 through row r's rank map for every row
+//   some lane entered unresolved.  The counter models the TPU kernel's
+//   tile fetches, not bytes this kernel moves.  A query block runs on a
+//   cluster of CTAs (256 lanes: 4 of 64) whose lanes fold into the
+//   leader CTA's unions through distributed shared memory, so a batch
+//   spreads over four times the SMs.
+// * Measured and dropped (PERF.md): the leading rows staged in shared
+//   memory (TMA bulk copies, then cp.async), an L1 prefetch of them.
 //
 // B5 splay_search_full replaces the Pallas _kernel_full
 // (src/repro/kernels/splay_search.py:1284), the seed baseline.  The TPU
@@ -59,9 +70,8 @@
 // tile.  The bound in chip_smoke.py keeps counting the compares that
 // the reference's rule runs.
 //
-// B1 and B2 keep the reference's arithmetic: (lo + hi) / 2 probes
-// (lo + hi >= 0 whenever a lane is active, so truncation equals floor),
-// clamped reads, and an explicit floor division in the cover, where the
+// B1 and B2 keep the reference's arithmetic where it shows: clamped
+// reads, and an explicit floor division in the cover, where the
 // reference floors a negative quotient and C would truncate it.
 
 #include <cooperative_groups.h>
@@ -104,218 +114,253 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-constexpr int kLast = 3;  // candidates a row's last trip fetches whole
-constexpr int kFan = 4;   // a narrowing trip reads kFan - 1 pivots
+constexpr int kLast = 3;   // candidates a row's last trip reads at once
+constexpr int kFan = 4;    // a narrowing trip reads kFan - 1 pivots
+constexpr int kWords = 2;  // 16-byte words that hold entries lo .. lo + 4
 
-__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
-
-// entries of row r a block stages from each of keys, rank_map and
-// bot_rank: the live prefix and its pad entry, rounded up to a 16-byte
-// word, at most the width (descent_plan in splay_search.py mirrors it)
-__device__ __forceinline__ int stage_len(int w, int W) {
-  return min(round4(w + 1), W);
+// v[i] for i in [0, 8): a 3-level multiplexer, no local memory
+__device__ __forceinline__ int pick(const int (&v)[4 * kWords], int i) {
+  const int a0 = i & 1 ? v[1] : v[0], a1 = i & 1 ? v[3] : v[2];
+  const int a2 = i & 1 ? v[5] : v[4], a3 = i & 1 ? v[7] : v[6];
+  const int b0 = i & 2 ? a1 : a0, b1 = i & 2 ? a3 : a2;
+  return i & 4 ? b1 : b0;
 }
 
-// rows of the plane the block stages: the leading rows whose three
-// arrays fit the budget together
-__device__ __forceinline__ int staged_rows(const int* w, int L, int W,
-                                           int budget) {
-  int off = 0, ns = 0;
-  for (; ns < L; ++ns) {
-    const int need = 12 * round4(stage_len(w[ns], W));
-    if (off + need > budget) break;
-    off += need;
+// the 16-byte words of a row at entry b (a multiple of 4) and the next
+// kWords - 1, each clamped inside the row (a clamped word is never
+// used): v[i] is entry b + i
+__device__ __forceinline__ void words(const int* row, int b, int W,
+                                      int (&v)[4 * kWords]) {
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const int4 x =
+        __ldg(reinterpret_cast<const int4*>(row + min(b + 4 * k, W - 4)));
+    v[4 * k] = x.x, v[4 * k + 1] = x.y, v[4 * k + 2] = x.z;
+    v[4 * k + 3] = x.w;
   }
-  return ns;
 }
 
-// a row's entry j: its staged copy (j < n) or global memory through L1
-__device__ __forceinline__ int rd(const int* g, const int* s, int n, int j) {
-  return j < n ? s[j] : __ldg(g + j);
+// A lane's walk state and one row of it: narrowing trips of kFan - 1
+// pivots while the window (lo, hi) holds more than kLast candidates,
+// then the last trip, whose loads are independent: the window's keys
+// (entry lo for the hit, the candidates below hi) and the rank-map (and
+// B2's bot-rank) entries p and p + 1 can take.  kVec reads kWords
+// 16-byte words at max(lo, 0) & ~3 of each array; otherwise p + 1 is
+// read only below the width and in a live row (else: edge).  `zero` is
+// 0, passed at run time.
+struct Lane {
+  int q, lo, hi, rank, level;
+  bool found, resolved;
+};
+
+template <bool kPipelined, bool kVec>
+__device__ __forceinline__ void row_step(Lane& s, const int* gk,
+                                         const int* grm, const int* gbr,
+                                         int r, int L, int W, int w_r,
+                                         int next_w, int bot_w, int zero) {
+  int lo = s.lo, hi = s.hi;
+  const int q = s.q;
+  while (hi - lo - 1 > kLast) {
+    const int64_t span = static_cast<int64_t>(hi) - lo;
+    int c = 0;
+#pragma unroll
+    for (int k = 1; k < kFan; ++k) {
+      const int j = lo + static_cast<int>(k * span / kFan);
+      c += __ldg(gk + clampi(j, 0, W - 1)) <= q;
+    }
+    const int nlo = lo + static_cast<int>(c * span / kFan);
+    hi = lo + static_cast<int>((c + 1) * span / kFan);
+    lo = nlo;
+  }
+  const bool need_rm = r < L - 1, need_br = kPipelined;
+  int p, kp, m0 = 0, m1 = 0, n0 = 0, n1 = 0;  // rank map, bot rank at p, p+1
+  if (kVec) {
+    const int b = min(max(lo, 0) & ~3, W - 4);
+    int kv[4 * kWords], rv[4 * kWords], bv[4 * kWords];
+    words(gk, b, W, kv);
+    words(grm, b, W, rv);
+    if (kPipelined) words(gbr, b, W, bv);
+    // The compares read q through every word of the other arrays, masked
+    // by a zero the compiler cannot see: left alone, it issued the
+    // rank-map loads after the keys' compares, two L2 round trips a row
+    int other = 0;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)
+      other ^= rv[4 * k] ^ (kPipelined ? bv[4 * k] : 0);
+    const int qq = q ^ (other & zero);
+    unsigned le = 0;  // candidates <= q: a mask, counted at once
+#pragma unroll
+    for (int i = 0; i < 4 * kWords; ++i)
+      le |= static_cast<unsigned>(b + i > lo && b + i < hi && kv[i] <= qq)
+            << i;
+    p = lo + __popc(le);
+    // p and p + 1 in the words (p < 0 only with lo = -1, b = 0: then
+    // entry p is unused)
+    const int ip = max(p - b, 0), ip1 = p + 1 - b;
+    kp = pick(kv, ip);
+    m0 = pick(rv, ip);
+    m1 = pick(rv, ip1);
+    if (kPipelined) {
+      n0 = pick(bv, ip);
+      n1 = pick(bv, ip1);
+    }
+  } else {
+    int kv[kLast + 1], rv[kLast + 2], bv[kLast + 2];
+#pragma unroll
+    for (int k = 0; k <= kLast + 1; ++k) {
+      const int j = lo + k, jc = clampi(j, 0, W - 1);
+      if (k <= kLast)
+        kv[k] = (k == 0 ? lo >= 0 : j < hi) ? __ldg(gk + jc) : 0;
+      const bool in = k == 0 ? lo >= 0
+                             : j < W && (k == 1 || j <= hi) &&
+                                   !(w_r == 0 && j >= hi);
+      rv[k] = in && need_rm ? __ldg(grm + jc) : 0;
+      bv[k] = in && need_br ? __ldg(gbr + jc) : 0;
+    }
+    int c = 0;
+#pragma unroll
+    for (int k = 1; k <= kLast; ++k) c += (lo + k < hi) && kv[k] <= q;
+    kp = kv[0], m0 = rv[0], m1 = rv[1], n0 = bv[0], n1 = bv[1];
+#pragma unroll
+    for (int k = 1; k <= kLast; ++k)
+      if (k == c) {
+        kp = kv[k];
+        m0 = rv[k];
+        m1 = rv[k + 1];
+        n0 = bv[k];
+        n1 = bv[k + 1];
+      }
+    p = lo + c;
+  }
+  const bool edge = p + 1 >= W || w_r == 0;
+  const bool hit = p >= 0 && kp == q;
+  if (kPipelined) {
+    const int bl = p >= 0 ? n0 : -1, bh = edge ? bot_w : n1;
+    if (hit) {
+      s.found = true;
+      s.level = r;
+      s.rank = bl;
+      s.resolved = true;
+    } else if (bh - bl == 1) {  // bottom rank pinned
+      s.rank = bl;
+      s.resolved = true;
+    }
+  } else {
+    if (hit && !s.found) {
+      s.found = true;
+      s.level = r;
+    }
+    s.rank = p;  // the bottom row's p is the rank
+  }
+  s.lo = p >= 0 ? m0 : -1;
+  s.hi = edge ? next_w : m1;
 }
 
-// Dynamic shared memory: mbarriers [L] (8 B), widths [L], B2's per-row
-// union and run flag [3, L], then the staging area (budget bytes).
-__host__ __device__ __forceinline__ int descent_fixed_smem(int L) {
-  return (24 * L + 127) & ~127;
+// Dynamic shared memory: widths [L], and B2's per-row union and run
+// flag [3, L].
+__host__ __device__ __forceinline__ int descent_smem(int L) {
+  return 16 * L;
 }
 
-template <bool kPipelined>
+// kPipelined: B2 (a lane leaves on a hit or a pinned bottom projection;
+// pad lanes; the byte counter; rank 0 for a lane that never resolves),
+// else B1 (every lane walks every row; rank = the bottom row's p).
+// kVec: rows are 16-byte aligned.  The walk starts at the first live
+// row.  B2 runs a query block on a cluster of CTAs; their lanes fold
+// their windows into the leader CTA's per-row unions through
+// distributed shared memory.
+template <bool kPipelined, bool kVec>
 __global__ void descent_kernel(const int* __restrict__ keys,
                                const int* __restrict__ rank_map,
                                const int* __restrict__ bot_rank,
                                const int* __restrict__ widths,
                                const int* __restrict__ queries, int L, int W,
-                               int n_live, int tile, int budget, int bulk,
+                               int n_live, int tile,
                                bool* __restrict__ found_out,
                                int* __restrict__ rank_out,
                                int* __restrict__ level_out,
-                               int* __restrict__ bytes_out,
-                               int* __restrict__ staged_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  int* s_w = reinterpret_cast<int*>(smem + 8 * L);
+                               int* __restrict__ bytes_out) {
+  extern __shared__ int s_w[];  // widths, then B2's s_lo, s_hi, s_run
   int* s_lo = s_w + L;
   int* s_hi = s_lo + L;
   int* s_run = s_hi + L;
-  int* stage = reinterpret_cast<int*>(smem + descent_fixed_smem(L));
   const int t = threadIdx.x, T = blockDim.x;
-
-  for (int r = t; r < L; r += T) {
-    s_w[r] = widths[r];
-    s_lo[r] = W;
-    s_hi[r] = 0;
-    s_run[r] = 0;
-  }
-  if (t == 0 && bulk) {  // one TMA bulk copy per array and staged row
-    const int ns = staged_rows(widths, L, W, budget);
-    for (int r = 0; r < ns; ++r)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_addr(bars + r)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    int off = 0;
-    for (int r = 0; r < ns; ++r) {
-      const int n = stage_len(widths[r], W), n4 = round4(n);
-      const uint32_t bar = smem_addr(bars + r);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar), "r"(12u * n) : "memory");
-      const int* src[3] = {keys, rank_map, bot_rank};
-      for (int a = 0; a < 3; ++a)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-            "::bytes [%0], [%1], %2, [%3];"
-            :: "r"(smem_addr(stage + off + a * n4)),
-               "l"(src[a] + static_cast<int64_t>(r) * W), "r"(4u * n),
-               "r"(bar) : "memory");
-      off += 3 * n4;
-    }
-  }
-  __syncthreads();
-  const int ns = staged_rows(s_w, L, W, budget);
-  if (!bulk && ns > 0) {  // plain loads, then one barrier
-    int off = 0;
-    for (int r = 0; r < ns; ++r) {
-      const int n = stage_len(s_w[r], W), n4 = round4(n);
-      const int64_t base = static_cast<int64_t>(r) * W;
-      for (int e = t; e < 3 * n; e += T) {
-        const int a = e / n, j = e - a * n;
-        const int* src = a == 0 ? keys : a == 1 ? rank_map : bot_rank;
-        stage[off + a * n4 + j] = __ldg(src + base + j);
-      }
-      off += 3 * n4;
-    }
-    __syncthreads();
-  }
-  if (blockIdx.x == 0 && t == 0) *staged_out = ns;
-
   const int gidx = blockIdx.x * T + t;
   const int total = gridDim.x * T;  // B2: the padded batch
-  const int q = gidx < (kPipelined ? total : n_live) ? queries[gidx] : 0;
-  const int bot_w = s_w[L - 1];
-  int lo = -1, hi = s_w[0], rank = 0, level = L;
-  bool found = false, resolved = gidx >= n_live;
-  int off = 0;
-  for (int r = 0; r < L && !resolved; ++r) {
-    const int w_r = s_w[r], next_w = s_w[min(r + 1, L - 1)];
-    const int64_t base = static_cast<int64_t>(r) * W;
-    const int *gk = keys + base, *grm = rank_map + base, *gbr = bot_rank + base;
-    const int *sk = stage, *srm = stage, *sbr = stage;
-    int n = 0;
-    if (r < ns) {
-      n = stage_len(w_r, W);
-      const int n4 = round4(n);
-      sk = stage + off;
-      srm = sk + n4;
-      sbr = srm + n4;
-      off += 3 * n4;
-      if (bulk) bar_wait(smem_addr(bars + r), 0);
+  Lane s;
+  s.q = gidx < (kPipelined ? total : n_live) ? queries[gidx] : 0;
+  for (int r = t; r < L; r += T) {
+    s_w[r] = widths[r];
+    if (kPipelined) {
+      s_lo[r] = W;
+      s_hi[r] = 0;
+      s_run[r] = 0;
     }
-    if (kPipelined) {  // this lane is unresolved on entry to row r
-      atomicMin(s_lo + r, lo);
-      atomicMax(s_hi + r, hi);
+  }
+  int C = 1, *u_lo = s_lo, *u_hi = s_hi, *u_run = s_run;
+  if constexpr (kPipelined) {
+    cg::cluster_group cluster = cg::this_cluster();
+    C = static_cast<int>(cluster.num_blocks());
+    u_lo = cluster.map_shared_rank(s_lo, 0);
+    u_hi = cluster.map_shared_rank(s_hi, 0);
+    u_run = cluster.map_shared_rank(s_run, 0);
+    cluster.sync();  // the leader's unions start before any lane folds
+  } else {
+    __syncthreads();
+  }
+  // the first live row, found by each warp with a ballot over the
+  // widths; above it every lane's window stays (-1, 0), nothing hits and
+  // nothing is pinned (the bottom row is live).  An all-empty plane is
+  // walked from the top.  B2 records those rows' unions once, for a
+  // query block that holds a live lane
+  const unsigned warp = __activemask();
+  const int lane = t & 31, lanes = __popc(warp);
+  int r0 = L;
+  for (int base = 0; base < L && r0 == L; base += lanes) {
+    const unsigned live =
+        __ballot_sync(warp, base + lane < L && s_w[base + lane] > 0);
+    if (live) r0 = base + __ffs(live) - 1;
+  }
+  if (r0 == L) r0 = 0;
+  const bool leader = blockIdx.x % C == 0;
+  if (kPipelined && leader && t == 0 && blockIdx.x * T < n_live)
+    for (int r = 0; r < r0; ++r) {
+      s_lo[r] = -1;
+      s_hi[r] = 0;
       s_run[r] = 1;
     }
 
-    // narrowing trips: kFan - 1 independent pivots each
-    while (hi - lo - 1 > kLast) {
-      const int64_t span = static_cast<int64_t>(hi) - lo;
-      int c = 0;
-#pragma unroll
-      for (int k = 1; k < kFan; ++k) {
-        const int j = lo + static_cast<int>(k * span / kFan);
-        c += rd(gk, sk, n, clampi(j, 0, W - 1)) <= q;
-      }
-      const int nlo = lo + static_cast<int>(c * span / kFan);
-      hi = lo + static_cast<int>((c + 1) * span / kFan);
-      lo = nlo;
+  const int bot_w = s_w[L - 1];
+  const int zero = tile >> 30;  // tile <= 256: zero, unknown to the compiler
+  s.lo = -1;
+  s.hi = s_w[r0];
+  s.rank = 0;
+  s.level = L;
+  s.found = false;
+  s.resolved = gidx >= n_live;
+  for (int r = r0; r < L && !s.resolved; ++r) {
+    const int64_t base = static_cast<int64_t>(r) * W;
+    if (kPipelined) {  // this lane is unresolved on entry to row r
+      atomicMin(u_lo + r, s.lo);
+      atomicMax(u_hi + r, s.hi);
+      u_run[r] = 1;
     }
-
-    // the last trip: every candidate key, and the rank-map and bot-rank
-    // entries p and p + 1 can take, all loads independent
-    const bool need_rm = r < L - 1, need_br = kPipelined || r < L - 1;
-    int kv[kLast + 1], rv[kLast + 2], bv[kLast + 2];
-#pragma unroll
-    for (int k = 0; k <= kLast + 1; ++k) {
-      const int j = lo + k;
-      if (k <= kLast)
-        kv[k] = (k == 0 ? lo >= 0 : j < hi) ? rd(gk, sk, n, clampi(j, 0, W - 1))
-                                            : 0;
-      // entry j serves as p (j < hi, or lo itself) or as p + 1 (never
-      // read past the width or in an empty row: edge)
-      const bool in = k == 0 ? lo >= 0
-                             : j < W && (k == 1 || j <= hi) &&
-                                   !(w_r == 0 && j >= hi);
-      const int jc = clampi(j, 0, W - 1);
-      rv[k] = in && need_rm ? rd(grm, srm, n, jc) : 0;
-      bv[k] = in && need_br ? rd(gbr, sbr, n, jc) : 0;
-    }
-    int c = 0;
-#pragma unroll
-    for (int k = 1; k <= kLast; ++k) c += (lo + k < hi) && kv[k] <= q;
-    int kp = kv[0], r0 = rv[0], r1 = rv[1], b0 = bv[0], b1 = bv[1];
-#pragma unroll
-    for (int k = 1; k <= kLast; ++k)
-      if (k == c) {
-        kp = kv[k];
-        r0 = rv[k];
-        r1 = rv[k + 1];
-        b0 = bv[k];
-        b1 = bv[k + 1];
-      }
-    const int p = lo + c;
-    const bool edge = p + 1 >= W || w_r == 0;
-    const bool hit = p >= 0 && kp == q;
-    const int bl = p >= 0 ? b0 : -1, bh = edge ? bot_w : b1;
-    if (!kPipelined && r == L - 1) {  // B1's bottom row: rank = p
-      if (hit) {
-        found = true;
-        level = r;
-      }
-      rank = p;
-      resolved = true;
-    } else if (hit) {
-      found = true;
-      level = r;
-      rank = bl;
-      resolved = true;
-    } else if (bh - bl == 1) {  // bottom rank pinned
-      rank = bl;
-      resolved = true;
-    }
-    lo = p >= 0 ? r0 : -1;
-    hi = edge ? next_w : r1;
+    row_step<kPipelined, kVec>(s, keys + base, rank_map + base,
+                               bot_rank + base, r, L, W, s_w[r],
+                               s_w[min(r + 1, L - 1)], bot_w, zero);
   }
   if (kPipelined ? gidx < total : gidx < n_live) {
-    found_out[gidx] = found;
-    rank_out[gidx] = rank;
-    level_out[gidx] = level;
+    found_out[gidx] = s.found;
+    rank_out[gidx] = s.rank;
+    level_out[gidx] = s.level;
   }
 
-  if (kPipelined) {  // the reference's issue-time byte count, from the unions
-    __syncthreads();
-    if (t < 32) {
+  if constexpr (kPipelined) {  // the reference's issue-time byte count
+    cg::this_cluster().sync();  // every lane has folded its windows
+    const int lanes_c = min(T, 32);
+    if (leader && t < lanes_c) {
       int sum = 0;
-      for (int r = t; r < L - 1; r += 32) {
+      for (int r = t; r < L - 1; r += lanes_c) {
         if (!s_run[r]) continue;
         const int* rm = rank_map + static_cast<int64_t>(r) * W;
         const int ulo = s_lo[r], uhi = s_hi[r];
@@ -327,19 +372,18 @@ __global__ void descent_kernel(const int* __restrict__ keys,
         cover(l1, h1, W, tile, cb, nt);
         sum += 3 * nt * tile;
       }
-      sum = __reduce_add_sync(T >= 32 ? 0xffffffffu : (1u << T) - 1, sum);
+      sum = __reduce_add_sync(
+          lanes_c == 32 ? 0xffffffffu : (1u << lanes_c) - 1, sum);
       if (t == 0) {
         if (s_run[0]) {
           int cb, nt;
           cover(s_lo[0], s_hi[0], W, tile, cb, nt);
           sum += 3 * nt * tile;
         }
-        bytes_out[blockIdx.x] = sum * 4;
+        bytes_out[blockIdx.x / C] = sum * 4;
       }
     }
   }
-  if (bulk && t == 0)  // no copy may land after the block has left
-    for (int r = 0; r < ns; ++r) bar_wait(smem_addr(bars + r), 0);
 }
 
 constexpr int kFullTile = 128;     // queries of a cluster tile
@@ -481,39 +525,53 @@ __global__ void __launch_bounds__(kFullThreads)
 
 }  // namespace
 
-// B1 (pipelined = 0) and B2 (pipelined = 1): one block of `block`
-// threads per `block` queries.  B1's n_live is the query count and its
-// rank the bottom row's p; B2's lanes at or past n_live are batch
-// padding, resolved from the start, and bytes[block] gets its count.
-// `budget` (a multiple of 16) bounds the staged rows; the block asks
-// for descent_fixed_smem(L) + budget bytes of dynamic shared memory.
+template <bool kPipelined, bool kVec>
+int launch_descent(int n_blocks, int block, int cluster, cudaStream_t s,
+                   const int* keys, const int* rank_map, const int* bot_rank,
+                   const int* widths, const int* queries, int L, int W,
+                   int n_live, int tile, bool* found, int* rank, int* level,
+                   int* bytes) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks * cluster);
+  cfg.blockDim = dim3(block / cluster);
+  cfg.dynamicSmemBytes = descent_smem(L);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kPipelined ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, descent_kernel<kPipelined, kVec>, keys, rank_map, bot_rank,
+      widths, queries, L, W, n_live, tile, found, rank, level, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B1 (pipelined = 0): n_blocks blocks of `block` threads, one thread per
+// query; n_live is the query count.  B2 (pipelined = 1): n_blocks query
+// blocks of `block` lanes, each on a cluster of `cluster` CTAs of
+// block / cluster threads; lanes at or past n_live are batch padding,
+// resolved from the start, and bytes[query block] gets its count.
+// `aligned`: the three arrays' rows are 16-byte aligned (16-byte reads).
+// bot_rank is read by B2 only.
 extern "C" int splay_descent(int pipelined, const int* keys,
                              const int* rank_map, const int* bot_rank,
                              const int* widths, const int* queries, int L,
-                             int W, int n_blocks, int block, int n_live,
-                             int tile, int budget, int bulk, bool* found,
-                             int* rank, int* level, int* bytes, int* staged,
+                             int W, int n_blocks, int block, int cluster,
+                             int n_live, int tile, int aligned, bool* found,
+                             int* rank, int* level, int* bytes,
                              void* stream) {
-  const int smem = descent_fixed_smem(L) + budget;
-  static int set_bytes[2] = {48 * 1024, 48 * 1024};
-  cudaError_t err;
-  if (smem > set_bytes[pipelined]) {  // once per size: not under capture
-    err = cudaFuncSetAttribute(
-        pipelined ? descent_kernel<true> : descent_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    set_bytes[pipelined] = smem;
-  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pipelined)
-    descent_kernel<true><<<n_blocks, block, smem, s>>>(
-        keys, rank_map, bot_rank, widths, queries, L, W, n_live, tile,
-        budget, bulk, found, rank, level, bytes, staged);
-  else
-    descent_kernel<false><<<n_blocks, block, smem, s>>>(
-        keys, rank_map, bot_rank, widths, queries, L, W, n_live, tile,
-        budget, bulk, found, rank, level, bytes, staged);
-  return static_cast<int>(cudaGetLastError());
+#define DESCENT(P, V)                                                       \
+  launch_descent<P, V>(n_blocks, block, P ? cluster : 1, s, keys,          \
+                       rank_map, bot_rank, widths, queries, L, W, n_live,  \
+                       tile, found, rank, level, bytes)
+  if (pipelined) return aligned ? DESCENT(true, true) : DESCENT(true, false);
+  return aligned ? DESCENT(false, true) : DESCENT(false, false);
+#undef DESCENT
 }
 
 // One cluster of `cluster` CTAs per tile of kFullTile queries.  Returns

@@ -8,20 +8,21 @@ above bounds (rows are nested).  Two descents compute the same
 engine (``csrc/splay_search.cu``), each beside its plain PyTorch
 version:
 
-* tiered (B1): one thread per query, each lane walking until it
-  resolves — :func:`splay_search_tiered_plain`;
-* pipelined (B2): the same walk in query blocks, plus the reference's
-  per-block issue-time byte counter of its ``gcd(W, 256)``-lane tile
-  fetches, rebuilt from per-row unions of the unresolved lanes' windows
-  — :func:`splay_search_pipelined_plain`.  Widths whose tile count
-  exceeds 64 take the tiered descent and report its whole-row byte
-  model, exactly as the reference does.
+* tiered (B1): one thread per query, every row, every query —
+  :func:`splay_search_tiered_plain`;
+* pipelined (B2): query blocks whose lanes each stop once resolved (a
+  hit answered through ``bot_rank``, or a width-1 bottom-row
+  projection), plus the reference's per-block issue-time byte counter
+  of its ``gcd(W, 256)``-lane tile fetches, rebuilt from per-row unions
+  of the unresolved lanes' windows — :func:`splay_search_pipelined_plain`.
+  Widths whose tile count exceeds 64 take the tiered descent and report
+  its whole-row byte model, exactly as the reference does.
 
-A lane resolves on a hit (rank ``bot_rank[r, p]``) or once its window's
-projection onto the bottom row has width 1; within a row it reads its
-window's few candidates at once instead of probing them one by one, so
-each row is one dependent trip.  Each block stages the plane's leading
-rows in shared memory (:func:`descent_plan`).
+Within a row a lane reads its window's few candidates at once, with the
+rank-map entries its predecessor and successor can take, so a row is
+one dependent trip (wide windows first narrow ``_FAN``-ary).  On sorted
+rows the count of candidates ``<= q`` is the reference's binary-search
+predecessor, so the answers are the reference's.
 
 A third, the seed baseline (B5), counts ``row <= q`` across every row's
 full width instead of descending — :func:`splay_search_full_plain`.
@@ -58,23 +59,20 @@ DEFAULT_QUERY_BLOCK = 256
 # that is <= 256.  Widths with more tiles than this take the tiered
 # descent (the reference's rule, kept with its byte model).
 _MAX_PIPE_TILES = 64
-_SMEM_BLOCK = 232448               # 227 KB of shared memory a block
 
 # The descent engine (B1 and B2): a narrowing trip reads _FAN - 1 pivots
 # at once; a window of at most _LAST candidates takes one last trip that
-# fetches them all with the rank-map and bot-rank entries p and p + 1
-# can take.  B1 runs _TIERED_BLOCK queries a block; each block stages
-# the plane's leading rows in _DESCENT_BUDGET bytes of shared memory.
+# reads them with the rank-map (and B2's bot-rank) entries p and p + 1
+# can take.  B1 runs _TIERED_BLOCK queries a block.
 _FAN, _LAST = 4, 3
-_TIERED_BLOCK = 128
-_DESCENT_BUDGET = 98304
+_TIERED_BLOCK = 64
+# B2 runs a query block on a cluster of CTAs of at least this many
+# threads (at most 8 CTAs, the portable cluster size)
+_PIPE_CTA = 64
 
 # launches of the CUDA kernels (plain CPU runs do not count)
 LAUNCHES = {"splay_search_tiered": 0, "splay_search_pipelined": 0,
             "splay_search_full": 0}
-# rows the last launch of each descent staged (a one-element device
-# tensor, read only by checks: the wrappers never read it back)
-STAGED = {"splay_search_tiered": None, "splay_search_pipelined": None}
 
 
 def rank_windows(level_keys: torch.Tensor) -> torch.Tensor:
@@ -160,63 +158,15 @@ def _pad_queries(queries: torch.Tensor, query_block: int) -> torch.Tensor:
 # B1 and B2: one descent engine (csrc/splay_search.cu descent_kernel)
 # ---------------------------------------------------------------------------
 
-class DescentPlan(NamedTuple):
-    rows: int         # leading rows a block stages in shared memory
-    nbytes: int       # their keys, rank-map and bot-rank entries, bytes
-    bulk: bool        # TMA bulk copies (16-byte rows), else plain loads
-    smem: int         # dynamic shared memory a block asks for
-
-
-def _descent_fixed_smem(n_levels: int) -> int:
-    """mbarriers [L] + widths [L] + B2's row unions and flags [3, L]."""
-    return (24 * n_levels + 127) // 128 * 128
-
-
-def _stage_budget(n_levels: int, budget: int) -> int:
-    """The staging bytes a block gets: ``budget`` cut to what a block's
-    shared memory leaves beside the fixed part, in 16-byte words."""
-    room = _SMEM_BLOCK - _descent_fixed_smem(n_levels)
-    return max(0, min(int(budget), room)) // 16 * 16
-
-
-def _stage_len(w: int, width: int) -> int:
-    """Entries of a row staged per array: the live prefix and its pad
-    entry, rounded up to a 16-byte word, at most the width."""
-    return min((w + 1 + 3) // 4 * 4, width)
-
-
-def descent_plan(widths, width: int, budget: int = None,
-                 aligned: bool = True) -> DescentPlan:
-    """The descent kernel's staging, which the kernel itself decides on
-    the card from the widths: the leading rows whose keys, rank-map and
-    bot-rank entries (:func:`_stage_len` each, in 16-byte words) fit the
-    budget together.  ``aligned``: the three arrays' bases are 16-byte
-    multiples, which with ``width % 4 == 0`` lets the rows go by TMA bulk
-    copies."""
-    widths = [int(w) for w in widths]
-    n_levels = len(widths)
-    budget = _stage_budget(n_levels, _DESCENT_BUDGET if budget is None
-                           else budget)
-    off = rows = 0
-    for w in widths:
-        need = 12 * ((_stage_len(w, width) + 3) // 4 * 4)
-        if off + need > budget:
-            break
-        off += need
-        rows += 1
-    return DescentPlan(rows, off, bool(aligned and width % 4 == 0),
-                       _descent_fixed_smem(n_levels) + budget)
-
-
 def _row_step(row, rm_row, br_row, lo, hi, q, width: int, w_r: int,
               next_w: int, bot_w: int, active):
     """One row of the descent for the ``active`` lanes, as the kernel
     runs it: narrowing trips of ``_FAN - 1`` pivots while the window
     ``(lo, hi)`` holds more than ``_LAST`` candidates, then the count of
-    the candidates ``<= q``.  On sorted rows the count is the binary
-    search's predecessor.  Returns ``(p, hit, bl, bh, lo_n, hi_n)``:
-    the predecessor, its hit, its bottom-row projection ``[bl, bh)``
-    and the next row's window (int64)."""
+    the candidates ``<= q`` (on a sorted row, the binary search's
+    predecessor).  Returns ``(p, hit, lo_n, hi_n, bl, bh)``: the
+    predecessor, its hit, the next row's window and, given ``br_row``,
+    the bottom-row projection ``[bl, bh)`` (int64)."""
     def at(t, j):
         return t[torch.clamp(j, 0, width - 1)].long()
 
@@ -234,24 +184,21 @@ def _row_step(row, rm_row, br_row, lo, hi, q, width: int, w_r: int,
     p = lo + c
     edge = (p + 1 >= width) | (w_r == 0)
     hit = (p >= 0) & (at(row, p) == q)
-    bl = torch.where(p >= 0, at(br_row, p), -1)
-    bh = torch.where(edge, bot_w, at(br_row, p + 1))
     lo_n = torch.where(p >= 0, at(rm_row, p), -1)
     hi_n = torch.where(edge, next_w, at(rm_row, p + 1))
-    return p, hit, bl, bh, lo_n, hi_n
+    if br_row is None:
+        return p, hit, lo_n, hi_n, None, None
+    bl = torch.where(p >= 0, at(br_row, p), -1)
+    bh = torch.where(edge, bot_w, at(br_row, p + 1))
+    return p, hit, lo_n, hi_n, bl, bh
 
 
-def splay_search_tiered_plain(level_keys, rank_map, widths, queries,
-                              bot_rank=None):
-    """Plain version of B1, all queries at once, row by row: each lane
-    walks until it resolves — a hit (rank ``bot_rank[r, p]``), or a
-    width-1 bottom-row projection (rank pinned) — else to the bottom
-    row, whose ``p`` is its rank.  On a packed plane the triple is the
-    full walk's: no later row changes ``level_found``, and the bottom
-    row's ``p`` is the projection.  ``bot_rank`` is derived when
-    absent.  Returns ``(found bool, rank int32, level_found int32)``."""
-    if bot_rank is None:
-        bot_rank = bottom_ranks(level_keys)
+def splay_search_tiered_plain(level_keys, rank_map, widths, queries):
+    """Plain version of B1, all queries at once, row by row: every lane
+    walks every row (its window's candidates read at once, after
+    narrowing trips when it holds more than ``_LAST``); ``level_found``
+    is the first row with a hit, the rank the bottom row's ``p``.
+    Returns ``(found bool, rank int32, level_found int32)``."""
     n_levels, width = level_keys.shape
     dev = level_keys.device
     w = widths.tolist()
@@ -260,45 +207,40 @@ def splay_search_tiered_plain(level_keys, rank_map, widths, queries,
     lo = torch.full((nq,), -1, dtype=torch.int64, device=dev)
     hi = torch.full((nq,), w[0], dtype=torch.int64, device=dev)
     found = torch.zeros((nq,), dtype=torch.bool, device=dev)
-    resolved = torch.zeros((nq,), dtype=torch.bool, device=dev)
     level = torch.full((nq,), n_levels, dtype=torch.int64, device=dev)
-    rank = torch.zeros((nq,), dtype=torch.int64, device=dev)
+    everyone = torch.ones((nq,), dtype=torch.bool, device=dev)
     for r in range(n_levels):
-        act = ~resolved
-        if not bool(act.any()):
-            break
-        p, hit, bl, bh, lo_n, hi_n = _row_step(
-            level_keys[r], rank_map[r], bot_rank[r], lo, hi, q, width, w[r],
-            w[min(r + 1, n_levels - 1)], w[-1], act)
-        hit = act & hit
-        level = torch.where(hit, r, level)
+        p, hit, lo, hi, _, _ = _row_step(
+            level_keys[r], rank_map[r], None, lo, hi, q, width, w[r],
+            w[min(r + 1, n_levels - 1)], w[-1], everyone)
+        level = torch.where(hit & ~found, r, level)
         found = found | hit
-        if r == n_levels - 1:
-            rank = torch.where(act, p, rank)
-            break
-        now = hit | (act & (bh - bl == 1))
-        rank = torch.where(now, bl, rank)
-        resolved = resolved | now
-        lo, hi = torch.where(act, lo_n, lo), torch.where(act, hi_n, hi)
-    return found, rank.to(torch.int32), level.to(torch.int32)
+    return found, p.to(torch.int32), level.to(torch.int32)
+
+
+def pipe_cluster(query_block: int) -> int:
+    """CTAs of B2's cluster for a query block: the most (8, 4 or 2)
+    that split it into CTAs of at least ``_PIPE_CTA`` threads, else 1."""
+    for c in (8, 4, 2):
+        if query_block % c == 0 and query_block // c >= _PIPE_CTA:
+            return c
+    return 1
 
 
 def _descent_kernel(pipelined: bool, level_keys, rank_map, widths,
                     bot_rank, queries, n_live: int, block: int,
-                    budget: int = None):
+                    cluster: int = None):
     """One launch of the descent engine: B1 (``pipelined=False``, one
-    thread per query, ``block`` threads a block) or B2 (one block per
-    query block of ``block`` lanes, with its byte counter).  The kernel
-    stages the plane's leading rows in ``budget`` bytes of shared memory
-    and records how many in :data:`STAGED` (a device tensor, not read
-    back here)."""
+    thread per query, ``block`` threads a block; ``bot_rank`` unused) or
+    B2 (one block per query block of ``block`` lanes, with its byte
+    counter)."""
     if block > 1024:
         raise ValueError(f"a block of {block} exceeds the 1024 threads of "
                          "a CUDA block")
     lib = build.load("splay_search")
     fn = lib.splay_descent
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     n_levels, width = level_keys.shape
     nq_p = queries.shape[0]
@@ -309,21 +251,17 @@ def _descent_kernel(pipelined: bool, level_keys, rank_map, widths,
     level = torch.empty((nq_p,), dtype=torch.int32, device=dev)
     nbytes = torch.empty((n_blocks if pipelined else 1,), dtype=torch.int32,
                          device=dev)
-    staged = torch.empty((1,), dtype=torch.int32, device=dev)
-    budget = _stage_budget(n_levels, _DESCENT_BUDGET if budget is None
-                           else budget)
-    bulk = width % 4 == 0 and all(
+    aligned = width % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (level_keys, rank_map, bot_rank))
     p = build.ptr
     name = "splay_search_pipelined" if pipelined else "splay_search_tiered"
     code = fn(int(pipelined), p(level_keys), p(rank_map), p(bot_rank),
               p(widths), p(queries), n_levels, width, n_blocks, block,
-              n_live, math.gcd(width, 256), budget, int(bulk), p(found),
-              p(rank), p(level), p(nbytes), p(staged),
-              build.stream_of(level_keys))
+              pipe_cluster(block) if cluster is None else cluster,
+              n_live, math.gcd(width, 256), int(aligned), p(found), p(rank),
+              p(level), p(nbytes), build.stream_of(level_keys))
     build.check(lib, code, f"{name} launch")
     LAUNCHES[name] += 1
-    STAGED[name] = staged
     return found, rank, level, nbytes
 
 
@@ -340,13 +278,11 @@ def _operands(level_keys, queries, *companions):
 
 
 def _splay_search_arrays(level_keys, queries, query_block: int =
-                         DEFAULT_QUERY_BLOCK, rank_map=None, widths=None,
-                         bot_rank=None, *, _block: int = None,
-                         _budget: int = None):
-    """B1 over a bare matrix (companions derived when absent, on the
-    plane's device): CUDA tensors launch the kernel, CPU tensors run the
-    plain version.  ``_block`` and ``_budget`` override the kernel's
-    block size and staging budget (tests and measurements)."""
+                         DEFAULT_QUERY_BLOCK, rank_map=None, widths=None, *,
+                         _block: int = None):
+    """B1 over a bare matrix (companions derived when absent): CUDA
+    tensors launch the kernel, CPU tensors run the plain version.
+    ``_block`` overrides the kernel's block size (measurements)."""
     n_levels, width = level_keys.shape
     nq = queries.shape[0]
     dev = level_keys.device
@@ -357,18 +293,16 @@ def _splay_search_arrays(level_keys, queries, query_block: int =
         rank_map = rank_windows(level_keys)
     if widths is None:
         widths = row_widths(level_keys)
-    if bot_rank is None:
-        bot_rank = bottom_ranks(level_keys)
-    level_keys, queries, rank_map, widths, bot_rank = _operands(
-        level_keys, queries, rank_map, widths, bot_rank)
+    level_keys, queries, rank_map, widths = _operands(
+        level_keys, queries, rank_map, widths)
     qp = _pad_queries(queries, query_block)
     if dev.type == "cpu":
         f, r, lv = splay_search_tiered_plain(level_keys, rank_map, widths,
-                                             qp, bot_rank)
+                                             qp)
     else:
         f, r, lv, _ = _descent_kernel(
-            False, level_keys, rank_map, widths, bot_rank, qp, qp.shape[0],
-            _TIERED_BLOCK if _block is None else _block, _budget)
+            False, level_keys, rank_map, widths, rank_map, qp, qp.shape[0],
+            _TIERED_BLOCK if _block is None else _block)
     return f[:nq], r[:nq], lv[:nq]
 
 
@@ -419,7 +353,7 @@ def splay_search_pipelined_plain(level_keys, rank_map, widths, bot_rank,
         uhis.append(torch.where(act, hi, 0).view(nb, query_block).amax(1))
         if not bool(act.any()):
             break
-        p, hit, bl, bh, lo_n, hi_n = _row_step(
+        p, hit, lo_n, hi_n, bl, bh = _row_step(
             level_keys[r], rank_map[r], bot_rank[r], lo, hi, q, width, w[r],
             w[min(r + 1, n_levels - 1)], w[-1], act)
         hit = act & hit
@@ -448,9 +382,8 @@ def splay_search_pipelined_plain(level_keys, rank_map, widths, bot_rank,
 def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
                                    DEFAULT_QUERY_BLOCK, rank_map=None,
                                    widths=None, bot_rank=None, *,
-                                   _budget: int = None):
-    """B2 over a bare matrix: ``(found, rank, level_found, bytes)``.
-    ``_budget`` overrides the kernel's staging budget."""
+                                   _cluster: int = None):
+    """B2 over a bare matrix: ``(found, rank, level_found, bytes)``."""
     n_levels, width = level_keys.shape
     nq = queries.shape[0]
     dev = level_keys.device
@@ -461,17 +394,16 @@ def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
         rank_map = rank_windows(level_keys)
     if widths is None:
         widths = row_widths(level_keys)
-    if bot_rank is None:
-        bot_rank = bottom_ranks(level_keys)
     n_blocks = (nq + (-nq) % query_block) // query_block
     if width // math.gcd(width, 256) > _MAX_PIPE_TILES:
         # no divisor near 256: take the tiered descent and report its
         # whole-row byte model (keys + rank-map rows, 4 bytes a lane)
         f, r, lv = _splay_search_arrays(level_keys, queries, query_block,
-                                        rank_map=rank_map, widths=widths,
-                                        bot_rank=bot_rank, _budget=_budget)
+                                        rank_map=rank_map, widths=widths)
         return f, r, lv, torch.full((n_blocks,), 2 * n_levels * width * 4,
                                     dtype=torch.int32, device=dev)
+    if bot_rank is None:
+        bot_rank = bottom_ranks(level_keys)
     level_keys, queries, rank_map, widths, bot_rank = _operands(
         level_keys, queries, rank_map, widths, bot_rank)
     qp = _pad_queries(queries, query_block)
@@ -481,7 +413,7 @@ def _splay_search_pipelined_arrays(level_keys, queries, query_block: int =
     else:
         f, r, lv, nb = _descent_kernel(True, level_keys, rank_map, widths,
                                        bot_rank, qp, nq, query_block,
-                                       _budget)
+                                       _cluster)
     return f[:nq], r[:nq], lv[:nq], nb
 
 
@@ -522,6 +454,7 @@ def splay_search_full_plain(level_keys, queries, query_block: int):
 # the shared memory a block may hold (csrc/splay_search.cu full_kernel)
 _FULL_TILE = 128
 _FULL_CLUSTER = 8                  # the portable cluster size
+_SMEM_BLOCK = 232448               # 227 KB of shared memory a block
 
 
 class FullPlan(NamedTuple):
@@ -677,8 +610,7 @@ def splay_search(level_keys, queries, query_block: int =
         return f, r, lv
     return _splay_search_arrays(level_keys, queries,
                                 query_block=query_block,
-                                rank_map=rank_map, widths=widths,
-                                bot_rank=bot_rank)
+                                rank_map=rank_map, widths=widths)
 
 
 def splay_search_pipelined(level_keys, queries, query_block: int =

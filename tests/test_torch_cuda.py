@@ -414,3 +414,101 @@ def test_full_cluster_kernel_matches_plain(width, levels, nq, qb, batch):
     assert bool(got[0][-2])                    # PAD_KEY: found
     if batch == "hot":
         assert bool(got[0][:nq].all())
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2: the descent engine's launch shapes and read paths
+# ---------------------------------------------------------------------------
+
+def _unaligned(t):
+    """A copy of ``t`` whose base is 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:t.numel() + 1].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("width,levels,nq", [
+    (4096, 14, 3000),          # 16-byte rows: 16-byte reads
+    (1031, 8, 257),            # ragged width: 4-byte reads
+    (1008, 24, 1001),          # 16-lane tiles
+    (64, 5, 1)])
+def test_tiered_descent_shapes(width, levels, nq, layout):
+    """B1 at every block size, on 16-byte and unaligned rows: equal to
+    its plain version, one launch per call."""
+    plane, qs = _plane(width, levels, nq, seed=width + nq)
+    keys, rm = plane.keys, plane.rank_map
+    if layout == "unaligned":
+        keys, rm = _unaligned(keys), _unaligned(rm)
+    want = tssk.splay_search_tiered_plain(keys, rm, plane.widths,
+                                          tssk._pad_queries(qs, 256))
+    for block in (32, 64, 128, 256):
+        before = tssk.LAUNCHES["splay_search_tiered"]
+        got = tssk._splay_search_arrays(keys, qs, 256, rm, plane.widths,
+                                        _block=block)
+        assert tssk.LAUNCHES["splay_search_tiered"] == before + 1
+        _equal(got, [t[:qs.shape[0]] for t in want])
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("width,levels,nq,qb", [
+    (16384, 24, 2048, 256), (1008, 8, 1001, 256), (48, 6, 37, 16),
+    (1008, 24, 300, 16), (4096, 12, 999, 1024)])
+def test_pipelined_descent_shapes(width, levels, nq, qb, layout):
+    """B2 on 16-byte and unaligned rows, query blocks of 16 to 1024
+    lanes, each on a cluster of 1 to 8 CTAs: the triple and the byte
+    counter equal to its plain version, one launch per call."""
+    plane, qs = _plane(width, levels, nq, seed=width + levels)
+    keys, rm, br = plane.keys, plane.rank_map, plane.bot_rank
+    if layout == "unaligned":
+        keys, rm, br = (_unaligned(t) for t in (keys, rm, br))
+    want = tssk.splay_search_pipelined_plain(
+        keys, rm, plane.widths, br, tssk._pad_queries(qs, qb), qs.shape[0],
+        qb)
+    n = qs.shape[0]
+    for cluster in (None, 1, 2, 4, 8):
+        if cluster and qb % cluster:
+            continue
+        before = tssk.LAUNCHES["splay_search_pipelined"]
+        got = tssk._splay_search_pipelined_arrays(
+            keys, qs, qb, rm, plane.widths, br, _cluster=cluster)
+        assert tssk.LAUNCHES["splay_search_pipelined"] == before + 1
+        _equal(got, [*(t[:n] for t in want[:3]), want[3]])
+
+
+def test_descent_lane_that_never_resolves():
+    """A bottom-row bot_rank with a gap after key j, a key of the bottom
+    row alone: a lane whose predecessor is key j is pinned in no row, so
+    B2 walks its block through every row (counted) and keeps its rank 0;
+    equal to its plain version."""
+    plane, qs = _plane(1024, 8, 300, seed=3)
+    live = plane.keys[-1][:int(plane.widths[-1])].cpu().numpy()
+    heights = plane.heights.cpu().numpy()
+    j = next(i for i in range(len(live) // 2, len(live) - 1)
+             if heights[i] == 0 and live[i] + 1 < live[i + 1])
+    br = plane.bot_rank.clone()
+    br[-1, j] += 5
+    qs = torch.cat([qs, torch.as_tensor([live[j] + 1], device="cuda",
+                                        dtype=torch.int32)])
+    got = tssk._splay_search_pipelined_arrays(
+        plane.keys, qs, 64, plane.rank_map, plane.widths, br)
+    want = tssk.splay_search_pipelined_plain(
+        plane.keys, plane.rank_map, plane.widths, br,
+        tssk._pad_queries(qs, 64), qs.shape[0], 64)
+    n = qs.shape[0]
+    _equal(got, [*(t[:n] for t in want[:3]), want[3]])
+    assert not bool(got[0][-1]) and int(got[1][-1]) == 0
+    assert int(got[2][-1]) == 8
+
+
+def test_descent_plane_entry_equals_bare_matrix():
+    """The public entry on a plane struct (its bot_rank) and on the bare
+    matrix (bot_rank derived on the card) give the same triple, on both
+    descents."""
+    plane, qs = _plane(4096, 14, 1000, seed=9)
+    for pipelined in (False, True):
+        a = tops.splay_search(plane, qs, pipelined=pipelined)
+        b = tops.splay_search(plane.keys, qs, pipelined=pipelined)
+        _equal(a, b)
