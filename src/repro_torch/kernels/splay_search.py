@@ -143,10 +143,6 @@ def _fetch_schedule(widths: torch.Tensor, n_levels: int) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(cand, (0,)), 0)[0], (0,))
 
 
-def _n_steps(width: int) -> int:
-    return max(int(width + 1).bit_length(), 1)
-
-
 def _pad_queries(queries: torch.Tensor, query_block: int) -> torch.Tensor:
     pad = (-queries.shape[0]) % query_block
     if not pad:
@@ -239,9 +235,10 @@ def _descent_kernel(pipelined: bool, level_keys, rank_map, widths,
                          "a CUDA block")
     lib = build.load("splay_search")
     fn = lib.splay_descent
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:   # once per process: a wrapper call is host-bound
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
     n_levels, width = level_keys.shape
     nq_p = queries.shape[0]
     n_blocks = -(-nq_p // block)
@@ -249,8 +246,8 @@ def _descent_kernel(pipelined: bool, level_keys, rank_map, widths,
     found = torch.empty((nq_p,), dtype=torch.bool, device=dev)
     rank = torch.empty((nq_p,), dtype=torch.int32, device=dev)
     level = torch.empty((nq_p,), dtype=torch.int32, device=dev)
-    nbytes = torch.empty((n_blocks if pipelined else 1,), dtype=torch.int32,
-                         device=dev)
+    nbytes = (torch.empty((n_blocks,), dtype=torch.int32, device=dev)
+              if pipelined else None)
     aligned = width % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (level_keys, rank_map, bot_rank))
     p = build.ptr

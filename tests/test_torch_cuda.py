@@ -5,9 +5,12 @@ version on the same inputs, bit-exact, and the epoch loop and the vocab
 cache on the card against their CPU runs.  F's list handling (long,
 mostly zero-weight lists over many of the warp's 128-entry ballots, a
 rebuild stop deep inside an op list, an exhausted capacity, 33- and
-65-row columns) and B5's cluster plan
+65-row columns), B5's cluster plan
 (ragged and tiny widths, one row, ragged tiles, hot batches, row
-panels, the pad sentinel) have cases of their own.  Needs an NVIDIA GPU and
+panels, the pad sentinel) and the descent engine of B1 and B2 (B1 at
+every block size and B2 on clusters of 1 to 8 CTAs, 16-byte and
+unaligned rows, a lane that never resolves, the plane entry against
+the bare matrix) have cases of their own.  Needs an NVIDIA GPU and
 nvcc; skips without a card.  Imports no JAX (the card's machine has
 none): run it with ``--noconftest``, as the README says."""
 
