@@ -70,9 +70,10 @@ Phases:
    ``fold_paths``: device time per launch from a trace, and ms per
    wrapper call by events): the prefill launch, a paper-scale epoch's
    fold list and its ``w > 0`` subset (equal states), and one
-   vocab-tier stream epoch; each with its ns per walk step, beside a
-   one-thread pointer chase (``kernels/calibrate.py``: ns per
-   dependent load in L2 and from a 256 MB array).  Its traces come
+   vocab-tier stream epoch; each with its ns per walk step, beside the
+   one-thread pointer chase that phase 6 measures (``kernels/
+   calibrate.py``: ns per dependent load in L2 and from a 256 MB
+   array).  Its traces come
    after phase 7's, which they would otherwise disturb.
 
 Each path reads its own launch counts: they are zeroed just before it
