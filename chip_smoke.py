@@ -13,7 +13,8 @@ Phases:
    bit-exact on every output (the pipelined search's byte counter
    included): B1 tiered search at W=131072, L=24, q=65536, at each
    block size; B2 pipelined search at W=16384 (64 tiles), W=1008
-   (16-lane tiles) and an odd batch, each on clusters of 1 to 8 CTAs; F update fold on a 2,000-key prefill plus 4 mixed epochs; B3,
+   (16-lane tiles) and an odd batch, each on clusters of 1 to 8 CTAs;
+   F update fold on a 2,000-key prefill plus 4 mixed epochs; B3,
    B4 and the fused two-tier gather on float32, bfloat16, int32 and
    uint8 tables at d=4096 (TMA bulk copies) and d=1001 and 37 (vector
    words), q in {0, 1, 333, 8192} with out-of-range ids, int64 ids, and
@@ -873,10 +874,10 @@ def main() -> None:
     for ids in (pids, batches[0]):
         ids_l = ids.long()
         nq = ids.numel()
-        eager = stm.eager_ms(torch, lambda: hg.hot_gather(table, hot_buf,
-                                                     hot_rank, ids), 50)
-        ms = stm.graph_ms(torch, lambda: hg.hot_gather(table, hot_buf, hot_rank,
-                                                   ids))
+        eager = stm.eager_ms(torch, lambda: hg.hot_gather(
+            table, hot_buf, hot_rank, ids), 50)
+        ms = stm.graph_ms(torch, lambda: hg.hot_gather(
+            table, hot_buf, hot_rank, ids))
         plain = stm.graph_ms(torch, lambda: hg.hot_gather_ref(
             table, hot_buf, hot_rank, ids))
         comp = stm.graph_ms(torch, lambda: composition(ids))
@@ -941,7 +942,8 @@ def main() -> None:
         def pair():
             cold_call()
             fn()
-        l2[name] = (stm.graph_ms(torch, pair) - cold_only, stm.graph_ms(torch, fn))
+        l2[name] = (stm.graph_ms(torch, pair) - cold_only,
+                    stm.graph_ms(torch, fn))
     block = torch.empty((8192, D), dtype=table.dtype, device=dev)
     zero_ms = stm.graph_ms(torch, lambda: block.zero_())
     copy_ms = stm.graph_ms(torch, lambda: block.copy_(table[:8192]))

@@ -3,7 +3,7 @@
 alternating pairs on one card in one run:
 
     python3 scripts/torch_search_ab.py --parent PATH/src --change PATH/src
-        [--pairs 10] [--sweep]
+        [--pairs 10] [--sweep] [--probe]
 
 Each ``PATH`` is a checkout of a commit of the port (for example the
 parent commit unpacked with ``git archive`` into a git-ignored
@@ -17,9 +17,10 @@ alternates: parent, change, change, parent, ...); each child times B1
 and B2 per launch from a ``torch.profiler`` trace, per call by
 CUDA-graph replay and by an eager loop, and checks its answers against
 its own plain version.  ``--sweep`` has the change tree's child also
-time B1 over its block sizes and B2 over its cluster sizes; ``--probe`` has each tree's first child time B1 on a batch of
-one hot key, the sorted batch, the bottom row alone and the plane's
-leading k rows alone (the walk cut at row k - 1).
+time B1 over its block sizes and B2 over its cluster sizes;
+``--probe`` has each tree's first child time B1 on a batch of one hot
+key, the sorted batch, the bottom row alone and the plane's leading k
+rows alone (the walk cut at row k - 1).
 
 Prints the descent statistics of both batches (``search_timing.
 descent_stats``), then one JSON line: each tree's runs, the medians,
