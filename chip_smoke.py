@@ -14,7 +14,9 @@ Phases:
    included): B1 tiered search at W=131072, L=24, q=65536, at each
    block size; B2 pipelined search at W=16384 (64 tiles), W=1008
    (16-lane tiles) and an odd batch, each on clusters of 1 to 8 CTAs;
-   F update fold on a 2,000-key prefill plus 4 mixed epochs; B3,
+   F update fold on a 2,000-key prefill plus 4 mixed epochs and a
+   1024-op list of all five op kinds (the ordered kinds OP_PRED and
+   OP_RANGE included); B3,
    B4 and the fused two-tier gather on float32, bfloat16, int32 and
    uint8 tables at d=4096 (TMA bulk copies) and d=1001 and 37 (vector
    words), q in {0, 1, 333, 8192} with out-of-range ids, int64 ids, and
@@ -35,7 +37,8 @@ Phases:
    deletes, first through ``run_ops`` on the card and on a CPU copy of
    the paper-scale state (every field, verdict and path length equal),
    then through ``run_serving(aggregate=False)``; then a plane-search
-   epoch over the inserted and deleted keys;
+   epoch over the inserted and deleted keys.  F on a 512-op list of all
+   five kinds on the paper-scale state, against its plain fold;
 5. serving at W=16384 (10^4 keys), where B2 answers the searches;
    then the seed baseline search (B5, ``ops.splay_search_full``) over
    the served plane for each of the 8 batches, equal to its plain
@@ -48,6 +51,23 @@ Phases:
    on the same counts), then ``lookup`` of 64 decode batches of 256 ids
    and 4 prefill chunks of 8192, each one launch of the fused gather
    and bit-equal to ``table[ids]``;
+5c. the ordered operations on phase 3's served plane: rank,
+   predecessor, successor, select, range count, range scan (at most 64)
+   and top-k (k=256) on 4096 Zipf queries, each equal to a numpy oracle
+   on the sorted live set; ``run_serving(ordered=True,
+   plane_search=True)`` over 4 x 4096 lanes (contains, predecessor and
+   prefix count, a third each), equal to the oracle and to ``run_ops``
+   of the same lanes through F, timed beside the membership-only run of
+   the same keys; F's ms per ordered op; the plane audit, clean and
+   after one bit-flip in each of the four fields, each caught in its
+   field and repaired by one rebuild epoch;
+5d. the paged KV pool's device index at minitron-8b's size on the card
+   (28672 pages of 16 tokens at 128 KiB a token, index width 28672,
+   epochs of 256): 3584 sessions of 7 pages admitted in flush epochs of
+   256, 64 decode steps of 256 Zipf lookups with creates and releases,
+   a 300-op ``kv_scan_trace``, under a bit-flip and a telemetry
+   blackout (audit every 16 lookup epochs); every answer and the final
+   chains equal a host-mode pool's, the audit catches and repairs;
 6. timings of each kernel at the main path's shapes beside its plain
    version, its bound and, where one PyTorch call computes the same
    function (``index_select`` for B3, B4 and the fused gather), that
@@ -80,7 +100,8 @@ Phases:
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
 5's prefill and serving run, phase 5's full-width searches, phase 5b's
-flushes and lookups, phase 6's timed composition) and read just after
+flushes and lookups, phase 5c's ordered run, phase 5d's pool, phase
+6's timed composition) and read just after
 it, before any check or reference run.  Every kernel of a path must
 have run on it; on the vocab tier the fused gather runs once per
 lookup, B4 builds the hot buffer, and F runs at least once per stream
@@ -213,6 +234,8 @@ def main() -> None:
     import search_timing as stm
     from repro_torch.configs.minitron_8b import CONFIG as minitron
     from repro_torch.core import device_index as dix
+    from repro_torch.core import faults as fl
+    from repro_torch.core import plane_check as pc
     from repro_torch.core import splaylist as sx
     from repro_torch.core import workload as wl
     from repro_torch.core.splay_cache import SplayVocabCache
@@ -223,6 +246,7 @@ def main() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels import splay_search as ssk
     from repro_torch.kernels.ref import take_index
+    from repro_torch.serve.kv_cache import PagedKVPool
 
     dev = torch.device("cuda")
     card = card_line()
@@ -329,11 +353,26 @@ def main() -> None:
         c_out = sx.run_contains_batch(c, qk, up, aggregate)
         f_err = max(f_err, state_err(g_out[0], c_out[0]),
                     max_abs_err(g_out[1:], c_out[1:]))
+    # the five op kinds in one list: the ordered kinds (OP_PRED, OP_RANGE)
+    # read the live slots with the whole warp, after the deletes and
+    # inserts before them in the same launch
+    orng = np.random.default_rng(8)
+    kinds = orng.choice(5, 1024, p=[0.2, 0.15, 0.25, 0.2, 0.2]).astype(
+        np.int32)
+    keys = np.where(orng.random(1024) < 0.8, orng.choice(pool, 1024),
+                    orng.integers(-5, 8005, 1024)).astype(np.int32)
+    upd = orng.random(1024) < 0.5
+    g_out = sx.run_ops(g, kinds, keys, upd)
+    c_out = sx.run_ops(c, kinds, keys, upd)
+    ordered_err = max(state_err(g_out[0], c_out[0]),
+                      max_abs_err(g_out[1:], c_out[1:]))
     torch.cuda.synchronize()
     check(f_err == 0, f"F disagrees with its plain version (err {f_err})")
+    check(ordered_err == 0, f"F disagrees with its plain version on the "
+          f"five-kind list (err {ordered_err})")
     errs["splay_fold"] = f_err
     print("[2] F 2000-key prefill + 4 mixed epochs + both contains "
-          "folds: equal", flush=True)
+          "folds + a 1024-op list of all five kinds: equal", flush=True)
 
     # B3, B4 and the fused two-tier gather on every dtype and copy path
     # (d=4096 rows take TMA bulk copies, d=1001 and 37 the vector words),
@@ -537,6 +576,22 @@ def main() -> None:
     check(f_err4 == 0, f"F disagrees with its plain version on the "
           f"paper-scale state (err {f_err4})")
     errs["splay_fold"] = max(errs["splay_fold"], f_err4)
+    # phase 2's five-kind check at the main path's scale: a list of all
+    # five kinds on the served paper-scale state
+    orng = np.random.default_rng(12)
+    kinds5 = orng.choice(5, 512, p=[0.2, 0.1, 0.1, 0.3, 0.3]).astype(
+        np.int32)
+    keys5 = orng.integers(-50, N + 50, 512).astype(np.int32)
+    upd5 = orng.random(512) < 0.5
+    g_out = sx.run_ops(st3, kinds5, keys5, upd5)
+    c_out = sx.run_ops(cpu_state(st3), kinds5, keys5, upd5)
+    ordered_err = max(ordered_err, state_err(g_out[0], c_out[0]),
+                      max_abs_err(g_out[1:], c_out[1:]))
+    check(ordered_err == 0, f"F disagrees with its plain version on the "
+          f"paper-scale five-kind list (err {ordered_err})")
+    errs["splay_fold"] = max(errs["splay_fold"], ordered_err)
+    print("[4] F list of 512 ops of all five kinds on the paper-scale "
+          "state: equal to the plain fold", flush=True)
     print(f"[4] F op fold of {E4}x{B} mixed ops on the paper-scale state: "
           f"equal to the plain fold ({plain_s:.1f} s on the host CPU)",
           flush=True)
@@ -686,6 +741,306 @@ def main() -> None:
           f"every lookup == table[ids]; copy path {lookup_path}; "
           f"{vc['gather_rows']} hot-buffer build(s) through B4; "
           f"max_memory_allocated {vocab_peak} B", flush=True)
+
+    # ---- phase 5c: ordered ops and the audit at paper scale -------------
+    # phase 3's served state and plane (10^5 live keys, L=24, W=131072);
+    # host clocks and CUDA events only: a profiler session before phases
+    # 7 and 8 has lost device activity there
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps, out
+
+    def same(got, want, what):
+        got = tuple(g.cpu().numpy() for g in got)
+        check(len(got) == len(want) and all(
+            g.shape == np.shape(w) and np.array_equal(g, w)
+            for g, w in zip(got, want)), f"{what} differs from the oracle")
+
+    PAD, NEG = ssk.PAD_KEY, ssk.NEG_INF_KEY
+    live = plane3.keys[-1, :int(plane3.widths[-1])].cpu().numpy()
+    slot_keys = dix._alive_slots(st3)[0].cpu().numpy()
+    live_slots = np.nonzero(slot_keys != PAD)[0]
+    by_key = np.argsort(slot_keys[live_slots])
+    check(np.array_equal(live, slot_keys[live_slots][by_key]),
+          "the served plane's bottom row is not the state's live set")
+    n_live = live.size
+    orng = np.random.default_rng(21)
+    # Zipf queries (epoch 1 of the stream) moved by -1, 0 or 1, a quarter
+    # of them spread past both ends of the key space
+    zq = keys[1].astype(np.int64) + orng.integers(-1, 2, B)
+    spread = orng.random(B) < 0.25
+    zq = np.where(spread, orng.integers(-2000, N + 2000, B), zq)
+    q = zq.astype(np.int32)
+    lo = q
+    hi = (zq + orng.integers(-4, 100, B)).astype(np.int32)
+    ranks_q = orng.integers(-8, n_live + 8, B).astype(np.int32)
+    i_r = np.searchsorted(live, zq, side="right")
+    i_l = np.searchsorted(live, zq, side="left")
+    start = np.searchsorted(live, lo.astype(np.int64), side="left")
+    cnt = np.maximum(np.searchsorted(live, hi.astype(np.int64),
+                                     side="right") - start, 0)
+    offs = np.arange(64)[None, :]
+    scan = np.where(offs < np.minimum(cnt, 64)[:, None],
+                    live[np.clip(start[:, None] + offs, 0, n_live - 1)], PAD)
+    hits_rank = st3.selfhits.cpu().numpy()[live_slots][by_key].astype(
+        np.int32)
+    top = np.lexsort((np.arange(n_live), -hits_rank))[:256]
+    qd, lod, hid, rkd = (torch.as_tensor(x, device=dev)
+                         for x in (q, lo, hi, ranks_q))
+    ordered = {
+        "rank": (lambda: (ops.splay_rank(plane3, qd),), (i_r,)),
+        "predecessor": (lambda: ops.splay_predecessor(plane3, qd), (
+            np.where(i_r > 0, live[np.maximum(i_r - 1, 0)], NEG), i_r - 1)),
+        "successor": (lambda: ops.splay_successor(plane3, qd), (
+            np.where(i_l < n_live, live[np.minimum(i_l, n_live - 1)], PAD),
+            i_l)),
+        "select": (lambda: (ops.splay_select(plane3, rkd),), (np.where(
+            (ranks_q >= 0) & (ranks_q < n_live),
+            live[np.clip(ranks_q, 0, n_live - 1)], PAD),)),
+        "range_count": (lambda: (ops.splay_range_count(plane3, lod, hid),),
+                        (cnt,)),
+        "range_scan": (lambda: ops.splay_range_scan(plane3, lod, hid, 64),
+                       (scan, cnt, np.maximum(cnt - 64, 0))),
+        "top_k": (lambda: ops.splay_top_k(plane3, st3.selfhits, 256),
+                  (live[top], hits_rank[top], top)),
+    }
+    ordered_ms = {}
+    for name, (fn, want) in ordered.items():
+        ms, got = host_ms(fn)
+        same(got, tuple(np.asarray(w, np.int32) for w in want), name)
+        ordered_ms[name] = round(ms, 4)
+    print(f"[5c] ordered ops on the served plane (n={n_live}, L="
+          f"{plane3.keys.shape[0]}, W={plane3.keys.shape[1]}), q={B} Zipf "
+          f"queries (top-k k=256, range scans of "
+          f"at most 64, {int((cnt > 64).sum())} truncated): every answer "
+          f"equals the numpy oracle on the sorted live set; host ms per "
+          f"call {ordered_ms}", flush=True)
+
+    # one ordered run over 4 x 4096 lanes (contains, predecessor and
+    # prefix count, a third each) beside the membership-only run of the
+    # same keys; then the same lanes through run_ops (kernel F's list)
+    E5c = 4
+    kinds_o = orng.choice([sx.OP_CONTAINS, sx.OP_PRED, sx.OP_RANGE],
+                          (E5c, B)).astype(np.int32)
+    zk = stream.keys[:E5c * B].astype(np.int64) + orng.integers(
+        -1, 2, E5c * B)
+    keys_o = np.where(orng.random(E5c * B) < 0.25,
+                      orng.integers(-2000, N + 2000, E5c * B), zk).astype(
+        np.int32).reshape(E5c, B)
+    upd_o = orng.random((E5c, B)) < 0.01
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out_o = sx.run_serving(st3, plane3, kinds_o, keys_o, upd_o,
+                           aggregate=True, plane_search=True, ordered=True)
+    torch.cuda.synchronize()
+    ord_s = [time.perf_counter() - t]
+    read_launches("ordered_serving", ("splay_search_tiered", "splay_fold"))
+    mem_o = []
+    for _ in range(2):
+        t = time.perf_counter()
+        sx.run_serving(st3, plane3, np.zeros_like(kinds_o), keys_o, upd_o,
+                       aggregate=True, plane_search=True)
+        torch.cuda.synchronize()
+        mem_o.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        again = sx.run_serving(st3, plane3, kinds_o, keys_o, upd_o,
+                               aggregate=True, plane_search=True,
+                               ordered=True)
+        torch.cuda.synchronize()
+        ord_s.append(time.perf_counter() - t)
+        check(torch.equal(again[2], out_o[2]), "ordered runs differ")
+    ko = keys_o.astype(np.int64)
+    io = np.searchsorted(live, ko, side="right")
+    want_o = np.where(kinds_o == sx.OP_PRED,
+                      np.where(io > 0, live[np.maximum(io - 1, 0)], NEG),
+                      np.where(kinds_o == sx.OP_RANGE, io,
+                               np.isin(ko, live))).astype(np.int32)
+    check(np.array_equal(out_o[2].cpu().numpy(), want_o),
+          "the ordered epochs differ from the oracle")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    by_f = sx.run_ops(st3, kinds_o.ravel(), keys_o.ravel(),
+                      (upd_o & (kinds_o == sx.OP_CONTAINS)).ravel())
+    e1.record()
+    torch.cuda.synchronize()
+    f_list_ms = e0.elapsed_time(e1)
+    check(torch.equal(by_f[1], out_o[2].reshape(-1)),
+          "run_ops (F with the ordered kinds) differs from the ordered "
+          "epochs")
+    n_ord = int((kinds_o != sx.OP_CONTAINS).sum())
+    print(f"[5c] ordered run_serving E={E5c} B={B}: "
+          f"{1e3 * np.mean(ord_s) / E5c:.3f} ms per epoch (runs "
+          f"{[round(1e3 * x / E5c, 3) for x in ord_s]}), membership-only "
+          f"epochs of the same keys {1e3 * np.mean(mem_o) / E5c:.3f} ms "
+          f"(runs {[round(1e3 * x / E5c, 3) for x in mem_o]}); answers == "
+          f"oracle == run_ops of the same {E5c * B} lanes through F "
+          f"({n_ord} ordered ops, {f_list_ms:.1f} ms by events)",
+          flush=True)
+
+    # F's time per ordered op: 256 ops of one launch, predecessor and
+    # prefix count in turn, beside the same keys as read-only contains
+    # (the find walk alone); bound: the key and deleted arrays read once
+    nk = 256
+    fk = torch.as_tensor(keys_o.ravel()[:nk], device=dev)
+    f_res = torch.zeros(nk, dtype=torch.int32, device=dev)
+    f_plen = torch.zeros_like(f_res)
+    no_upd = torch.zeros(nk, dtype=torch.bool, device=dev)
+    f_st = sx.clone(st3)
+    per_op = {}
+    for name, kd in (("ordered", np.where(np.arange(nk) % 2 == 0,
+                                          sx.OP_PRED, sx.OP_RANGE)),
+                     ("find_only", np.zeros(nk))):
+        kt = torch.as_tensor(kd.astype(np.int32), device=dev)
+        fold.fold_ops(f_st, kt, fk, no_upd, f_res, f_plen, 0)
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(3):
+            fold.fold_ops(f_st, kt, fk, no_upd, f_res, f_plen, 0)
+        e1.record()
+        torch.cuda.synchronize()
+        per_op[name] = e0.elapsed_time(e1) / (3 * nk)
+    n_alloc3 = int(st3.n_alloc)
+    ord_bound = 1e3 * 5 * (n_alloc3 - 2) / MEM_BW
+    print(f"[5c] F per ordered op (one warp over {n_alloc3 - 2} slots): "
+          f"{per_op['ordered']:.5f} ms; the find walk alone "
+          f"{per_op['find_only']:.5f} ms; bound {ord_bound:.6f} ms (5 B a "
+          f"slot over {MEM_BW:.3g} B/s)", flush=True)
+
+    # the audit: clean, then one flip in each field caught in it and
+    # repaired by one rebuild epoch (an all-pad, read-only batch)
+    audit_ms, a0 = host_ms(lambda: pc.audit_plane(st3, plane3))
+    check(a0 == pc.PlaneAudit(*([0] * len(pc.PlaneAudit._fields))),
+          f"the served plane audits {pc.audit_summary(a0)}")
+    caught_in = {"keys": ("row_unsorted", "rank_map_bad", "bot_rank_bad",
+                          "state_missing", "state_extra"),
+                 "heights": ("heights_bad",), "rank_map": ("rank_map_bad",),
+                 "bot_rank": ("bot_rank_bad",)}
+    pad_batch = sx.pad_op_batch([], [], [], 256)[:3]
+    flips = []
+    for i, field in enumerate(fl.BITFLIP_FIELDS):
+        bad, recs = fl.flip_plane_bits(plane3, np.random.default_rng(100 + i),
+                                       1, fields=(field,))
+        a = pc.audit_plane(st3, bad)
+        check(len(recs) == 1 and any(getattr(a, f) for f in
+                                     caught_in[field]),
+              f"a flip in {field} was not caught there: "
+              f"{pc.audit_summary(a)}")
+        fixed = sx.run_epoch(st3, bad, *pad_batch, rebuild=True)
+        a2 = pc.audit_plane(fixed[0], fixed[1])
+        check(pc.audit_ok(a2) and torch.equal(fixed[1].keys, plane3.keys),
+              f"the rebuild epoch left {pc.audit_summary(a2)}")
+        flips.append(f"{field} {recs[0][1]} bit {recs[0][2]}: "
+                     f"{pc.audit_summary(a)}")
+    print(f"[5c] audit of the served plane: {audit_ms:.3f} ms, audit OK; "
+          f"each flip caught in its field and repaired by one rebuild "
+          f"epoch: {'; '.join(flips)}", flush=True)
+
+    # ---- phase 5d: the KV page index at a real size -------------------
+    # the pool as the JAX package sizes it for minitron-8b on this card:
+    # 32 layers x 8 kv heads x 128 x (K, V) x bf16 = 128 KiB a token;
+    # 28672 pages of 16 tokens (56 GiB of KV beside 16 GB of weights);
+    # index_width from n_pages, epochs of 256
+    kv_tok = minitron.n_layers * minitron.n_kv * minitron.head_dim * 2 * 2
+    n_pages, page_size = 28672, 16
+    plan = fl.FaultPlan(seed=11, events=[
+        fl.FaultEvent(47, fl.FAULT_BITFLIP, 1),     # an audited epoch
+        fl.FaultEvent(60, fl.FAULT_TELEMETRY, 4)])
+    dpool = PagedKVPool(n_pages, page_size, device=True, index_batch=256,
+                        audit_every=16, fault_plan=plan, torch_device=dev)
+    hpool = PagedKVPool(n_pages, page_size)
+    check(dpool.index_width == n_pages, f"index width {dpool.index_width}")
+    kv_ms = {"flush": [], "lookup": [], "predecessor": [], "range": []}
+
+    def plain(x):
+        if isinstance(x, np.ndarray):
+            return x.tolist()
+        if isinstance(x, (tuple, list)):
+            return [plain(y) for y in x]
+        return x
+
+    def both(fn, timed=None):
+        t = time.perf_counter()
+        got = fn(dpool)
+        torch.cuda.synchronize()
+        if timed:
+            kv_ms[timed].append(1e3 * (time.perf_counter() - t))
+        want = fn(hpool)
+        check(plain(got) == plain(want), f"the device pool answers "
+              f"{plain(got)} where the host pool answers {plain(want)}")
+        return got
+
+    def admit(s, n_tok):
+        return lambda p: p.create(int(s)) and p.append_tokens(int(s), n_tok)
+
+    flush = lambda p: p.lookup_batch(np.empty(0, np.int64))  # noqa: E731
+    krng = np.random.default_rng(31)
+    ids = krng.permutation(1 << 20)[:3584 + 128].astype(np.int64)
+    sessions, spare = list(ids[:3584]), list(ids[3584:])
+    ops.reset_launch_counts()
+    t5d = time.perf_counter()
+    for g in range(0, 3584, 256):
+        grp = ids[g:g + 256]
+        for s in grp:
+            check(both(admit(s, 7 * page_size)), "an admission failed")
+        both(flush, "flush")
+        both(lambda p: p.lookup_batch(grp), "lookup")
+    util = dpool.utilization
+    zp = 1.0 / np.arange(1, len(sessions) + 1)
+    zp /= zp.sum()
+    for step in range(64):
+        for _ in range(2):
+            s = spare.pop()
+            both(admit(s, 7 * page_size))
+            sessions.append(s)
+        for _ in range(2):
+            victim = sessions.pop(int(krng.integers(len(sessions))))
+            both(lambda p: p.release(int(victim)))
+        both(flush, "flush")
+        pick = np.asarray(sessions)[krng.choice(len(sessions), 256, p=zp)]
+        both(lambda p: p.lookup_batch(pick), "lookup")
+    trace = wl.kv_scan_trace(300, 4096, seed=7)
+    for k, s, h in zip(trace.kinds.tolist(), trace.seq_ids.tolist(),
+                       trace.hi_ids.tolist()):
+        if k == wl.KV_CREATE:
+            both(admit(s, 3))
+        elif k == wl.KV_LOOKUP:
+            both(lambda p: p.lookup(s))
+        elif k == wl.KV_RELEASE:
+            both(lambda p: (p.release(s), p.utilization))
+        elif k == wl.KV_SCAN:
+            both(lambda p: p.lookup_range(s, h, max_range=64), "range")
+        else:
+            both(lambda p: p.predecessor(s), "predecessor")
+    kv_s = time.perf_counter() - t5d
+    read_launches("kv_index", ("splay_search_tiered", "splay_fold"))
+    check(sorted(dpool.chains) == sorted(hpool.chains) and all(
+        dpool.chains[s] == hpool.chains[s] for s in hpool.chains),
+          "the pools' chains differ")
+    st5d = dict(dpool.stats)
+    check(st5d["audit_failures"] >= 1 and st5d["repairs"] >= 1
+          and st5d["faults_injected"] == 2 and st5d["telemetry_dropped"] >= 1,
+          f"the fault ladder did not run: {st5d}")
+    kv_audit_ms, _ = host_ms(dpool.audit)
+    print(f"[5d] KV page index (minitron-8b: {kv_tok} B of KV a token, "
+          f"{n_pages} pages x {page_size} = "
+          f"{n_pages * page_size * kv_tok / 2 ** 30:.1f} GiB; index width "
+          f"{dpool.index_width}, epochs of 256): 3584 sessions of 7 pages "
+          f"admitted (utilization {util:.4f}), 64 decode steps of 256 Zipf "
+          f"lookups with 2 creates and 2 releases, a {len(trace.kinds)}-op "
+          f"scan trace; {kv_s:.1f} s; every answer and the chains equal "
+          f"the host pool's, under a bitflip at lookup epoch 47 and a "
+          f"telemetry blackout at 60", flush=True)
+    print(f"[5d] ms per lookup batch of 256 {np.mean(kv_ms['lookup']):.3f},"
+          f" per flush epoch {np.mean(kv_ms['flush']):.3f}, per audit "
+          f"{kv_audit_ms:.3f}, per predecessor {np.mean(kv_ms['predecessor']):.3f}"
+          f", per range query {np.mean(kv_ms['range']):.3f} (host clock, "
+          f"synchronised); stats {st5d}", flush=True)
 
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []
@@ -1070,7 +1425,10 @@ def main() -> None:
           call_ms=float(np.mean(f_call["epoch_full"])),
           subset_ms=fm["epoch_subset"], vocab_epoch_ms=fm["vocab_epoch"],
           prefill_ms=prefill_k, ns_per_step=ns_step,
-          walk_steps=dict(f_steps, prefill=pre_steps), chase_ns=chase)
+          walk_steps=dict(f_steps, prefill=pre_steps), chase_ns=chase,
+          ordered_list_err=ordered_err, ordered_op_ms=per_op["ordered"],
+          find_only_op_ms=per_op["find_only"],
+          ordered_op_bound_ms=ord_bound)
 
     def rnd(xs):
         return [round(x, 4) for x in xs]

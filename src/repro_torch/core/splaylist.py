@@ -46,7 +46,9 @@ NEG_INF_32 = -(2 ** 31) + 1
 POS_INF_32 = 2 ** 31 - 1
 
 # op kinds for run_ops / run_epoch / run_serving (the JAX package's
-# numbering; OP_PRED / OP_RANGE arrive with the ordered-ops slice)
+# numbering).  The result lane carries each op's answer: a 0/1 verdict
+# for contains / insert / delete, the largest live key <= k for OP_PRED
+# (NEG_INF_32 when none) and the count of live keys <= k for OP_RANGE.
 OP_CONTAINS = 0
 OP_INSERT = 1
 OP_DELETE = 2
@@ -400,7 +402,36 @@ def _delete_step(st: SplayState, k: int, upd: bool) -> Tuple[int, int]:
     return int(success), steps
 
 
-OP_STEPS = (_contains_step, _insert_step, _delete_step)
+def _live_mask(st: SplayState) -> torch.Tensor:
+    """bool [C]: the slots the ordered queries (and the index plane)
+    see as live: allocated nodes, not delete-marked, sentinels
+    excluded."""
+    idx = torch.arange(st.capacity, device=st.device)
+    return ((idx >= 2) & (idx < st.n_alloc) & ~st.deleted
+            & (st.key < POS_INF_32))
+
+
+def _pred_step(st: SplayState, k: int, upd: bool) -> Tuple[int, int]:
+    """OP_PRED: the largest live key <= k (NEG_INF_32 when none); a
+    pure read, ``upd`` ignored; the path length is the find walk's."""
+    del upd
+    _, steps = _find(st, k)
+    mask = _live_mask(st) & (st.key <= k)
+    return int(torch.where(mask, st.key, NEG_INF_32).max()), steps
+
+
+def _range_step(st: SplayState, k: int, upd: bool) -> Tuple[int, int]:
+    """OP_RANGE: the count of live keys <= k; a pure read."""
+    del upd
+    _, steps = _find(st, k)
+    return int((_live_mask(st) & (st.key <= k)).sum()), steps
+
+
+OP_STEPS = (_contains_step, _insert_step, _delete_step, _pred_step,
+            _range_step)
+# the op kinds after which the serialized fold checks for a due rebuild
+# (an insert only lowers 2*dhits/m; ordered queries change nothing)
+REBUILD_CHECKED = (OP_CONTAINS, OP_DELETE)
 
 
 # ---------------------------------------------------------------------------
@@ -554,8 +585,10 @@ def _op_tensor(x, dtype, device):
 def run_ops(st: SplayState, kinds, keys, upd_mask):
     """Apply a stream of operations in order (the serialized fold).
     Returns ``(state, result int32 [T], path_len int32 [T])``: 0/1
-    verdicts for contains/insert/delete.  A rebuild fires inside the
-    stream after any contains or delete that leaves
+    verdicts for contains/insert/delete, the predecessor key for
+    ``OP_PRED`` and the prefix count for ``OP_RANGE`` (both pure reads
+    of the live set at their place in the stream).  A rebuild fires
+    inside the stream after any contains or delete that leaves
     ``2 * dhits >= m``, exactly where the JAX scan fires it."""
     from repro_torch.kernels import fold
     dev = st.device
@@ -566,12 +599,9 @@ def run_ops(st: SplayState, kinds, keys, upd_mask):
     if not (keys.shape[0] == n and upd.shape[0] == n):
         raise ValueError(f"ragged op stream: kinds={n}, "
                          f"keys={keys.shape[0]}, upd={upd.shape[0]}")
-    if n and bool(((kinds == OP_PRED) | (kinds == OP_RANGE)).any()):
-        raise NotImplementedError(
-            "OP_PRED / OP_RANGE arrive with the ordered-ops slice")
-    if n and bool(((kinds < OP_CONTAINS) | (kinds > OP_DELETE)).any()):
-        raise ValueError("op kinds must be OP_CONTAINS, OP_INSERT or "
-                         "OP_DELETE")
+    if n and bool(((kinds < OP_CONTAINS) | (kinds > OP_RANGE)).any()):
+        raise ValueError("op kinds must be OP_CONTAINS, OP_INSERT, "
+                         "OP_DELETE, OP_PRED or OP_RANGE")
     st = clone(st)
     res = torch.zeros((n,), dtype=torch.int32, device=dev)
     plen = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -598,6 +628,20 @@ def insert(st: SplayState, k, upd=True):
 
 def delete(st: SplayState, k, upd=True):
     st, res, plen = run_ops(st, [OP_DELETE], [int(k)], [bool(upd)])
+    return st, res[0], plen[0]
+
+
+def predecessor(st: SplayState, k, upd=None):
+    """The ``OP_PRED`` op: ``(state, largest live key <= k or
+    NEG_INF_32, path_len)``; a pure read, ``upd`` ignored."""
+    st, res, plen = run_ops(st, [OP_PRED], [int(k)], [False])
+    return st, res[0], plen[0]
+
+
+def rank_count(st: SplayState, k, upd=None):
+    """The ``OP_RANGE`` op: ``(state, |{live k' <= k}|, path_len)``; a
+    pure read, ``upd`` ignored."""
+    st, res, plen = run_ops(st, [OP_RANGE], [int(k)], [False])
     return st, res[0], plen[0]
 
 
@@ -720,7 +764,7 @@ def _check_route_args(route_capacity, route_slack):
 
 
 def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
-               rebuild, plane_search):
+               rebuild, plane_search, ordered):
     from repro_torch.core import device_index as dix
     from repro_torch.kernels import ops as kops
     dev = st.device
@@ -731,8 +775,20 @@ def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
             raise ValueError("plane_search answers the batch from the "
                              "index plane — read-only batches only, "
                              "i.e. aggregate=True")
-        res, _, plen = kops.splay_search(plane, keys)
-        st, _, _ = run_contains_batch(st, keys, upd_mask, aggregate=True)
+        res, rank, plen = kops.splay_search(plane, keys)
+        upd_eff = _op_tensor(upd_mask, torch.bool, dev)
+        if ordered:
+            # ordered lanes answer off the same descent's bottom-row
+            # rank; pure reads, so they fold no hit weight
+            kinds = _op_tensor(kinds, torch.int32, dev)
+            pred_keys = kops.splay_select(plane, rank)
+            res = torch.where(
+                kinds == OP_PRED,
+                torch.where(rank >= 0, pred_keys, NEG_INF_32),
+                torch.where(kinds == OP_RANGE, rank + 1,
+                            res.to(torch.int32)))
+            upd_eff = upd_eff & (kinds == OP_CONTAINS)
+        st, _, _ = run_contains_batch(st, keys, upd_eff, aggregate=True)
     elif aggregate:
         st, res, plen = run_contains_batch(st, keys, upd_mask,
                                            aggregate=True)
@@ -772,23 +828,25 @@ def run_epoch(st: SplayState, plane, kinds, keys, upd_mask,
     ``results``/``path_len`` from the plane entering the epoch through
     ``kernels.ops.splay_search``: ``results`` is the plane's membership
     verdict and ``path_len`` is ``level_found``.  The rebalance fold
-    still runs.
+    still runs.  ``ordered`` extends those answers to the ordered op
+    codes: ``OP_PRED`` lanes answer the predecessor key (``NEG_INF_32``
+    when none, one ``splay_select`` gather) and ``OP_RANGE`` lanes the
+    prefix count, both from the same descent's rank; they carry no hit
+    weight into the fold.  Off the plane-search path ``run_ops``
+    answers the ordered codes itself.
 
     Returns ``(state, plane, results[B] int32, path_len[B], overflow,
     spill, occupancy)``: ``overflow`` (0-d int32) counts alive keys the
     refreshed plane could not represent; ``spill`` is 0 and
     ``occupancy`` a ``[1]`` zero vector on this meshless path.
-    ``mesh``, ``split="mass"`` and ``ordered=True`` raise
-    ``NotImplementedError`` until their slices land; ``axis``/``routed``
-    are inert without a mesh."""
+    ``mesh`` and ``split="mass"`` raise ``NotImplementedError`` until
+    the multi-device slice; ``axis``/``routed`` are inert without a
+    mesh."""
     del axis, routed
     _check_plane_dispatch(plane, mesh, split)
     _check_route_args(route_capacity, route_slack)
-    if ordered:
-        raise NotImplementedError("ordered plane-search epochs arrive "
-                                  "with the ordered-ops slice")
     return _run_epoch(st, plane, kinds, keys, upd_mask, aggregate,
-                      max_new, bool(rebuild), plane_search)
+                      max_new, bool(rebuild), plane_search, ordered)
 
 
 def run_serving(st: SplayState, plane, kinds, keys, upd_mask,
@@ -804,15 +862,14 @@ def run_serving(st: SplayState, plane, kinds, keys, upd_mask,
     overflow arms a pending flag, and the *next* epoch's refresh is a
     full ``from_state_device`` rebuild.  The alive count *entering* the
     near-full zone (within one batch of the plane width) arms it too,
-    edge-triggered, once per crossing.  Returns ``(state, plane,
-    results[E, B], path_len[E, B], overflow[E], spill[E],
-    occupancy[E, 1])``."""
+    edge-triggered, once per crossing
+    (``route_controller.overflow_machine_step``).  ``ordered`` as in
+    :func:`run_epoch`.  Returns ``(state, plane, results[E, B],
+    path_len[E, B], overflow[E], spill[E], occupancy[E, 1])``."""
+    from repro_torch.core.route_controller import overflow_machine_step
     del axis, routed
     _check_plane_dispatch(plane, mesh, split)
     _check_route_args(route_capacity, route_slack)
-    if ordered:
-        raise NotImplementedError("ordered plane-search epochs arrive "
-                                  "with the ordered-ops slice")
     dev = st.device
     kinds = _op_tensor(kinds, torch.int32, dev)
     keys = _op_tensor(keys, torch.int32, dev)
@@ -824,10 +881,9 @@ def run_serving(st: SplayState, plane, kinds, keys, upd_mask,
     for e in range(keys.shape[0]):
         st, plane, *out = _run_epoch(
             st, plane, kinds[e], keys[e], upd[e], aggregate, max_new,
-            pending, plane_search)
-        pressure = int(st.size) + B > width
-        pending = int(out[2]) > 0 or (pressure and not pressed)
-        pressed = pressure
+            pending, plane_search, ordered)
+        pending, pressed = overflow_machine_step(
+            int(out[2]), int(st.size), B, width, pressed)
         outs.append(out)
     res, plen, ovf, spl, occ = (torch.stack(x) for x in zip(*outs))
     return st, plane, res, plen, ovf, spl, occ

@@ -2,8 +2,12 @@
 
 The port's own copy of the numpy generators it drives: the op-stream
 record, the Bernoulli rebalancing coins, the bounded Zipf(s) stream of
-Figure 12, the Zipf token ids of the vocab tier and the splay-shaped
-level-array fixture the kernel checks use.  Pure numpy, so the arrays feed either package unchanged.
+Figure 12, the Zipf token ids of the vocab tier, the splay-shaped
+level-array fixture the kernel checks use, and the request traces of
+the paged KV pool's session index (``kv_request_trace``,
+``kv_scan_trace``).  Pure numpy, drawing in the JAX package's order, so
+the same seed gives the same arrays and they feed either package
+unchanged.
 """
 
 from __future__ import annotations
@@ -79,3 +83,97 @@ def zipf_level_fixture(width: int, alpha: float, nq: int, seed: int = 0):
     key_by_rank = keys[np.argsort(ranks)]
     qs = rng.choice(key_by_rank, nq, p=p).astype(np.int32)
     return keys, heights, qs
+
+
+# kv-pool request-trace op kinds.  KV_SCAN and KV_PRED are the ordered
+# queries: a KV_SCAN op is an inclusive session-id range lookup
+# [seq_id, hi_id] (pool.lookup_range), a KV_PRED op a predecessor query
+# (pool.predecessor).
+KV_CREATE, KV_LOOKUP, KV_RELEASE = 0, 1, 2
+KV_SCAN, KV_PRED = 3, 4
+
+
+class KVTrace(NamedTuple):
+    """A recorded ``PagedKVPool`` request trace: create/lookup/release
+    over a bounded session-id space, with re-used ids and deliberate
+    misses.  Scan traces add ``KV_SCAN``/``KV_PRED`` ops; ``hi_ids``
+    holds the scan upper bounds (``seq_ids`` on other lanes; ``None`` on
+    membership-only traces)."""
+    kinds: np.ndarray    # int32[T], KV_* op kinds
+    seq_ids: np.ndarray  # int32[T]
+    name: str
+    hi_ids: np.ndarray = None  # int32[T] scan upper bounds, or None
+
+
+def kv_request_trace(n_ops: int, n_seqs: int, seed: int = 0,
+                     p_create: float = 0.3, p_release: float = 0.15,
+                     miss_frac: float = 0.15,
+                     name: str = "kv_trace") -> KVTrace:
+    """A :class:`KVTrace` that tracks its own live set: creates target
+    absent ids (re-using released ones), releases live ids, lookups
+    mostly live ids; a ``miss_frac`` slice inverts that (absent lookups,
+    double-creates, absent releases).  Deterministic per seed."""
+    if n_seqs < 1:
+        raise ValueError(f"n_seqs must be >= 1, got {n_seqs}")
+    rng = np.random.default_rng(seed)
+    live: list = []
+    dead = list(range(n_seqs))
+    kinds = np.empty(n_ops, np.int32)
+    sids = np.empty(n_ops, np.int32)
+    for t in range(n_ops):
+        u = rng.random()
+        miss = rng.random() < miss_frac
+        if (u < p_create and dead) or not live:
+            if miss and live:                  # double-create (a miss)
+                kinds[t], sids[t] = KV_CREATE, rng.choice(live)
+            else:
+                sid = dead.pop(int(rng.integers(len(dead))))
+                live.append(sid)
+                kinds[t], sids[t] = KV_CREATE, sid
+        elif u < p_create + p_release and live:
+            if miss and dead:                  # absent release (a miss)
+                kinds[t], sids[t] = KV_RELEASE, rng.choice(dead)
+            else:
+                sid = live.pop(int(rng.integers(len(live))))
+                dead.append(sid)
+                kinds[t], sids[t] = KV_RELEASE, sid
+        else:
+            pool = dead if (miss and dead) else live
+            kinds[t], sids[t] = KV_LOOKUP, rng.choice(pool)
+    return KVTrace(kinds=kinds, seq_ids=sids, name=name)
+
+
+def kv_scan_trace(n_ops: int, n_seqs: int, seed: int = 0,
+                  p_scan: float = 0.25, p_pred: float = 0.1,
+                  span: int = 8, p_prefix: float = 0.25,
+                  name: str = "kv_scan_trace") -> KVTrace:
+    """:func:`kv_request_trace` with a ``p_scan`` slice of its lookups
+    turned into ``KV_SCAN`` range queries and a ``p_pred`` slice into
+    ``KV_PRED`` predecessor queries.  A range is anchored at a random id
+    with width drawn in ``[0, span]``, except a ``p_prefix`` fraction of
+    prefix ranges ``[0, hi]``; anchors include dead ids and ids past
+    ``n_seqs``.  Deterministic per seed."""
+    base = kv_request_trace(n_ops, n_seqs, seed=seed, name=name)
+    rng = np.random.default_rng(seed + 1)
+    kinds = base.kinds.copy()
+    sids = base.seq_ids.copy()
+    his = sids.copy()
+    for t in range(n_ops):
+        if kinds[t] != KV_LOOKUP:
+            continue
+        u = rng.random()
+        if u < p_scan:
+            kinds[t] = KV_SCAN
+            w = int(rng.integers(0, span + 1))
+            if rng.random() < p_prefix:
+                lo = 0
+                hi = int(rng.integers(0, n_seqs + span))
+            else:
+                lo = int(rng.integers(0, n_seqs + span))
+                hi = lo + w
+            sids[t], his[t] = lo, hi
+        elif u < p_scan + p_pred:
+            kinds[t] = KV_PRED
+            sids[t] = int(rng.integers(0, n_seqs + span))
+            his[t] = sids[t]
+    return KVTrace(kinds=kinds, seq_ids=sids, name=name, hi_ids=his)

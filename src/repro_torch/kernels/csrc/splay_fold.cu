@@ -21,7 +21,14 @@
 //            walk never sees it.
 //   op list (mode 0)  the walker reads the next op's kind, key and
 //            update flag into registers before it walks the current one,
-//            and writes each op's verdict and path length as it goes.
+//            and writes each op's answer and path length as it goes.  The
+//            ordered kinds (OP_PRED, OP_RANGE) are pure reads: lane 0 walks
+//            find for the path length, then the whole warp strides the
+//            live slots [2, n_alloc) and reduces (a max of the keys <= k,
+//            or their count) with one __reduce_*_sync.  The loop stays
+//            warp-uniform: lane 0 broadcasts each op's kind and the stop.
+//            Simple and right first: an ordered op reads the whole key
+//            and deleted arrays, 5 bytes a slot, with one warp.
 //   scalars  m, dhits, zl, n_alloc and size live in the walker's
 //            registers and are written back once, at the end.
 //   L1       the kernel asks for the largest L1 carveout: every op's walk
@@ -53,6 +60,12 @@ namespace {
 constexpr int HEAD = 0;
 constexpr int OP_CONTAINS = 0;
 constexpr int OP_INSERT = 1;
+constexpr int OP_DELETE = 2;
+constexpr int OP_PRED = 3;
+constexpr int OP_RANGE = 4;
+constexpr int NEG_INF = -2147483647;   // splaylist.NEG_INF_32
+constexpr int POS_INF = 2147483647;    // splaylist.POS_INF_32
+constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kPer = 4;            // weighted entries a lane loads a round
 
@@ -348,6 +361,28 @@ __device__ bool op_step(Walk<T>& s, int kind, int k, bool u, int& r,
   return true;
 }
 
+// OP_PRED / OP_RANGE over the live slots [2, n_alloc) (allocated, not
+// marked, below the tail sentinel): the largest key <= k (NEG_INF when
+// none) or the count of them.  Every lane of the warp calls it, after a
+// __syncwarp() that makes lane 0's earlier writes of key and deleted
+// visible to all of them.
+template <typename T>
+__device__ int ordered_reduce(const State<T>& st, int kind, int k,
+                              int n_alloc, int lane) {
+  int best = NEG_INF;
+  unsigned cnt = 0;
+#pragma unroll 4
+  for (int j = 2 + lane; j < n_alloc; j += 32) {
+    const int kj = st.key[j];
+    if (!st.deleted[j] && kj < POS_INF && kj <= k) {
+      best = max(best, kj);
+      ++cnt;
+    }
+  }
+  if (kind == OP_PRED) return __reduce_max_sync(kFull, best);
+  return static_cast<int>(__reduce_add_sync(kFull, cnt));
+}
+
 // mode 0: the run_ops op list (kinds/keys/upd -> res/plen), stopping
 //         after the op that makes a rebuild due;
 // mode 1: the weighted fold list of run_contains_batch (keys/w/wm).
@@ -391,22 +426,46 @@ __global__ void __launch_bounds__(32)
         }
       }
     }
-  } else if (walker && start < n) {
-    int kind = kinds[start], k = keys[start];
-    bool u = upd[start];
+  } else if (start < n) {
+    int kind = 0, k = 0;
+    bool u = false;
+    if (walker) {
+      kind = kinds[start];
+      k = keys[start];
+      u = upd[start];
+    }
     for (int i = start; i < n; ++i) {
-      const int j = min(i + 1, n - 1);
-      const int kind_n = kinds[j], k_n = keys[j];
-      const bool u_n = upd[j];
-      int r, steps;
-      if (!op_step<T>(s, kind, k, u, r, steps)) {
-        exhausted = true;
-        stop_at = i;
-        break;
+      int kind_n = 0, k_n = 0;
+      bool u_n = false;
+      if (walker) {
+        const int j = min(i + 1, n - 1);
+        kind_n = kinds[j];
+        k_n = keys[j];
+        u_n = upd[j];
       }
-      res[i] = r;
-      plen[i] = steps;
-      if (kind != OP_INSERT && rebuild_due<T>(s)) {
+      const int kind_w = __shfl_sync(kFull, kind, 0);
+      int r = 0, steps = 0, stop = 0;   // stop: 1 exhausted, 2 rebuild due
+      if (kind_w == OP_PRED || kind_w == OP_RANGE) {
+        int slot;
+        if (walker) find(s, k, slot, steps);
+        __syncwarp();
+        const int na = __shfl_sync(kFull, walker ? s.n_alloc : 0, 0);
+        r = ordered_reduce<T>(st, kind_w, __shfl_sync(kFull, k, 0), na,
+                              lane);
+      } else if (walker) {
+        if (!op_step<T>(s, kind, k, u, r, steps)) {
+          exhausted = true;
+          stop = 1;
+        } else if ((kind == OP_CONTAINS || kind == OP_DELETE) &&
+                   rebuild_due<T>(s)) {
+          stop = 2;
+        }
+      }
+      if (walker && stop != 1) {
+        res[i] = r;
+        plen[i] = steps;
+      }
+      if (__shfl_sync(kFull, stop, 0)) {
         stop_at = i;
         break;
       }

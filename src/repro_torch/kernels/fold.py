@@ -4,16 +4,18 @@ Two entry points, each mutating the state it is given in place (the
 callers in ``core/splaylist.py`` hand it a private copy):
 
 * :func:`fold_ops` — the ``run_ops`` op list: contains / insert /
-  delete in order, writing each op's verdict and path length; it stops
-  after the op that makes a rebuild due and returns that op's index
-  (``n`` when it ran to the end), so the caller rebuilds and resumes;
+  delete / predecessor / prefix count in order, writing each op's
+  answer and path length; it stops after the op that makes a rebuild
+  due and returns that op's index (``n`` when it ran to the end), so
+  the caller rebuilds and resumes;
 * :func:`fold_weighted` — the ``run_contains_batch`` fold over
   ``(key, w, wm)`` triples: a rebalance of weight ``w`` per entry with
   ``w > 0``, then ``dhits += wm``.
 
 On CUDA tensors each call is one launch of the kernel: one warp, whose
 lane 0 walks the state (the weighted fold's warp ballots its list 128
-entries at a time, so the walk visits only the ``w > 0`` entries).  On CPU
+entries at a time, so the walk visits only the ``w > 0`` entries; at an
+ordered op of the list the whole warp reduces over the live slots).  On CPU
 tensors it runs the plain version, the step-by-step fold of
 ``core/splaylist.py`` (``_find``/``_update``/``_link_bottom`` and the
 op bodies).  There is no fallback between the two: the tensors' device
@@ -47,7 +49,7 @@ def fold_ops_plain(st, kinds, keys, upd, res, plen, start: int) -> int:
         r, steps = sx.OP_STEPS[kind](st, keys_l[i], upd_l[i])
         res[i] = r
         plen[i] = steps
-        if kind != sx.OP_INSERT and sx._rebuild_due(st):
+        if kind in sx.REBUILD_CHECKED and sx._rebuild_due(st):
             return i
     return n
 

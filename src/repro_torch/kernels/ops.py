@@ -1,6 +1,8 @@
-"""Entry points over the port's kernels (the searches and the two-tier
-``hot_gather``, one launch of the fused gather on the card), plus the
-execution-mode label and the kernels' launch counters."""
+"""Entry points over the port's kernels (the searches, the ordered
+operations over the plane, each one descent plus bottom-row gathers,
+and the two-tier ``hot_gather``, one launch of the fused gather on the
+card), plus the execution-mode label and the kernels' launch
+counters."""
 
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ from repro_torch.kernels import hot_gather as hg
 from repro_torch.kernels import splay_search as ssk
 from repro_torch.kernels.hot_gather import hot_gather  # noqa: F401
 from repro_torch.kernels.splay_search import (  # noqa: F401
-    splay_search, splay_search_full, splay_search_pipelined)
+    splay_predecessor, splay_range_count, splay_range_scan, splay_rank,
+    splay_search, splay_search_full, splay_search_pipelined, splay_select,
+    splay_successor, splay_top_k)
 
 _COUNTERS = (ssk.LAUNCHES, fold.LAUNCHES, hg.LAUNCHES)
 

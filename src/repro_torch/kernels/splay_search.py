@@ -31,6 +31,11 @@ Its kernel spreads the width over a thread-block cluster
 reference's per-block row skip, which changes the work, not the
 answers.
 
+The ordered operations (rank, predecessor, successor, select, range
+count, range scan, top-k) are one descent each plus plain torch
+gathers of the packed bottom row; ``route_capacity`` sizes the sharded
+exchange's receive block for the routing controller.
+
 The internal entry points pick by the tensors' device: CUDA tensors
 launch the kernel, CPU tensors run the plain version.  ``splay_search``
 with ``pipelined=None`` takes the pipelined descent on CUDA tensors and
@@ -645,3 +650,236 @@ def splay_search_full(level_keys, queries, query_block: int =
     _check_query_block(query_block, queries.shape[0])
     return _splay_search_full_arrays(level_keys, queries,
                                      query_block=query_block)
+
+
+# ---------------------------------------------------------------------------
+# route sizing of the width-sharded exchange (integer arithmetic; the
+# routing controller sizes its slack ladder with it on every path)
+# ---------------------------------------------------------------------------
+
+DEFAULT_ROUTE_SLACK = 1.5
+
+
+def route_capacity(nq: int, n_shards: int,
+                   slack: float = DEFAULT_ROUTE_SLACK) -> int:
+    """The default per-shard receive capacity of the routed exchange:
+    ``ceil(q/S) · slack``, clamped into ``[1, q]``.  ``slack >= S`` makes
+    spill impossible (a shard never receives more than ``q`` queries).
+    Raises ``ValueError`` on non-positive ``nq``/``n_shards`` and on
+    ``slack < 1.0``."""
+    if nq <= 0:
+        raise ValueError(f"route_capacity: nq must be positive, got {nq}")
+    if n_shards <= 0:
+        raise ValueError(
+            f"route_capacity: n_shards must be positive, got {n_shards}")
+    if slack < 1.0:
+        raise ValueError(
+            f"route_capacity: slack must be >= 1.0, got {slack} "
+            "(sub-1 slack guarantees spill on a balanced batch)")
+    qs = -(-nq // n_shards)
+    return max(1, min(nq, int(-(-qs * slack // 1))))
+
+
+# ---------------------------------------------------------------------------
+# ordered operations over the replicated plane: predecessor / successor /
+# rank / select / range count / range scan / top-k.  Each is one descent
+# (B1 or B2 by the tensors' device, through splay_search) plus gathers of
+# the packed bottom row; the gathers and the top-k sort are plain torch.
+# ---------------------------------------------------------------------------
+
+def _require_plane(level_keys, op: str):
+    """Ordered ops are defined on packed global ranks, a plane-level
+    concept: they take an index plane struct, never a bare matrix."""
+    if not hasattr(level_keys, "rank_map"):
+        raise TypeError(
+            f"{op} takes an index plane struct "
+            "(DeviceLevelArrays/LevelArrays), got "
+            f"{type(level_keys).__name__}")
+    return level_keys
+
+
+def _ordered_operands(plane, op: str, sharded, mesh, *xs):
+    """The plane (torch fields, on the first operand's device or the
+    card) and each operand as int32 on the plane's device.  The
+    width-sharded path (``sharded=True`` or a ``mesh``) raises
+    ``NotImplementedError`` until the multi-device slice."""
+    plane = _require_plane(plane, op)
+    if sharded or mesh is not None:
+        raise NotImplementedError(f"{op}: the width-sharded ordered ops "
+                                  "arrive with the multi-device slice")
+    plane = _plane_tensors(plane, xs[0])
+    return (plane, *(_as_queries(x, plane.keys.device) for x in xs))
+
+
+def _select(plane, ranks):
+    keys = plane.keys
+    _reject_segmented(keys)
+    n_levels, width = keys.shape
+    bot = keys[n_levels - 1]
+    total = plane.widths[n_levels - 1]
+    ok = (ranks >= 0) & (ranks < total)
+    return torch.where(ok, bot[torch.clamp(ranks, 0, width - 1).long()],
+                       PAD_KEY)
+
+
+def splay_select(level_keys, ranks, sharded=None, axis: str = "model",
+                 mesh=None):
+    """``select(r)``: the live key at packed-global rank ``r`` (0-based
+    over the sorted live bottom row); ``PAD_KEY`` for any rank outside
+    ``[0, live_count)``.  ``ranks`` int32 [q] -> keys int32 [q].  A
+    segmented plane raises ``ValueError``."""
+    del axis
+    plane, ranks = _ordered_operands(level_keys, "splay_select", sharded,
+                                     mesh, ranks)
+    if ranks.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32,
+                           device=plane.keys.device)
+    return _select(plane, ranks)
+
+
+def _descend(plane, queries, query_block, pipelined):
+    """The descent's triple for queries clamped below ``PAD_KEY``."""
+    q_eff = torch.clamp(queries, max=PAD_KEY - 1)
+    return splay_search(plane, q_eff, query_block=query_block,
+                        pipelined=pipelined)
+
+
+def splay_rank(level_keys, queries, query_block: int =
+               DEFAULT_QUERY_BLOCK, sharded=None, pipelined: bool = None):
+    """``rank(q)``: the number of live keys ``<= q``, the descent's
+    bottom-row predecessor index plus one: int32 [q] in ``[0,
+    live_count]``.  Queries may be any int32."""
+    plane, q = _ordered_operands(level_keys, "splay_rank", sharded, None,
+                                 queries)
+    _, r, _ = _descend(plane, q, query_block, pipelined)
+    return r + 1
+
+
+def splay_predecessor(level_keys, queries, query_block: int =
+                      DEFAULT_QUERY_BLOCK, sharded=None,
+                      pipelined: bool = None):
+    """``predecessor(q)``: the largest live key ``<= q`` and its
+    packed-global rank, ``(keys [q], ranks [q])`` int32;
+    ``(NEG_INF_KEY, -1)`` when none.  One descent and one select."""
+    plane, q = _ordered_operands(level_keys, "splay_predecessor",
+                                 sharded, None, queries)
+    _, r, _ = _descend(plane, q, query_block, pipelined)
+    keys = _select(plane, r)
+    return torch.where(r >= 0, keys, NEG_INF_KEY), r
+
+
+def splay_successor(level_keys, queries, query_block: int =
+                    DEFAULT_QUERY_BLOCK, sharded=None,
+                    pipelined: bool = None):
+    """``successor(q)``: the smallest live key ``>= q`` and its
+    packed-global rank; a hit answers ``(q, rank)``, a miss the key one
+    past the predecessor rank; ``(PAD_KEY, live_count)`` when none."""
+    plane, q = _ordered_operands(level_keys, "splay_successor", sharded,
+                                 None, queries)
+    none = q >= PAD_KEY                   # no key >= PAD_KEY
+    q_eff = torch.clamp(q, max=PAD_KEY - 1)
+    f, r, _ = _descend(plane, q_eff, query_block, pipelined)
+    hit = f & ~none
+    r_succ = torch.where(hit, r, r + 1)
+    keys = torch.where(hit, q_eff, _select(plane, r_succ))
+    return torch.where(none, PAD_KEY, keys), r_succ
+
+
+def _range_ranks(plane, lo, hi, query_block, pipelined):
+    """(start rank, in-range count) of the inclusive ranges ``[lo,
+    hi]``: one descent over the concatenated endpoints, then
+    ``count = rank(hi) - |{k < lo}|``, clamped at 0."""
+    n = lo.shape[0]
+    f, r, _ = _descend(plane, torch.cat([lo, hi]), query_block, pipelined)
+    f_lo, r_lo, r_hi = f[:n], r[:n], r[n:]
+    start = torch.where(f_lo, r_lo, r_lo + 1)      # |{live k < lo}|
+    count = torch.clamp(r_hi + 1 - start, min=0)
+    count = torch.where(lo >= PAD_KEY, 0, count)
+    return start, count
+
+
+def _range_operands(level_keys, op, lo, hi, sharded):
+    plane, lo, hi = _ordered_operands(level_keys, op, sharded, None, lo,
+                                      hi)
+    if lo.shape != hi.shape:
+        raise ValueError(f"{op}: lo/hi shapes differ: {tuple(lo.shape)} "
+                         f"vs {tuple(hi.shape)}")
+    return plane, lo, hi
+
+
+def splay_range_count(level_keys, lo, hi, query_block: int =
+                      DEFAULT_QUERY_BLOCK, sharded=None,
+                      pipelined: bool = None):
+    """Live keys in the inclusive range ``[lo, hi]``: int32 [q], 0 for
+    empty or inverted ranges."""
+    plane, lo, hi = _range_operands(level_keys, "splay_range_count", lo,
+                                    hi, sharded)
+    if lo.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=lo.device)
+    return _range_ranks(plane, lo, hi, query_block, pipelined)[1]
+
+
+def splay_range_scan(level_keys, lo, hi, max_range: int,
+                     query_block: int = DEFAULT_QUERY_BLOCK,
+                     sharded=None, pipelined: bool = None):
+    """The live keys of each inclusive range ``[lo, hi]`` in key order:
+    ``(keys [q, max_range], count [q], truncated [q])`` int32.  ``keys``
+    holds the first ``min(count, max_range)`` members and ``PAD_KEY``
+    after them; ``count`` is the full population and ``truncated =
+    max(count - max_range, 0)`` what the capacity cut."""
+    if not isinstance(max_range, int) or isinstance(max_range, bool) \
+            or max_range < 1:
+        raise ValueError(
+            f"splay_range_scan: max_range must be a positive int, got "
+            f"{max_range!r}")
+    plane, lo, hi = _range_operands(level_keys, "splay_range_scan", lo,
+                                    hi, sharded)
+    n = lo.shape[0]
+    dev = lo.device
+    if n == 0:
+        z = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return (torch.zeros((0, max_range), dtype=torch.int32, device=dev),
+                z, z)
+    start, count = _range_ranks(plane, lo, hi, query_block, pipelined)
+    offs = torch.arange(max_range, dtype=torch.int32, device=dev)[None, :]
+    want = offs < torch.clamp(count, max=max_range)[:, None]
+    ranks = torch.where(want, start[:, None] + offs, -1)
+    keys = _select(plane, ranks.reshape(-1)).reshape(n, max_range)
+    return keys, count, torch.clamp(count - max_range, min=0)
+
+
+def splay_top_k(level_keys, hits, k: int, sharded=None,
+                axis: str = "model", mesh=None):
+    """The ``k`` hottest live keys by hit mass: ``hits`` is a
+    slot-indexed counter array (the state's ``selfhits``, taken as
+    int32), gathered onto the bottom row through the plane's ``slots``
+    (a host plane has none and reports every lane missing).  Returns
+    ``(keys [k], hits [k], ranks [k])`` in descending hit order, ties by
+    ascending rank (``lax.top_k``'s order, from a stable descending
+    sort); lanes past the live count answer ``(PAD_KEY, 0, -1)``."""
+    del axis
+    plane, hits = _ordered_operands(level_keys, "splay_top_k", sharded,
+                                    mesh, hits)
+    if not isinstance(k, int) or isinstance(k, bool) or k < 1:
+        raise ValueError(f"splay_top_k: k must be a positive int, got "
+                         f"{k!r}")
+    width = plane.keys.shape[1]
+    if k > width:
+        raise ValueError(
+            f"splay_top_k: k={k} exceeds the plane width {width}")
+    keys = plane.keys
+    _reject_segmented(keys)
+    bot = keys[keys.shape[0] - 1]
+    slots = getattr(plane, "slots", None)
+    if not torch.is_tensor(slots):
+        slots = torch.full((width,), -1, dtype=torch.int32,
+                           device=bot.device)
+    live = (bot != PAD_KEY) & (slots >= 0)
+    h = torch.where(live, hits[torch.clamp(slots, 0, hits.shape[0] - 1)
+                               .long()], -1)
+    hv, idx = torch.sort(h, descending=True, stable=True)
+    hv, idx = hv[:k], idx[:k]
+    valid = hv >= 0
+    return (torch.where(valid, bot[idx], PAD_KEY),
+            torch.clamp(hv, min=0),
+            torch.where(valid, idx.to(torch.int32), -1))

@@ -2,7 +2,11 @@
 pipelined search, B5 full-width search, F update fold, B3/B4 row
 gathers and the fused two-tier gather) held against its plain PyTorch
 version on the same inputs, bit-exact, and the epoch loop and the vocab
-cache on the card against their CPU runs.  F's list handling (long,
+cache on the card against their CPU runs.  The ordered, audited KV page
+index: F's op list with all five kinds against its plain fold, the
+ordered ops against a numpy oracle and their CPU runs, the plane audit
+of flipped planes against its CPU run, and a device pool on the card
+under faults against a host pool.  F's list handling (long,
 mostly zero-weight lists over many of the warp's 128-entry ballots, a
 rebuild stop deep inside an op list, an exhausted capacity, 33- and
 65-row columns), B5's cluster plan
@@ -515,3 +519,127 @@ def test_descent_plane_entry_equals_bare_matrix():
         a = tops.splay_search(plane, qs, pipelined=pipelined)
         b = tops.splay_search(plane.keys, qs, pipelined=pipelined)
         _equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the ordered, audited KV page index
+# ---------------------------------------------------------------------------
+
+def _ordered_state(n=1500, cap=2050, ml=16, seed=3):
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(6000)[:n].astype(np.int32)
+    st = tsx.make(cap, ml, device="cuda")
+    st, _, _ = tsx.run_ops(st, np.ones(n, np.int32), pool, np.ones(n, bool))
+    return st, np.sort(pool), rng
+
+
+@pytest.mark.parametrize("count_dtype", [torch.int32, torch.int64])
+def test_fold_ordered_kinds_match_plain(count_dtype):
+    """F's op list with all five kinds (a rebuild fires inside it, and
+    ordered ops read slots lane 0 wrote earlier in the same launch)
+    against the plain fold: answers, path lengths and every state
+    array."""
+    rng = np.random.default_rng(4)
+    pool = rng.permutation(3000)[:700].astype(np.int32)
+    n = 1500
+    kinds = np.concatenate([np.full(700, 1, np.int32),
+                            rng.choice(5, n - 700,
+                                       p=[0.1, 0.05, 0.55, 0.15, 0.15])])
+    keys = np.concatenate([pool, np.where(rng.random(n - 700) < 0.8,
+                                          rng.choice(pool, n - 700),
+                                          rng.integers(-9, 3100, n - 700))])
+    keys = keys.astype(np.int32)
+    upd = rng.random(n) < 0.6
+    st0 = tsx.make(1024, 16, count_dtype=count_dtype, device="cuda")
+    before = fold.LAUNCHES["splay_fold"]
+    g = tsx.run_ops(st0, kinds, keys, upd)
+    torch.cuda.synchronize()
+    assert fold.LAUNCHES["splay_fold"] > before + 1     # a rebuild stop
+    _equal(g, tsx.run_ops(_cpu(st0), kinds, keys, upd))
+
+
+def test_ordered_ops_on_card_match_oracle():
+    st, live, rng = _ordered_state()
+    plane = tdix.from_state_device(st, n_levels=16, width=2048)
+    q = np.concatenate([rng.choice(live, 300), rng.integers(-10, 6010, 300),
+                        [-(2 ** 31), tssk.PAD_KEY, tssk.PAD_KEY - 1]]
+                       ).astype(np.int32)
+    qd = torch.as_tensor(q, device="cuda")
+    i = np.searchsorted(live, q.astype(np.int64), side="right")
+    j = np.searchsorted(live, q.astype(np.int64), side="left")
+    assert np.array_equal(tops.splay_rank(plane, qd).cpu().numpy(), i)
+    pk, pr = tops.splay_predecessor(plane, qd)
+    assert np.array_equal(pk.cpu().numpy(),
+                          np.where(i > 0, live[i - 1], tssk.NEG_INF_KEY))
+    sk, sr = tops.splay_successor(plane, qd)
+    assert np.array_equal(sr.cpu().numpy(), j)
+    assert np.array_equal(sk.cpu().numpy(), np.where(
+        j < live.size, live[np.minimum(j, live.size - 1)], tssk.PAD_KEY))
+    hi = qd + 40
+    keys, cnt, tr = tops.splay_range_scan(plane, qd[:600], hi[:600], 16)
+    for n in range(0, 600, 7):
+        want = live[(live >= q[n]) & (live <= q[n] + 40)]
+        assert int(cnt[n]) == want.size
+        assert np.array_equal(keys[n, :min(want.size, 16)].cpu().numpy(),
+                              want[:16])
+    cpu_plane = plane._replace(**{f: getattr(plane, f).cpu()
+                                  for f in plane._fields})
+    _equal(tops.splay_top_k(plane, st.selfhits, 64),
+           tops.splay_top_k(cpu_plane, st.selfhits.cpu(), 64))
+    _equal(tops.splay_select(plane, qd),
+           tops.splay_select(cpu_plane, qd.cpu()))
+    _equal(tops.splay_range_count(plane, qd, hi),
+           tops.splay_range_count(cpu_plane, qd.cpu(), hi.cpu()))
+
+
+def test_audit_on_card_matches_cpu():
+    from repro_torch.core import faults as tfl
+    from repro_torch.core import plane_check as tpc
+    st, _, _ = _ordered_state()
+    plane = tdix.from_state_device(st, n_levels=16, width=2048)
+    assert tpc.audit_summary(tpc.audit_plane(st, plane)) == "audit OK"
+    cst = _cpu(st)
+    for field in tfl.BITFLIP_FIELDS:
+        for seed in range(3):
+            bad, recs = tfl.flip_plane_bits(
+                plane, np.random.default_rng(seed), 1, fields=(field,))
+            assert recs and bad.keys.is_cuda
+            a = tpc.audit_plane(st, bad)
+            assert not tpc.audit_ok(a)
+            cbad = bad._replace(**{f: getattr(bad, f).cpu()
+                                   for f in bad._fields})
+            assert a == tpc.audit_plane(cst, cbad)
+
+
+def test_kv_pool_on_card_matches_host():
+    from repro_torch.core import faults as tfl
+    from repro_torch.core import workload as tw
+    from repro_torch.serve.kv_cache import PagedKVPool
+    plan = tfl.FaultPlan(seed=1, events=[
+        tfl.FaultEvent(3, tfl.FAULT_BITFLIP, 1),
+        tfl.FaultEvent(6, tfl.FAULT_TELEMETRY, 2)])
+    dev = PagedKVPool(256, 4, device=True, index_width=256, index_batch=16,
+                      audit_every=4, fault_plan=plan)
+    host = PagedKVPool(256, 4)
+    trace = tw.kv_scan_trace(300, 40, seed=0)
+    logs = []
+    for pool in (dev, host):
+        log = []
+        for k, s, h in zip(trace.kinds.tolist(), trace.seq_ids.tolist(),
+                           trace.hi_ids.tolist()):
+            if k == tw.KV_CREATE:
+                log.append(pool.create(s) and pool.append_tokens(s, 3))
+            elif k == tw.KV_LOOKUP:
+                log.append(pool.lookup(s))
+            elif k == tw.KV_RELEASE:
+                pool.release(s)
+                log.append(pool.utilization)
+            elif k == tw.KV_SCAN:
+                ids, cnt, tr = pool.lookup_range(s, h, max_range=8)
+                log.append((ids.tolist(), cnt, tr))
+            else:
+                log.append(pool.predecessor(s))
+        logs.append((log, sorted(pool.chains)))
+    assert logs[0] == logs[1]
+    assert dev._st.key.is_cuda and dev._plane.keys.is_cuda
+    assert dev.stats["audit_failures"] >= 1 and dev.stats["repairs"] >= 1

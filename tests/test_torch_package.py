@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("kernels.splay_search", "kernels.hot_gather",
               "core.splay_cache", "core.level_arrays", "core.convert",
-              "configs.base", "configs.minitron_8b"):
+              "configs.base", "configs.minitron_8b",
+              "core.route_controller", "core.plane_check", "core.faults",
+              "core.ref_py", "parallel.sharding", "serve.kv_cache"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -140,7 +140,8 @@ def test_epoch_guards():
         tsx.run_serving(*(a[None] if hasattr(a, "ndim") else a
                           for a in args), route_slack=0.5)
     for kw in (dict(mesh=object()), dict(split="mass"),
-               dict(ordered=True, aggregate=True, plane_search=True)):
+               dict(mesh=object(), ordered=True, aggregate=True,
+                    plane_search=True)):
         with pytest.raises(NotImplementedError):
             tsx.run_epoch(*args, **kw)
     seg = tp._replace(keys=tp.keys.clone())

@@ -157,8 +157,10 @@ def test_single_ops_and_make_guards():
         tsx.make(16, 33, device="cpu")          # shift width of int32
     with pytest.raises(ValueError):
         tsx.make(16, 4, count_dtype=torch.int16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsx.run_ops(st, [sx.OP_PRED], [3], [True])
+    # the op kinds end at OP_RANGE (the ordered kinds run since they
+    # were ported); anything past them is refused
+    with pytest.raises(ValueError, match="op kinds"):
+        tsx.run_ops(st, [sx.OP_RANGE + 1], [3], [True])
     full = tsx.make(4, 4, device="cpu")         # 2 data slots
     full, _, _ = tsx.run_ops(full, [1, 1], [1, 2], [True, True])
     with pytest.raises(RuntimeError, match="capacity"):
