@@ -68,6 +68,23 @@ Phases:
    a 300-op ``kv_scan_trace``, under a bit-flip and a telemetry
    blackout (audit every 16 lookup epochs); every answer and the final
    chains equal a host-mode pool's, the audit catches and repairs;
+5e. the model zoo and the serving engine: each of the ten registry
+   architectures at smoke width in float32 on the card against the CPU
+   (parameters from the port's seeded builder with stacked weights at
+   trained scale, carried to the card as numpy): ``forward`` stage by
+   stage (each stage from the CPU's state,
+   read through the model's head), ``prefill_loop`` and three decode
+   steps, allclose(rtol=1e-4, atol=1e-5) and equal greedy tokens; then
+   minitron-8b at full width in float32 (39.5 GB, built on the card):
+   a left-padded batch of 4 through ``prefill_loop`` gives ``forward``'s
+   greedy tokens; then minitron-8b at full width in bfloat16 (19.8 GB)
+   served through ``Engine`` (max_batch 4, max_seq 128, 8 requests
+   from ``poisson_zipf_arrivals(rate=inf, prompt_len=(2, 7), max_new=8,
+   seed=0)``) with the device session index and again with the host
+   one: generated ids, latencies, stalls, preemptions, retries, tokens
+   out, the pool's chains and the vocab counters equal; ms per model
+   decode step (events) beside its weight-read bound, ms per pool
+   lookup and per vocab stream flush, tokens/s, peak memory;
 6. timings of each kernel at the main path's shapes beside its plain
    version, its bound and, where one PyTorch call computes the same
    function (``index_select`` for B3, B4 and the fused gather), that
@@ -101,15 +118,16 @@ Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
 5's prefill and serving run, phase 5's full-width searches, phase 5b's
 flushes and lookups, phase 5c's ordered run, phase 5d's pool, phase
-6's timed composition) and read just after
-it, before any check or reference run.  Every kernel of a path must
+5e's device-indexed engine, phase 6's timed composition) and read just
+after it, before any check or reference run.  Every kernel of a path must
 have run on it; on the vocab tier the fused gather runs once per
 lookup, B4 builds the hot buffer, and F runs at least once per stream
 epoch.  The kernels line reports each kernel's launches on the path it
 serves (B1 and F: phase 3, the main path; B2: phase 5; B5: phase 5's
 full-width searches; B4 and the fused gather: phase 5b; B3, whose only
 caller in the reference is the composition: phase 6's timed
-composition).  Prints that JSON line, the card's ``name,
+composition); ``launches_by_path`` adds every other path, the engine's
+among them.  Prints that JSON line, the card's ``name,
 power.limit``, and as the last line ``{"ok": true, "device":
 {...}}``.  Exits nonzero, with no result line, on any failed check or
 without a CUDA device.
@@ -184,13 +202,44 @@ def row_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
+def device_busy(prof, n_top=6):
+    """The device activities of a ``torch.profiler`` trace (kernels,
+    copies, memsets; an op's CPU event also carries its kernels' time
+    and would count it twice): ``(activities, busy ms, span ms, top)``,
+    busy the union of their intervals, top the ``n_top`` names that take
+    the most time as ``(name, (count, us))``.  None if it has none."""
+    from torch.autograd import DeviceType
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kev)
+    if not spans:
+        return None
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    by_name = {}
+    for e in kev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
+    return kev, busy_us / 1e3, (end - spans[0][0]) / 1e3, top
+
+
+def decode_bound_ms(params, batch: int) -> float:
+    """The least time of one decode step: its weight reads (every
+    parameter but the embedding table) and its ``batch`` embedding rows,
+    over the card's memory rate."""
+    weight_bytes = sum(v.numel() * v.element_size()
+                       for k, v in params.items() if k != "embed")
+    emb = params["embed"]
+    return 1e3 * (weight_bytes + batch * emb.shape[1] * emb.element_size()
+                  ) / MEM_BW
+
+
 def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
     """Run ``fn`` once under ``torch.profiler`` and print the device's
-    busy time: the union of the intervals of the traced device
-    activities (kernels, copies, memsets; an op's CPU event also carries
-    its kernels' time and would count it twice), and its idle share of
+    busy time (``device_busy``) and its idle share of
     ``unprofiled_ms``, the same call's host-clock time unprofiled."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -198,23 +247,12 @@ def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kev)
-    if not spans:
+    busy = device_busy(prof)
+    if busy is None:
         print(f"[7] traced {name}: the profiler recorded no device "
               "activity (device busy share not measured)", flush=True)
         return
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:
-        busy_us += max(b - max(a, end), 0.0)
-        end = max(end, b)
-    busy_ms = busy_us / 1e3
-    span_ms = (end - spans[0][0]) / 1e3
-    by_name = {}
-    for e in kev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    kev, busy_ms, span_ms, top = busy
     print(f"[7] traced {name}: {len(kev)} device activities, busy "
           f"{busy_ms:.4f} ms (union of their intervals) over a "
           f"{span_ms:.4f} ms device span; traced wall {wall_ms:.4f} ms; "
@@ -222,6 +260,384 @@ def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
           f"{1 - busy_ms / unprofiled_ms:.4f}; top: "
           + "; ".join(f"{k[:60]} {us / 1e3:.4f} ms x{n}"
                       for k, (n, us) in top), flush=True)
+
+
+def float64_mode(torch):
+    """A ``TorchFunctionMode`` under which each float32 that code asks
+    for (``.float()``, ``.to(torch.float32)``, ``dtype=torch.float32``)
+    is float64: the model's own code run in float64, the witness that
+    ``Agreement`` holds two float32 results against."""
+    from torch.overrides import TorchFunctionMode
+
+    class Float64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = dict(kwargs or {})
+            if func is torch.Tensor.float:
+                func = torch.Tensor.double
+            if kwargs.get("dtype") is torch.float32:
+                kwargs["dtype"] = torch.float64
+            args = tuple(torch.float64 if a is torch.float32 else a
+                         for a in args)
+            return func(*args, **kwargs)
+    return Float64()
+
+
+def as_float64(tree):
+    """The parameter tree or cache, its float tensors in float64."""
+    return {k: (as_float64(v) if isinstance(v, dict)
+                else v.double() if v.is_floating_point() else v)
+            for k, v in tree.items()}
+
+
+class Agreement:
+    """The card's float32 result against the CPU's, ``allclose(rtol
+    1e-4, atol 1e-5)``.  Where that misses and a float64 result of the
+    same computation on the CPU is given (the witness), the card passes
+    if its largest distance from the witness is at most twice the CPU's
+    float32 result's: two float32 results of one ill-conditioned
+    computation err by comparable amounts, a fault on the card by far
+    more.  Keeps the largest difference and each witnessed case."""
+
+    def __init__(self, torch, arch):
+        self.torch, self.arch = torch, arch
+        self.worst = 0.0
+        self.witnessed = []
+
+    def __call__(self, got, want, what, witness=None):
+        torch = self.torch
+        diff = float((got - want).abs().max())
+        self.worst = max(self.worst, diff)
+        if torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            return
+        check(witness is not None,
+              f"{self.arch}: {what} on the card differs from the CPU's "
+              f"(max {diff:.3e})")
+        e_card = float((got.double() - witness).abs().max())
+        e_cpu = float((want.double() - witness).abs().max())
+        self.witnessed.append((what, diff, e_card, e_cpu))
+        check(e_card <= 2 * e_cpu,
+              f"{self.arch}: {what} on the card differs from the CPU's "
+              f"(max {diff:.3e}) and lies {e_card:.3e} from the float64 "
+              f"result, more than twice the CPU's float32 {e_cpu:.3e}")
+
+
+def stage_check(torch, zoo, cfg, p_dev, p_cpu, toks, fr, agree, p64=None):
+    """``forward`` on the card against the CPU, stage by stage: each
+    stage starts both from the CPU's state, and its output is read
+    through the model's head (final norm and unembedding) on both sides;
+    then the logits, and the untapped passes' greedy tokens.  With
+    ``p64``, the same tapped pass also runs in float64 on the CPU as
+    ``agree``'s witness."""
+    dev = p_dev["embed"].device
+    stages, wit = {}, {}
+
+    def record(name, x):
+        stages[name] = x
+        return x
+
+    t_cpu = torch.as_tensor(toks)
+    f_cpu = None if fr is None else torch.as_tensor(fr)
+    want = zoo.forward(p_cpu, cfg, t_cpu, frontend=f_cpu, tap=record)
+    w_logits = None
+    if p64 is not None:
+        def record64(name, x):
+            wit[name] = zoo.logits_out(p64, cfg, x, torch.float32)
+            return stages[name].double()
+
+        with float64_mode(torch):
+            w_logits = zoo.forward(
+                p64, cfg, t_cpu,
+                frontend=None if f_cpu is None else f_cpu.double(),
+                tap=record64)
+
+    def compare(name, x):
+        ref = stages[name]
+        agree(zoo.logits_out(p_dev, cfg, x, torch.float32).cpu(),
+              zoo.logits_out(p_cpu, cfg, ref, torch.float32),
+              f"stage {name}", wit.get(name))
+        return ref.to(dev)
+
+    got = zoo.forward(p_dev, cfg, t_cpu.to(dev),
+                      frontend=None if f_cpu is None else f_cpu.to(dev),
+                      tap=compare).cpu()
+    agree(got, want, "logits", w_logits)
+    free = zoo.forward(p_dev, cfg, t_cpu.to(dev),
+                       frontend=None if f_cpu is None else f_cpu.to(dev))
+    free_cpu = zoo.forward(p_cpu, cfg, t_cpu, frontend=f_cpu)
+    check(torch.equal(free.argmax(-1).cpu(), free_cpu.argmax(-1)),
+          f"{agree.arch}: forward's greedy tokens differ between card and "
+          "CPU")
+
+
+def decode_check(torch, zoo, ss, cfg, p_dev, p_cpu, prompts, steps, agree,
+                 p64=None):
+    """``prefill_loop`` and ``steps`` decode steps on the card and on the
+    CPU: equal greedy tokens; each decode step's logits also from the
+    CPU's cache on the card (one step's error, not a run's), held by
+    ``agree`` (with ``p64``, against a float64 step as the witness)."""
+    dev = p_dev["embed"].device
+    B = prompts.shape[0]
+    dec = ss.make_decode_step(cfg)
+    c_dev = zoo.init_cache(cfg, B, 16, dev)
+    c_cpu = zoo.init_cache(cfg, B, 16, "cpu")
+    tok_d, c_dev, n = ss.prefill_loop(dec, p_dev, prompts, c_dev)
+    tok_c, c_cpu, _ = ss.prefill_loop(dec, p_cpu, prompts, c_cpu)
+    check(torch.equal(tok_d.cpu(), tok_c), f"{agree.arch}: prefill_loop's "
+          "greedy tokens differ between card and CPU")
+    for step in range(steps):
+        lc, _ = zoo.decode_step(p_cpu, cfg, tok_c, c_cpu, n)
+        ld, _ = zoo.decode_step(p_dev, cfg, tok_c.to(dev),
+                                {k: v.to(dev) for k, v in c_cpu.items()}, n)
+        l64 = None
+        if p64 is not None:
+            with float64_mode(torch):
+                l64, _ = zoo.decode_step(p64, cfg, tok_c,
+                                         as_float64(c_cpu), n)
+        agree(ld.cpu(), lc, f"decode step {step} logits", l64)
+        tok_d, c_dev = dec(p_dev, tok_d, c_dev, n)
+        tok_c, c_cpu = dec(p_cpu, tok_c, c_cpu, n)
+        check(torch.equal(tok_d.cpu(), tok_c), f"{agree.arch}: decode step "
+              f"{step}'s greedy tokens differ between card and CPU")
+        n += 1
+
+
+def left_pad(prompts, lens):
+    L = int(max(lens))
+    out = np.zeros((len(lens), L), np.int32)
+    for i, n in enumerate(lens):
+        out[i, L - n:] = prompts[i, :n]
+    return out
+
+
+def trained_scale(params):
+    """The parameter tree with every stacked matrix (3 or more axes)
+    rescaled to a standard deviation of 1/sqrt(fan_in), its
+    next-to-last axis.  The builder, like the reference's, draws a
+    stacked weight at 1/sqrt(n_layers) (its leading axis), and the smoke
+    models' hidden states grow far above 1 (ROADMAP §C); at this scale
+    the same layers run at activations of order 1."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = trained_scale(v)
+        elif v.dim() >= 3:
+            out[k] = v * (v.shape[-2] ** -0.5 / float(v.double().std()))
+        else:
+            out[k] = v
+    return out
+
+
+def smoke_arch_check(torch, arch, dev, seed):
+    """One registry architecture at smoke width in float32, on ``dev``
+    against the CPU, parameters from the port's seeded builder carried
+    to ``dev`` as numpy: ``forward`` stage by stage (``stage_check``),
+    then ``prefill_loop`` of a left-padded batch and three decode steps
+    (``decode_check``).  Twice: at the builder's (the reference's)
+    scale, the gate, with a float64 witness for what misses the
+    tolerance (``Agreement``); and at trained scale
+    (``trained_scale``), where every comparison must hold the tolerance.
+    Returns the two ``Agreement``s."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import serve_step as ss
+    cfg = registry.get_smoke(arch)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab, (2, 8)).astype(np.int32)
+    n_front = {"encdec": cfg.enc_positions,
+               "vlm": cfg.img_tokens}.get(cfg.family)
+    fr = None if n_front is None else (0.02 * rng.standard_normal(
+        (2, n_front, cfg.d_model))).astype(np.float32)
+    built = zoo.build_params(cfg, seed=0, device="cpu")
+    out = []
+    for p_cpu, witness in ((built, True), (trained_scale(built), False)):
+        p_dev = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                          device=dev)
+        p64 = as_float64(p_cpu) if witness else None
+        agree = Agreement(torch, arch)
+        stage_check(torch, zoo, cfg, p_dev, p_cpu, toks, fr, agree, p64)
+        decode_check(torch, zoo, ss, cfg, p_dev, p_cpu,
+                     left_pad(toks, (4, 2)), 3, agree, p64)
+        out.append(agree)
+    return tuple(out)
+
+
+def models_phase(torch, dev, read_launches, path_launches, minitron):
+    """Phase 5e: the model zoo and the serving engine (host clocks and
+    CUDA events only).  Frees everything it builds."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.serve.engine import Engine, Request
+
+    # -- each architecture at smoke width, float32, card against CPU ------
+    # (and whisper on the inputs where the card first missed the CPU's)
+    t = time.perf_counter()
+    cases = [(arch, 17 + i) for i, arch in enumerate(registry.ARCHS)]
+    cases.append(("whisper-large-v3", 3))
+    smoke = [(a, s) + smoke_arch_check(torch, a, dev, s) for a, s in cases]
+    print(f"[5e] ten archs at smoke width, float32, card == CPU "
+          f"(allclose rtol 1e-4 atol 1e-5; forward stage by stage read "
+          f"through the head, prefill_loop + 3 decode steps; equal greedy "
+          f"tokens), at the builder's scale (a miss passes only if the card "
+          f"lies at most twice as far as the CPU's float32 from the CPU's "
+          f"float64) and at trained scale (no miss) in "
+          f"{time.perf_counter() - t:.1f} s; largest differences "
+          f"(builder's scale, trained scale): "
+          + "; ".join(f"{a} seed {s} {r.worst:.2e}, {tr.worst:.2e}"
+                      for a, s, r, tr in smoke), flush=True)
+    for a, s, r, _ in smoke:
+        for what, diff, e_card, e_cpu in r.witnessed:
+            print(f"[5e] witnessed: {a} seed {s} {what}: card - CPU float32 "
+                  f"{diff:.4e}; from the CPU's float64: card {e_card:.4e}, "
+                  f"CPU float32 {e_cpu:.4e}", 
+                  flush=True)
+
+    arr = wl.poisson_zipf_arrivals(8, float("inf"), minitron.vocab,
+                                   prompt_len=(2, 7), max_new=8, seed=0)
+
+    # -- minitron-8b at full width in float32: prefill_loop == forward ----
+    cfg32 = dataclasses.replace(minitron, dtype="float32",
+                                param_dtype="float32")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = zoo.build_params(cfg32, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for v in params.values())
+    build_s = time.perf_counter() - t
+    toks = left_pad(arr.prompts[:4], arr.prompt_lens[:4])
+    B, L = toks.shape
+    dec = ss.make_decode_step(cfg32)
+    last, _, n = ss.prefill_loop(dec, params, toks,
+                                 zoo.init_cache(cfg32, B, 16, dev))
+    logits = zoo.forward(params, cfg32, torch.as_tensor(toks, device=dev))
+    want = logits[:, -1].argmax(-1)
+    check(n == L and torch.equal(last[:, 0].long(), want),
+          f"minitron-8b float32: prefill_loop's greedy tokens "
+          f"{last[:, 0].tolist()} != forward's {want.tolist()}")
+    _, c, _ = ss.prefill_loop(dec, params, toks[:, :-1],
+                              zoo.init_cache(cfg32, B, 16, dev))
+    d_logits, _ = zoo.decode_step(params, cfg32,
+                                  torch.as_tensor(toks[:, -1:], device=dev),
+                                  c, L - 1)
+    rel = float((d_logits[:, 0] - logits[:, -1]).abs().max()
+                / logits[:, -1].abs().max())
+    print(f"[5e] minitron-8b float32 full width ({n_par} parameters, "
+          f"{4 * n_par / 1e9:.2f} GB, built in {build_s:.1f} s): "
+          f"left-padded batch {B}x{L} through prefill_loop == forward's "
+          f"greedy tokens {want.tolist()}; largest logit difference / "
+          f"largest logit {rel:.3e}", flush=True)
+    del params, logits, c, d_logits
+    torch.cuda.empty_cache()
+
+    # -- minitron-8b at full width in bfloat16, through the engine --------
+    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.build_params(cfg16, seed=0, device=dev)
+    torch.cuda.synchronize()
+    step_bound_ms = decode_bound_ms(params, 4)
+
+    def serve(device_index):
+        eng = Engine(cfg16, params, max_batch=4, max_seq=128,
+                     device_index=device_index, device=dev)
+        events, lookup_ms, flush_ms = [], [], []
+        decode, lookup = eng._decode, eng.pool.lookup_batch
+        observe = eng.vocab_cache.observe_serving
+
+        def timed_decode(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = decode(*a)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        def host_timed(fn, into):
+            def run(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                into.append(1e3 * (time.perf_counter() - t0))
+                return out
+            return run
+
+        eng._decode = timed_decode
+        eng.pool.lookup_batch = host_timed(lookup, lookup_ms)
+        eng.vocab_cache.observe_serving = host_timed(observe, flush_ms)
+        for i in range(len(arr.seq_ids)):
+            n_i = int(arr.prompt_lens[i])
+            eng.submit(Request(seq_id=int(arr.seq_ids[i]),
+                               prompt=arr.prompts[i, :n_i].copy(),
+                               max_new=int(arr.max_new[i]),
+                               arrival=int(arr.arrival[i])))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if device_index:
+            read_launches("engine", ("splay_fold",))
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        return eng, results, wall, step_ms, lookup_ms, flush_ms
+
+    runs = {m: serve(m) for m in (True, False)}
+    peak = torch.cuda.max_memory_allocated()
+    (de, dres, dwall, dstep, dlook, dflush) = runs[True]
+    (he, hres, hwall, hstep, hlook, hflush) = runs[False]
+    for name, a, b in (("generated ids", dres, hres),
+                       ("latencies", de.latencies, he.latencies),
+                       ("stalls", de.stalls, he.stalls),
+                       ("preemptions", de.preemptions, he.preemptions),
+                       ("degraded retries", de.degraded_retries,
+                        he.degraded_retries),
+                       ("tokens out", de.tokens_out, he.tokens_out),
+                       ("pool chains", de.pool.chains, he.pool.chains),
+                       ("vocab counts", de.vocab_cache.counts.tolist(),
+                        he.vocab_cache.counts.tolist())):
+        check(a == b, f"minitron-8b engine: {name} differ between the "
+              f"device and the host index: {a} != {b}")
+    check(len(dres) == 8 and all(len(v) == int(arr.max_new[s])
+                                 for s, v in dres.items()),
+          f"the engine served {len(dres)} of 8 requests")
+    check(all(0 <= x < cfg16.vocab_padded for v in dres.values()
+              for x in v), "a generated id lies outside the vocabulary")
+    el = path_launches["engine"]
+    n_search = el["splay_search_tiered"] + el["splay_search_pipelined"]
+    check(n_search > 0, "no descent (B1 or B2) launched on the engine path")
+    print(f"[5e] minitron-8b bf16 full width through the engine "
+          f"(max_batch 4, max_seq 128, 8 requests, prompts of 2-7, max_new "
+          f"8, seed 0): device index == host index on generated ids, "
+          f"latencies, stalls {de.stalls}, preemptions {de.preemptions}, "
+          f"degraded retries {de.degraded_retries}, tokens out "
+          f"{de.tokens_out}, the pool's chains and the vocab counters "
+          f"(m {de.vocab_cache.m})", flush=True)
+    print(f"[5e] engine, device index: {de.tokens_out / dwall:.2f} tokens/s "
+          f"end to end ({de.tokens_out} tokens in {dwall:.3f} s); ms per "
+          f"model decode step (events, {len(dstep)} steps) mean "
+          f"{np.mean(dstep):.4f}, median {np.median(dstep):.4f}, min "
+          f"{np.min(dstep):.4f} (weight-read bound {step_bound_ms:.4f} at "
+          f"batch 4); ms per pool lookup batch {np.mean(dlook):.4f} "
+          f"({len(dlook)} lookups); ms per vocab stream flush "
+          f"{np.mean(dflush):.4f} ({len(dflush)} flushes, host clock, "
+          f"synchronised); max_memory_allocated {peak} B", flush=True)
+    print(f"[5e] engine, host index: {he.tokens_out / hwall:.2f} tokens/s; "
+          f"ms per model decode step mean {np.mean(hstep):.4f}, median "
+          f"{np.median(hstep):.4f}; ms per host lookup batch "
+          f"{np.mean(hlook):.4f}; ms per vocab stream flush "
+          f"{np.mean(hflush):.4f}; launches on path engine (device index): "
+          f"B1 {el['splay_search_tiered']}, B2 {el['splay_search_pipelined']}"
+          f", F {el['splay_fold']}, B4 {el['gather_rows']} (B4 builds a "
+          f"hot buffer only for a lookup through the cache; the engine's "
+          f"embedding lookups index the table, as the reference's do)",
+          flush=True)
+    del de, he, runs, params
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1041,6 +1457,9 @@ def main() -> None:
           f"{kv_audit_ms:.3f}, per predecessor {np.mean(kv_ms['predecessor']):.3f}"
           f", per range query {np.mean(kv_ms['range']):.3f} (host clock, "
           f"synchronised); stats {st5d}", flush=True)
+
+    # ---- phase 5e: the model zoo and the serving engine -----------------
+    models_phase(torch, dev, read_launches, path_launches, minitron)
 
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []

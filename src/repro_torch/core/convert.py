@@ -8,7 +8,9 @@ arrays — a mapping, or any NamedTuple of them.  ``table_from_numpy``
 takes an embedding table (bfloat16 as the ``ml_dtypes`` array that
 ``np.asarray`` makes of a JAX array), ``level_arrays_from_numpy`` the
 ``LevelArrays`` fields, and ``cache_from_numpy`` the dict
-:func:`cache_to_numpy` returns.  The inverses return the same forms.
+:func:`cache_to_numpy` returns, and ``params_from_numpy`` a model's
+parameter tree (nested dicts of arrays, as ``jax.tree.map(np.asarray,
+params)`` gives it).  The inverses return the same forms.
 """
 
 from __future__ import annotations
@@ -62,6 +64,32 @@ def table_from_numpy(arr, dtype=None, device="cuda") -> torch.Tensor:
     if dtype is not None:
         t = t.to(dtype)
     return t.to(dev)
+
+
+def params_from_numpy(tree, device="cuda") -> dict:
+    """A model's parameter tree as tensors on ``device``: every name,
+    nesting (zamba2's ``shared_attn``), shape and dtype kept, bfloat16
+    arrays bit for bit."""
+    dev = sx._device(device)
+    return {k: (params_from_numpy(v, dev) if isinstance(v, dict)
+                else table_from_numpy(v, device=dev))
+            for k, v in tree.items()}
+
+
+def params_to_numpy(params) -> dict:
+    """The inverse of :func:`params_from_numpy`: bfloat16 tensors come
+    back as ``ml_dtypes`` bfloat16 arrays, bit for bit."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = params_to_numpy(v)
+        elif v.dtype == torch.bfloat16:
+            import ml_dtypes
+            out[k] = v.detach().cpu().view(torch.int16).numpy().view(
+                ml_dtypes.bfloat16)
+        else:
+            out[k] = v.detach().cpu().numpy()
+    return out
 
 
 def level_arrays_from_numpy(fields) -> la.LevelArrays:

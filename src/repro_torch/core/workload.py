@@ -5,9 +5,10 @@ record, the Bernoulli rebalancing coins, the bounded Zipf(s) stream of
 Figure 12, the Zipf token ids of the vocab tier, the splay-shaped
 level-array fixture the kernel checks use, and the request traces of
 the paged KV pool's session index (``kv_request_trace``,
-``kv_scan_trace``).  Pure numpy, drawing in the JAX package's order, so
-the same seed gives the same arrays and they feed either package
-unchanged.
+``kv_scan_trace``) and the serving engine's request arrivals
+(``poisson_zipf_arrivals``).  Pure numpy, drawing in the JAX package's
+order, so the same seed gives the same arrays and they feed either
+package unchanged.
 """
 
 from __future__ import annotations
@@ -83,6 +84,75 @@ def zipf_level_fixture(width: int, alpha: float, nq: int, seed: int = 0):
     key_by_rank = keys[np.argsort(ranks)]
     qs = rng.choice(key_by_rank, nq, p=p).astype(np.int32)
     return keys, heights, qs
+
+
+# request-level arrival processes: what the serving engine's queue
+# consumes (requests with arrival times, Zipf prompt token streams and
+# per-request decode budgets)
+
+class ArrivalStream(NamedTuple):
+    """A request arrival trace for ``serve.engine.Engine``.
+
+    Declared invariants (``tests/test_torch_serve_engine.py`` holds
+    them):
+      * ``arrival`` is non-decreasing with ``arrival[0] >= 0`` — epochs
+        are *decode-step* units, the engine's virtual clock;
+      * ``seq_ids`` are unique (session identity, keys of the paged-KV
+        splay index);
+      * ``prompt_lens[i] in [1, prompts.shape[1]]`` and
+        ``prompts[i, j]`` is a token id in ``[1, vocab)`` for
+        ``j < prompt_lens[i]`` and ``-1`` (pad) past it;
+      * ``max_new[i] >= 1``.
+    An empty stream (``n_requests == 0``) keeps every invariant with
+    zero-length leading axes."""
+    arrival: np.ndarray      # int32[R] non-decreasing decode-step epochs
+    seq_ids: np.ndarray      # int32[R] unique request/session ids
+    prompts: np.ndarray      # int32[R, P] token ids, -1 right-padded
+    prompt_lens: np.ndarray  # int32[R]
+    max_new: np.ndarray      # int32[R] per-request decode budget
+    name: str
+
+
+def poisson_zipf_arrivals(n_requests: int, rate: float, vocab: int,
+                          prompt_len=(2, 8), max_new=8,
+                          zipf_s: float = 1.0, seed: int = 0,
+                          name: str = "poisson_zipf") -> ArrivalStream:
+    """Poisson arrivals (``rate`` = mean requests per decode step;
+    ``rate=inf`` collapses to a single burst at epoch 0) carrying
+    Zipf(``zipf_s``) prompt token streams — token traffic and session
+    traffic are the same skew phenomenon the splay tiers exploit.
+    ``prompt_len`` and ``max_new`` may be ints or inclusive ``(lo, hi)``
+    ranges.  Deterministic per seed."""
+    if n_requests < 0:
+        raise ValueError(f"n_requests must be >= 0, got {n_requests}")
+    if not rate > 0:
+        raise ValueError(f"rate must be > 0 (or inf), got {rate}")
+    if vocab < 2:
+        raise ValueError(f"vocab must be >= 2, got {vocab}")
+    rng = np.random.default_rng(seed)
+    lo, hi = (prompt_len, prompt_len) if np.isscalar(prompt_len) \
+        else prompt_len
+    mlo, mhi = (max_new, max_new) if np.isscalar(max_new) else max_new
+    if lo < 1 or mlo < 1:
+        raise ValueError("prompt_len and max_new must be >= 1")
+    r = n_requests
+    if np.isinf(rate):
+        arrival = np.zeros(r, np.int64)
+    else:
+        arrival = np.floor(np.cumsum(
+            rng.exponential(1.0 / rate, r))).astype(np.int64)
+    lens = rng.integers(lo, hi + 1, r).astype(np.int32)
+    p = int(hi)
+    toks = 1 + zipf_token_ids(rng, vocab - 1, (r, p), s=zipf_s) \
+        if r else np.zeros((0, p), np.int32)
+    toks = np.where(np.arange(p)[None, :] < lens[:, None], toks,
+                    -1).astype(np.int32)
+    return ArrivalStream(
+        arrival=arrival.astype(np.int32),
+        seq_ids=np.arange(r, dtype=np.int32),
+        prompts=toks, prompt_lens=lens,
+        max_new=rng.integers(mlo, mhi + 1, r).astype(np.int32),
+        name=name)
 
 
 # kv-pool request-trace op kinds.  KV_SCAN and KV_PRED are the ordered

@@ -6,7 +6,9 @@ cache on the card against their CPU runs.  The ordered, audited KV page
 index: F's op list with all five kinds against its plain fold, the
 ordered ops against a numpy oracle and their CPU runs, the plane audit
 of flipped planes against its CPU run, and a device pool on the card
-under faults against a host pool.  F's list handling (long,
+under faults against a host pool.  The model zoo (one smoke
+architecture of each family, card against CPU) and the serving engine
+(device index on the card against the host index).  F's list handling (long,
 mostly zero-weight lists over many of the warp's 128-entry ballots, a
 rebuild stop deep inside an op list, an exhausted capacity, 33- and
 65-row columns), B5's cluster plan
@@ -643,3 +645,88 @@ def test_kv_pool_on_card_matches_host():
     assert logs[0] == logs[1]
     assert dev._st.key.is_cuda and dev._plane.keys.is_cuda
     assert dev.stats["audit_failures"] >= 1 and dev.stats["repairs"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the model zoo and the serving engine on the card
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _smoke_pair(arch):
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.models import model_zoo as zoo
+    cfg = registry.get_smoke(arch)
+    p_cpu = zoo.build_params(cfg, seed=0, device="cpu")
+    return cfg, p_cpu, convert.params_from_numpy(
+        convert.params_to_numpy(p_cpu), device="cuda")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "arctic-480b", "mamba2-1.3b",
+                                  "zamba2-7b", "whisper-large-v3",
+                                  "paligemma-3b"])
+def test_models_on_card_match_cpu(arch):
+    """One smoke architecture of each family, float32, through the smoke
+    run's phase-5e check (``chip_smoke.smoke_arch_check``, the same
+    seeded inputs): ``forward`` stage by stage (each stage from the
+    CPU's state, read through the model's head), ``prefill_loop`` and
+    three decode steps (each from the CPU's cache) allclose to the
+    CPU's (rtol 1e-4, atol 1e-5), the greedy tokens equal; at the
+    builder's scale with the float64 witness for a miss, at trained
+    scale with no miss."""
+    from repro_torch.configs import registry
+    seed = 17 + list(registry.ARCHS).index(arch)
+    _, trained = _chip_smoke().smoke_arch_check(torch, arch, "cuda", seed)
+    assert not trained.witnessed
+
+
+def test_models_on_card_where_float32_first_missed():
+    """whisper-large-v3 on the inputs where the card's float32 first
+    missed the CPU's at the builder's scale (stage layer0): the card
+    lies no more than twice as far from the CPU's float64 result as the
+    CPU's own float32 result does."""
+    ref, trained = _chip_smoke().smoke_arch_check(
+        torch, "whisper-large-v3", "cuda", 3)
+    assert all(e_card <= 2 * e_cpu for _, _, e_card, e_cpu in ref.witnessed)
+    assert not trained.witnessed
+
+
+def test_engine_device_index_on_card_matches_host_index():
+    """The reference's parity contract on the card: a device-indexed
+    engine (its index plane, model and caches on the card) and a
+    host-indexed one on the same arrivals emit the same ids, latencies,
+    stalls, preemptions and chains; the descent and F launch."""
+    from repro_torch.core import workload as tw
+    from repro_torch.serve.engine import Engine, Request
+    cfg, _, p_dev = _smoke_pair("qwen2-0.5b")
+    arr = tw.poisson_zipf_arrivals(6, float("inf"), 64, prompt_len=(3, 6),
+                                   max_new=6, seed=4)
+    out = []
+    for device_index in (True, False):
+        eng = Engine(cfg, p_dev, max_batch=3, max_seq=48, n_pages=7,
+                     page_size=4, stream_epochs=2,
+                     device_index=device_index)
+        for i in range(len(arr.seq_ids)):
+            n = int(arr.prompt_lens[i])
+            eng.submit(Request(seq_id=int(arr.seq_ids[i]),
+                               prompt=arr.prompts[i, :n].copy(),
+                               max_new=int(arr.max_new[i])))
+        tops.reset_launch_counts()
+        res = eng.run()
+        counts = tops.launch_counts()
+        out.append((res, eng.latencies, eng.stalls, eng.preemptions,
+                    eng.tokens_out, dict(eng.pool.chains)))
+        if device_index:
+            assert eng.pool._plane.keys.is_cuda
+            assert counts["splay_fold"] > 0
+            assert counts["splay_search_tiered"] + \
+                counts["splay_search_pipelined"] > 0
+    assert out[0] == out[1]
+    assert out[0][2] + out[0][3] > 0

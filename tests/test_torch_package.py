@@ -16,7 +16,11 @@ import torch
 import repro_torch
 from repro_torch.core import convert
 from repro_torch.core import splaylist as tsx
+from repro_torch.configs import registry
 from repro_torch.core.splay_cache import SplayVocabCache
+from repro_torch.launch import serve
+from repro_torch.models import model_zoo as zoo
+from repro_torch.serve.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -38,7 +42,15 @@ def test_every_module_imports_without_jax_or_repro():
               "core.splay_cache", "core.level_arrays", "core.convert",
               "configs.base", "configs.minitron_8b",
               "core.route_controller", "core.plane_check", "core.faults",
-              "core.ref_py", "parallel.sharding", "serve.kv_cache"):
+              "core.ref_py", "parallel.sharding", "serve.kv_cache",
+              "configs.registry", "configs.arctic_480b",
+              "configs.mamba2_1_3b", "configs.paligemma_3b",
+              "configs.phi35_moe", "configs.qwen1_5_110b",
+              "configs.qwen2_0_5b", "configs.stablelm_3b",
+              "configs.whisper_large_v3", "configs.zamba2_7b",
+              "models.layers", "models.attention", "models.moe",
+              "models.ssm", "models.model_zoo", "serve.serve_step",
+              "serve.engine", "launch.serve"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -60,7 +72,8 @@ def test_every_module_imports_without_jax_or_repro():
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "scripts/fold_timing.py",
        "scripts/torch_fold_ab.py", "scripts/search_timing.py",
-       "scripts/torch_search_ab.py", "tests/test_torch_cuda.py"]))
+       "scripts/torch_search_ab.py", "scripts/engine_step_profile.py",
+       "tests/test_torch_cuda.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     names = []
@@ -87,3 +100,15 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
         SplayVocabCache(16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.table_from_numpy(np.zeros((2, 2), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_numpy({"embed": np.zeros((2, 2), np.float32)})
+    cfg = registry.get_smoke("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.build_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.init_cache(cfg, 1, 4)
+    params = zoo.build_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--requests", "1"])
