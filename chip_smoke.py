@@ -4,6 +4,11 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
+It runs from a checkout: the port under ``src/``, and the timing
+inputs and the card-against-CPU checks under ``scripts/``
+(``card_checks.py``, shared with the profile scripts and the
+CUDA-marked tests).
+
 Phases:
 
 1. the card's name and power limit; build every CUDA kernel from
@@ -67,7 +72,12 @@ Phases:
    256, 64 decode steps of 256 Zipf lookups with creates and releases,
    a 300-op ``kv_scan_trace``, under a bit-flip and a telemetry
    blackout (audit every 16 lookup epochs); every answer and the final
-   chains equal a host-mode pool's, the audit catches and repairs;
+   chains equal a host-mode pool's, the audit catches and repairs.
+   Midway (decode step 34, four ops buffered) a serving snapshot is
+   saved with ``CheckpointManager`` and restored onto the card, and the
+   restored pool answers the rest of the trace beside the uninterrupted
+   one: every verdict, the chains, the free list and the stats equal;
+   ms to save (to the host, then the write), to restore, bytes on disk;
 5e. the model zoo and the serving engine: each of the ten registry
    architectures at smoke width in float32 on the card against the CPU
    (parameters from the port's seeded builder with stacked weights at
@@ -84,7 +94,31 @@ Phases:
    one: generated ids, latencies, stalls, preemptions, retries, tokens
    out, the pool's chains and the vocab counters equal; ms per model
    decode step (events) beside its weight-read bound, ms per pool
-   lookup and per vocab stream flush, tokens/s, peak memory;
+   lookup and per vocab stream flush, tokens/s, peak memory; then a
+   serving snapshot of the device-indexed engine restored into a new
+   pool and engine (``apply_engine_state``), and 4 more requests
+   (``poisson_zipf_arrivals(4, inf, seed=1)``) through the continuing
+   and the restored engine: generated ids, latencies, stalls,
+   preemptions, retries, tokens out and chains equal; and
+   ``launch.serve --smoke --device-index --snapshot-dir`` then
+   ``--resume``;
+5f. training: one ``make_train_step`` step of each of the ten
+   architectures at smoke width in float32, and of qwen2-0.5b at full
+   width with float32 compute (batch 1 x 64), on the card against the
+   CPU (loss, grad_norm and each gradient leaf by ``Agreement``, the
+   float64 witness being the CPU's run in float64); then qwen2-0.5b at
+   full width as configured (bf16 compute, remat per block) through
+   ``launch/train.main`` at batch 8 x 512: run A (10 steps), run B (6
+   steps, a checkpoint at 6) and run C (resumed at 6, to 10), into a
+   temporary directory under ``build/`` that the phase removes.  Every
+   loss finite, A's falling; step 6's checkpoint verified (SHA-256) and
+   holding every parameter and AdamW moment under the reference's names
+   and shapes; C's first loss equal, bit for bit, to one step from the
+   parameters of step 6 on ``batch_at(6)``.  ms per step by events
+   (median of steps 2-9), tokens/s, peak memory and the checkpoint's
+   I/O times beside the 6·N·T bound at the bf16 rate.  One step is
+   traced last, after phase 8 (``scripts/train_step_profile.py``: ATen
+   ops, device busy ms, idle share);
 6. timings of each kernel at the main path's shapes beside its plain
    version, its bound and, where one PyTorch call computes the same
    function (``index_select`` for B3, B4 and the fused gather), that
@@ -118,19 +152,22 @@ Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
 5's prefill and serving run, phase 5's full-width searches, phase 5b's
 flushes and lookups, phase 5c's ordered run, phase 5d's pool, phase
-5e's device-indexed engine, phase 6's timed composition) and read just
-after it, before any check or reference run.  Every kernel of a path must
+5e's device-indexed engine, phase 5f's run A, phase 6's timed
+composition) and read just after it, before any check or reference
+run; the launches of the pools restored from snapshots (phases 5d and
+5e) are counted apart, as path ``snapshot``.  Every kernel of a path must
 have run on it; on the vocab tier the fused gather runs once per
 lookup, B4 builds the hot buffer, and F runs at least once per stream
 epoch.  The kernels line reports each kernel's launches on the path it
 serves (B1 and F: phase 3, the main path; B2: phase 5; B5: phase 5's
 full-width searches; B4 and the fused gather: phase 5b; B3, whose only
 caller in the reference is the composition: phase 6's timed
-composition); ``launches_by_path`` adds every other path, the engine's
-among them.  Prints that JSON line, the card's ``name,
-power.limit``, and as the last line ``{"ok": true, "device":
-{...}}``.  Exits nonzero, with no result line, on any failed check or
-without a CUDA device.
+composition); ``launches_by_path`` adds every other path, the
+engine's, ``snapshot`` and ``train`` (which launches none of them)
+among them.  Prints that JSON line, the card's ``name, power.limit``,
+and as the last line ``{"ok": true, "device": {...}}``.  Exits
+nonzero, with no result line, on any failed check or without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -145,7 +182,12 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s
+sys.path.insert(0, str(HERE / "scripts"))
+from card_checks import (BF16_OPS, MEM_BW, Agreement,  # noqa: E402
+                         CheckFailed, card_line, decode_bound_ms,
+                         device_busy, left_pad, smoke_arch_check, train_batch,
+                         train_step_check)
+
 FP32_OPS = 67e12          # H100 SXM non-tensor fp32 rate (the old bound)
 INT32_PER_SM_CLK = 64     # int32 adds/compares per SM per clock (cc 9.0)
 
@@ -158,14 +200,6 @@ def fail(msg: str) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
 
 
 def int_rate(torch) -> tuple:
@@ -202,40 +236,6 @@ def row_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
-def device_busy(prof, n_top=6):
-    """The device activities of a ``torch.profiler`` trace (kernels,
-    copies, memsets; an op's CPU event also carries its kernels' time
-    and would count it twice): ``(activities, busy ms, span ms, top)``,
-    busy the union of their intervals, top the ``n_top`` names that take
-    the most time as ``(name, (count, us))``.  None if it has none."""
-    from torch.autograd import DeviceType
-    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kev)
-    if not spans:
-        return None
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:
-        busy_us += max(b - max(a, end), 0.0)
-        end = max(end, b)
-    by_name = {}
-    for e in kev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
-    return kev, busy_us / 1e3, (end - spans[0][0]) / 1e3, top
-
-
-def decode_bound_ms(params, batch: int) -> float:
-    """The least time of one decode step: its weight reads (every
-    parameter but the embedding table) and its ``batch`` embedding rows,
-    over the card's memory rate."""
-    weight_bytes = sum(v.numel() * v.element_size()
-                       for k, v in params.items() if k != "embed")
-    emb = params["embed"]
-    return 1e3 * (weight_bytes + batch * emb.shape[1] * emb.element_size()
-                  ) / MEM_BW
-
-
 def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
     """Run ``fn`` once under ``torch.profiler`` and print the device's
     busy time (``device_busy``) and its idle share of
@@ -262,204 +262,220 @@ def traced(torch, name: str, fn, unprofiled_ms: float) -> None:
                       for k, (n, us) in top), flush=True)
 
 
-def float64_mode(torch):
-    """A ``TorchFunctionMode`` under which each float32 that code asks
-    for (``.float()``, ``.to(torch.float32)``, ``dtype=torch.float32``)
-    is float64: the model's own code run in float64, the witness that
-    ``Agreement`` holds two float32 results against."""
-    from torch.overrides import TorchFunctionMode
-
-    class Float64(TorchFunctionMode):
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            kwargs = dict(kwargs or {})
-            if func is torch.Tensor.float:
-                func = torch.Tensor.double
-            if kwargs.get("dtype") is torch.float32:
-                kwargs["dtype"] = torch.float64
-            args = tuple(torch.float64 if a is torch.float32 else a
-                         for a in args)
-            return func(*args, **kwargs)
-    return Float64()
-
-
-def as_float64(tree):
-    """The parameter tree or cache, its float tensors in float64."""
-    return {k: (as_float64(v) if isinstance(v, dict)
-                else v.double() if v.is_floating_point() else v)
-            for k, v in tree.items()}
-
-
-class Agreement:
-    """The card's float32 result against the CPU's, ``allclose(rtol
-    1e-4, atol 1e-5)``.  Where that misses and a float64 result of the
-    same computation on the CPU is given (the witness), the card passes
-    if its largest distance from the witness is at most twice the CPU's
-    float32 result's: two float32 results of one ill-conditioned
-    computation err by comparable amounts, a fault on the card by far
-    more.  Keeps the largest difference and each witnessed case."""
-
-    def __init__(self, torch, arch):
-        self.torch, self.arch = torch, arch
-        self.worst = 0.0
-        self.witnessed = []
-
-    def __call__(self, got, want, what, witness=None):
-        torch = self.torch
-        diff = float((got - want).abs().max())
-        self.worst = max(self.worst, diff)
-        if torch.allclose(got, want, rtol=1e-4, atol=1e-5):
-            return
-        check(witness is not None,
-              f"{self.arch}: {what} on the card differs from the CPU's "
-              f"(max {diff:.3e})")
-        e_card = float((got.double() - witness).abs().max())
-        e_cpu = float((want.double() - witness).abs().max())
-        self.witnessed.append((what, diff, e_card, e_cpu))
-        check(e_card <= 2 * e_cpu,
-              f"{self.arch}: {what} on the card differs from the CPU's "
-              f"(max {diff:.3e}) and lies {e_card:.3e} from the float64 "
-              f"result, more than twice the CPU's float32 {e_cpu:.3e}")
+def snapshot_round_trip(torch, pool, dev, engine=None):
+    """Save a serving snapshot of ``pool`` (and ``engine``'s queue) with
+    ``CheckpointManager`` into a temporary directory under ``build/``
+    and restore it onto ``dev``.  Returns the restored pool and the
+    readings: ms to copy to the host (``save`` with ``blocking=False``
+    returns then), ms to write, ms to restore (load, SHA-256 check, to
+    the card), bytes and files on disk, the summary and the engine
+    state."""
+    import tempfile
+    from repro_torch.serve import snapshot as snap
+    from repro_torch.train.checkpoint import CheckpointManager
+    out = {"pending": len(pool._pending), "lookup_no": pool._lookup_no}
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as d:
+        mgr = CheckpointManager(d)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snap.save_serving_snapshot(mgr, 1, pool, engine=engine,
+                                   blocking=False)
+        out["sync_ms"] = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        mgr.wait()
+        out["write_ms"] = 1e3 * (time.perf_counter() - t)
+        files = list((Path(d) / "step_0000000001").iterdir())
+        out["files"] = len(files)
+        out["bytes"] = sum(f.stat().st_size for f in files)
+        t = time.perf_counter()
+        back, out["engine"], out["summary"] = snap.restore_serving_snapshot(
+            mgr, device=dev)
+        torch.cuda.synchronize()
+        out["restore_ms"] = 1e3 * (time.perf_counter() - t)
+    return back, out
 
 
-def stage_check(torch, zoo, cfg, p_dev, p_cpu, toks, fr, agree, p64=None):
-    """``forward`` on the card against the CPU, stage by stage: each
-    stage starts both from the CPU's state, and its output is read
-    through the model's head (final norm and unembedding) on both sides;
-    then the logits, and the untapped passes' greedy tokens.  With
-    ``p64``, the same tapped pass also runs in float64 on the CPU as
-    ``agree``'s witness."""
-    dev = p_dev["embed"].device
-    stages, wit = {}, {}
-
-    def record(name, x):
-        stages[name] = x
-        return x
-
-    t_cpu = torch.as_tensor(toks)
-    f_cpu = None if fr is None else torch.as_tensor(fr)
-    want = zoo.forward(p_cpu, cfg, t_cpu, frontend=f_cpu, tap=record)
-    w_logits = None
-    if p64 is not None:
-        def record64(name, x):
-            wit[name] = zoo.logits_out(p64, cfg, x, torch.float32)
-            return stages[name].double()
-
-        with float64_mode(torch):
-            w_logits = zoo.forward(
-                p64, cfg, t_cpu,
-                frontend=None if f_cpu is None else f_cpu.double(),
-                tap=record64)
-
-    def compare(name, x):
-        ref = stages[name]
-        agree(zoo.logits_out(p_dev, cfg, x, torch.float32).cpu(),
-              zoo.logits_out(p_cpu, cfg, ref, torch.float32),
-              f"stage {name}", wit.get(name))
-        return ref.to(dev)
-
-    got = zoo.forward(p_dev, cfg, t_cpu.to(dev),
-                      frontend=None if f_cpu is None else f_cpu.to(dev),
-                      tap=compare).cpu()
-    agree(got, want, "logits", w_logits)
-    free = zoo.forward(p_dev, cfg, t_cpu.to(dev),
-                       frontend=None if f_cpu is None else f_cpu.to(dev))
-    free_cpu = zoo.forward(p_cpu, cfg, t_cpu, frontend=f_cpu)
-    check(torch.equal(free.argmax(-1).cpu(), free_cpu.argmax(-1)),
-          f"{agree.arch}: forward's greedy tokens differ between card and "
-          "CPU")
-
-
-def decode_check(torch, zoo, ss, cfg, p_dev, p_cpu, prompts, steps, agree,
-                 p64=None):
-    """``prefill_loop`` and ``steps`` decode steps on the card and on the
-    CPU: equal greedy tokens; each decode step's logits also from the
-    CPU's cache on the card (one step's error, not a run's), held by
-    ``agree`` (with ``p64``, against a float64 step as the witness)."""
-    dev = p_dev["embed"].device
-    B = prompts.shape[0]
-    dec = ss.make_decode_step(cfg)
-    c_dev = zoo.init_cache(cfg, B, 16, dev)
-    c_cpu = zoo.init_cache(cfg, B, 16, "cpu")
-    tok_d, c_dev, n = ss.prefill_loop(dec, p_dev, prompts, c_dev)
-    tok_c, c_cpu, _ = ss.prefill_loop(dec, p_cpu, prompts, c_cpu)
-    check(torch.equal(tok_d.cpu(), tok_c), f"{agree.arch}: prefill_loop's "
-          "greedy tokens differ between card and CPU")
-    for step in range(steps):
-        lc, _ = zoo.decode_step(p_cpu, cfg, tok_c, c_cpu, n)
-        ld, _ = zoo.decode_step(p_dev, cfg, tok_c.to(dev),
-                                {k: v.to(dev) for k, v in c_cpu.items()}, n)
-        l64 = None
-        if p64 is not None:
-            with float64_mode(torch):
-                l64, _ = zoo.decode_step(p64, cfg, tok_c,
-                                         as_float64(c_cpu), n)
-        agree(ld.cpu(), lc, f"decode step {step} logits", l64)
-        tok_d, c_dev = dec(p_dev, tok_d, c_dev, n)
-        tok_c, c_cpu = dec(p_cpu, tok_c, c_cpu, n)
-        check(torch.equal(tok_d.cpu(), tok_c), f"{agree.arch}: decode step "
-              f"{step}'s greedy tokens differ between card and CPU")
-        n += 1
-
-
-def left_pad(prompts, lens):
-    L = int(max(lens))
-    out = np.zeros((len(lens), L), np.int32)
-    for i, n in enumerate(lens):
-        out[i, L - n:] = prompts[i, :n]
-    return out
-
-
-def trained_scale(params):
-    """The parameter tree with every stacked matrix (3 or more axes)
-    rescaled to a standard deviation of 1/sqrt(fan_in), its
-    next-to-last axis.  The builder, like the reference's, draws a
-    stacked weight at 1/sqrt(n_layers) (its leading axis), and the smoke
-    models' hidden states grow far above 1 (ROADMAP §C); at this scale
-    the same layers run at activations of order 1."""
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = trained_scale(v)
-        elif v.dim() >= 3:
-            out[k] = v * (v.shape[-2] ** -0.5 / float(v.double().std()))
-        else:
-            out[k] = v
-    return out
-
-
-def smoke_arch_check(torch, arch, dev, seed):
-    """One registry architecture at smoke width in float32, on ``dev``
-    against the CPU, parameters from the port's seeded builder carried
-    to ``dev`` as numpy: ``forward`` stage by stage (``stage_check``),
-    then ``prefill_loop`` of a left-padded batch and three decode steps
-    (``decode_check``).  Twice: at the builder's (the reference's)
-    scale, the gate, with a float64 witness for what misses the
-    tolerance (``Agreement``); and at trained scale
-    (``trained_scale``), where every comparison must hold the tolerance.
-    Returns the two ``Agreement``s."""
+def train_phase(torch, dev, read_launches, card):
+    """Phase 5f: training (host clocks and CUDA events only).  The ten
+    archs at smoke width and qwen2-0.5b at full width in float32, one
+    train step on the card against the CPU; then qwen2-0.5b at full
+    width as configured through ``launch/train.main``: runs A (10
+    steps), B (6 steps, a checkpoint at 6) and C (resumed at 6 to 10).
+    Removes the checkpoints and frees what it builds."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from unittest import mock
     from repro_torch.configs import registry
-    from repro_torch.core import convert
+    from repro_torch.launch import train as tmain
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.serve import serve_step as ss
-    cfg = registry.get_smoke(arch)
-    rng = np.random.default_rng(seed)
-    toks = rng.integers(1, cfg.vocab, (2, 8)).astype(np.int32)
-    n_front = {"encdec": cfg.enc_positions,
-               "vlm": cfg.img_tokens}.get(cfg.family)
-    fr = None if n_front is None else (0.02 * rng.standard_normal(
-        (2, n_front, cfg.d_model))).astype(np.float32)
-    built = zoo.build_params(cfg, seed=0, device="cpu")
-    out = []
-    for p_cpu, witness in ((built, True), (trained_scale(built), False)):
-        p_dev = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
-                                          device=dev)
-        p64 = as_float64(p_cpu) if witness else None
+    from repro_torch.train import checkpoint as ckm
+    from repro_torch.train import data as dm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    # -- 1. each architecture at smoke width, float32, card against CPU --
+    t = time.perf_counter()
+    rows = []
+    for i, arch in enumerate(registry.ARCHS):
+        cfg = registry.get_smoke(arch)
         agree = Agreement(torch, arch)
-        stage_check(torch, zoo, cfg, p_dev, p_cpu, toks, fr, agree, p64)
-        decode_check(torch, zoo, ss, cfg, p_dev, p_cpu,
-                     left_pad(toks, (4, 2)), 3, agree, p64)
-        out.append(agree)
-    return tuple(out)
+        share, leaf = train_step_check(
+            torch, cfg, zoo.build_params(cfg, seed=0, device="cpu"),
+            train_batch(cfg, np.random.default_rng(17 + i), 2, 16), dev,
+            agree)
+        rows.append((arch, agree, share, leaf))
+    print(f"[5f] ten archs at smoke width, float32: one make_train_step "
+          f"step on the card == on the CPU (loss, grad_norm and every "
+          f"gradient leaf allclose rtol 1e-4 atol 1e-5; a miss passes only "
+          f"if the card lies at most twice as far as the CPU's float32 from "
+          f"the CPU's float64) in {time.perf_counter() - t:.1f} s; largest "
+          f"difference of loss, grad_norm and gradients, and (a reading) of "
+          f"an updated leaf as a share of its norm: "
+          + "; ".join(f"{a} {g.worst:.2e}, {s:.2e} ({k})"
+                      for a, g, s, k in rows), flush=True)
+    full = registry.get("qwen2-0.5b")
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    p_cpu = zoo.build_params(cfg32, seed=0, device="cpu")
+    agree = Agreement(torch, "qwen2-0.5b full width float32")
+    t = time.perf_counter()
+    share, leaf = train_step_check(
+        torch, cfg32, p_cpu, train_batch(cfg32, np.random.default_rng(5),
+                                         1, 64), dev, agree)
+    rows.append(("qwen2-0.5b full width", agree, share, leaf))
+    print(f"[5f] qwen2-0.5b at full width, float32 compute, batch 1 x 64: "
+          f"card == CPU under the same rule in "
+          f"{time.perf_counter() - t:.1f} s; largest difference of "
+          f"loss, grad_norm and gradients {agree.worst:.3e}; of an updated "
+          f"leaf "
+          f"{share:.3e} of its norm ({leaf})", flush=True)
+    for a, g, _, _ in rows:
+        for what, diff, e_card, e_cpu in g.witnessed:
+            print(f"[5f] witnessed: {a} {what}: card - CPU float32 "
+                  f"{diff:.4e}; from the CPU's float64: card {e_card:.4e}, "
+                  f"CPU float32 {e_cpu:.4e}", flush=True)
+    del p_cpu
+    torch.cuda.empty_cache()
+
+    # -- 2. qwen2-0.5b at full width as configured, through the trainer --
+    free = shutil.disk_usage(HERE).free
+    print(f"[5f] free disk beside the checkout: {free} B (two checkpoints "
+          f"of about 5.9 GB each are written)", flush=True)
+    check(free > 13e9, "less than 13 GB of free disk for the checkpoints")
+    events, io = [], {"sync": [], "write": []}
+
+    make = ts.make_train_step
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(*args)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        return run
+
+    class TimedManager(ckm.CheckpointManager):
+        def save(self, step, params, opt_state=None, extra=None,
+                 blocking=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(step, params, opt_state, extra, blocking=False)
+            io["sync"].append(1e3 * (time.perf_counter() - t0))
+            if blocking:
+                self.wait()
+
+        def _write(self, *a):
+            t0 = time.perf_counter()
+            super()._write(*a)
+            io["write"].append(1e3 * (time.perf_counter() - t0))
+
+    base = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "512"]
+    d = tempfile.mkdtemp(dir=HERE / "build", prefix="train_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(tmain.ts, "make_train_step", timed_make):
+            from repro_torch.kernels import ops
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            la = tmain.main(base + ["--steps", "10", "--log-every", "1"])
+            torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t
+            read_launches("train", ())
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        check(len(la) == 10 and all(math.isfinite(x) for x in la),
+              f"run A's losses {la}")
+        check(la[-1] < la[0], f"run A's loss did not fall: {la}")
+        with mock.patch.object(tmain.ckpt_mod, "CheckpointManager",
+                               TimedManager):
+            lb = tmain.main(base + ["--steps", "6", "--ckpt-dir", d,
+                                    "--ckpt-every", "6"])
+            check(len(lb) == 6 and all(math.isfinite(x) for x in lb),
+                  f"run B's losses {lb}")
+            mgr = ckm.CheckpointManager(d)
+            check(mgr.steps() == [6], f"checkpoints {mgr.steps()}")
+            step_dir = Path(d) / "step_0000000006"
+            nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+            t = time.perf_counter()
+            flat, extra = mgr.load(6)              # SHA-256 checked
+            load_ms = 1e3 * (time.perf_counter() - t)
+            tpl = zoo.build_params(full, seed=0, device=dev)
+            n_par = sum(v.numel() for v in tpl.values())
+            want = {"opt/step": ((), "int32")}
+            for k, v in ckm._flatten(tpl).items():
+                for pre in ("params", "opt/mu", "opt/nu"):
+                    want[f"{pre}/{k}"] = (tuple(v.shape), "float32")
+            got = {k: (v.shape, str(v.dtype)) for k, v in flat.items()}
+            check(got == want and extra == {"data_step": 6}
+                  and int(flat["opt/step"]) == 6,
+                  f"step 6's checkpoint holds {sorted(got.items())[:4]}..."
+                  f" against {sorted(want.items())[:4]}..., extra {extra}")
+            lc = tmain.main(base + ["--steps", "10", "--ckpt-dir", d])
+        check(len(lc) == 4 and all(math.isfinite(x) for x in lc),
+              f"run C's losses {lc}")
+        params6 = ckm.unflatten_into(
+            {k: v for k, v in flat.items() if k.startswith("params/")}, tpl)
+        del flat, tpl
+        b6 = dm.SyntheticZipfData(full.vocab, 512, 8, seed=0).batch_at(6)
+        _, _, m6 = ts.make_train_step(full)(
+            params6, opt.init(params6),
+            {k: torch.as_tensor(v, device=dev) for k, v in b6.items()})
+        loss6 = float(m6["loss"])
+        check(loss6 == lc[0], f"run C's first loss {lc[0]!r} is not the "
+              f"loss of one step from step 6's parameters on batch_at(6), "
+              f"{loss6!r}")
+        del params6, m6
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    med = float(np.median(step_ms[2:10]))
+    bound_ms = 1e3 * 6 * n_par * 8 * 512 / BF16_OPS
+    print(f"[5f] qwen2-0.5b full width ({n_par} parameters, bf16 compute, "
+          f"remat block) through launch/train.main, batch 8 x 512: run A "
+          f"losses {[round(x, 4) for x in la]} (falls); {med:.4f} ms a "
+          f"step by events (median of steps 2-9; all: "
+          f"{[round(x, 3) for x in step_ms]}), {4096 / med * 1e3:.1f} "
+          f"tokens/s, run A {wall_a:.1f} s on the host clock; 6NT bound "
+          f"{bound_ms:.4f} ms at {BF16_OPS:.3g} FLOP/s bf16 (remat "
+          f"recomputes the forward pass on top: {med / bound_ms:.2f}x); "
+          f"max_memory_allocated {peak} B; card {card}", flush=True)
+    print(f"[5f] checkpoint of step 6: {nbytes} B, every parameter and "
+          f"AdamW moment under the reference's names and shapes; save "
+          f"{[round(x, 1) for x in io['sync']]} ms to the host (the second "
+          f"of run B also waits for the first write), writes "
+          f"{[round(x, 1) for x in io['write']]} ms (runs B, B's final "
+          f"re-save, C), load with SHA-256 {load_ms:.1f} ms; run B losses "
+          f"{[round(x, 4) for x in lb]}; run C resumed at 6: first loss "
+          f"{lc[0]!r} == one step from step 6's parameters on batch_at(6); "
+          f"C's losses {[round(x, 4) for x in lc]} beside A's "
+          f"{[round(x, 4) for x in la[6:]]} (AdamW's moments restart on "
+          f"resume, as in the reference)", flush=True)
 
 
 def models_phase(torch, dev, read_launches, path_launches, minitron):
@@ -636,7 +652,74 @@ def models_phase(torch, dev, read_launches, path_launches, minitron):
           f"hot buffer only for a lookup through the cache; the engine's "
           f"embedding lookups index the table, as the reference's do)",
           flush=True)
-    del de, he, runs, params
+
+    # -- a serving snapshot of the device-indexed engine, restored -------
+    from repro_torch.launch import serve as serve_main
+    from repro_torch.serve import snapshot as snap
+    rpool, es = snapshot_round_trip(torch, de.pool, dev, engine=de)
+    re = Engine(cfg16, params, max_batch=4, max_seq=128, device_index=True,
+                device=dev)
+    re.pool = rpool
+    snap.apply_engine_state(re, es["engine"])
+    more = wl.poisson_zipf_arrivals(4, float("inf"), minitron.vocab,
+                                    prompt_len=(2, 7), max_new=8, seed=1)
+    for eng in (de, re):
+        for i in range(len(more.seq_ids)):
+            n_i = int(more.prompt_lens[i])
+            eng.submit(Request(seq_id=int(more.seq_ids[i]),
+                               prompt=more.prompts[i, :n_i].copy(),
+                               max_new=int(more.max_new[i]),
+                               arrival=int(more.arrival[i])))
+    de_res = de.run()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    re_res = re.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    snap_paths = path_launches.setdefault("snapshot", {})
+    for k, v in counts.items():
+        snap_paths[k] = snap_paths.get(k, 0) + v
+    check(counts["splay_fold"] > 0 and counts["splay_search_tiered"]
+          + counts["splay_search_pipelined"] > 0,
+          f"the restored engine's pool launched no descent or no F: {counts}")
+    for name, a, b in (("generated ids", re_res, de_res),
+                       ("latencies", re.latencies, de.latencies),
+                       ("stalls", re.stalls, de.stalls),
+                       ("preemptions", re.preemptions, de.preemptions),
+                       ("degraded retries", re.degraded_retries,
+                        de.degraded_retries),
+                       ("tokens out", re.tokens_out, de.tokens_out),
+                       ("pool chains", re.pool.chains, de.pool.chains)):
+        check(a == b, f"minitron-8b engine restored from a snapshot: {name} "
+              f"differ from the continuing engine's: {a} != {b}")
+    check(len(re_res) == 4, f"the restored engine served {len(re_res)} of 4")
+    print(f"[5e] snapshot of the device-indexed engine at clock "
+          f"{es['engine']['clock']}: {es['bytes']} B in {es['files']} files;"
+          f" save {es['sync_ms']:.3f} ms to the host then "
+          f"{es['write_ms']:.3f} ms to write, restore {es['restore_ms']:.3f}"
+          f" ms; {es['summary']}; 4 more requests (seed 1) to the "
+          f"continuing and the restored engine: generated ids, latencies, "
+          f"stalls, preemptions, retries, tokens out and chains equal; the "
+          f"restored pool's launches {counts}", flush=True)
+    import contextlib
+    import io
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as d:
+        outs = []
+        for extra in ([], ["--resume"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = serve_main.main(["--smoke", "--device-index",
+                                       "--snapshot-dir", d] + extra)
+            outs.append((res, buf.getvalue()))
+    restored = [ln for ln in outs[1][1].splitlines()
+                if ln.startswith("restored")]
+    check(len(restored) == 1 and outs[0][0] == outs[1][0],
+          f"launch.serve --snapshot-dir then --resume: {outs[1][1][-400:]}")
+    print(f"[5e] launch.serve --smoke --device-index --snapshot-dir, then "
+          f"--resume: {restored[0]}; the same {len(outs[1][0])} sequences",
+          flush=True)
+    del de, he, re, rpool, runs, params
     torch.cuda.empty_cache()
 
 
@@ -645,7 +728,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, str(HERE / "src"))
-    sys.path.insert(1, str(HERE / "scripts"))
     import fold_timing as ft
     import search_timing as stm
     from repro_torch.configs.minitron_8b import CONFIG as minitron
@@ -1380,6 +1462,9 @@ def main() -> None:
             return [plain(y) for y in x]
         return x
 
+    rpool = None                # the pool restored from a snapshot
+    snap_launches = {}          # the launches the restored pool made
+
     def both(fn, timed=None):
         t = time.perf_counter()
         got = fn(dpool)
@@ -1389,6 +1474,15 @@ def main() -> None:
         want = fn(hpool)
         check(plain(got) == plain(want), f"the device pool answers "
               f"{plain(got)} where the host pool answers {plain(want)}")
+        if rpool is not None:
+            before = ops.launch_counts()
+            again = fn(rpool)
+            torch.cuda.synchronize()
+            for k, v in ops.launch_counts().items():
+                snap_launches[k] = snap_launches.get(k, 0) + v - before[k]
+            check(plain(again) == plain(got), f"the restored pool answers "
+                  f"{plain(again)} where the uninterrupted one answers "
+                  f"{plain(got)}")
         return got
 
     def admit(s, n_tok):
@@ -1417,6 +1511,14 @@ def main() -> None:
         for _ in range(2):
             victim = sessions.pop(int(krng.integers(len(sessions))))
             both(lambda p: p.release(int(victim)))
+        if step == 34:
+            # midway, four ops buffered and the audit cadence at its
+            # start (the snapshot does not carry the lookups since the
+            # last audit; here there are none), after both faults fired
+            check(len(dpool._pending) == 4 and dpool._since_audit == 0,
+                  f"snapshot point: {len(dpool._pending)} pending ops, "
+                  f"{dpool._since_audit} lookups since the last audit")
+            rpool, kv_snap = snapshot_round_trip(torch, dpool, dev)
         both(flush, "flush")
         pick = np.asarray(sessions)[krng.choice(len(sessions), 256, p=zp)]
         both(lambda p: p.lookup_batch(pick), "lookup")
@@ -1435,9 +1537,32 @@ def main() -> None:
             both(lambda p: p.predecessor(s), "predecessor")
     kv_s = time.perf_counter() - t5d
     read_launches("kv_index", ("splay_search_tiered", "splay_fold"))
+    path_launches["kv_index"] = {k: v - snap_launches.get(k, 0) for k, v
+                                 in path_launches["kv_index"].items()}
+    path_launches["snapshot"] = dict(snap_launches)
+    print(f"    launches on path kv_index without the restored pool's: "
+          f"{path_launches['kv_index']}", flush=True)
     check(sorted(dpool.chains) == sorted(hpool.chains) and all(
         dpool.chains[s] == hpool.chains[s] for s in hpool.chains),
           "the pools' chains differ")
+    check(rpool.chains == dpool.chains and rpool.free == dpool.free
+          and rpool.stats == dpool.stats,
+          f"after the trace the restored pool's chains, free list or stats "
+          f"differ from the uninterrupted pool's: {rpool.stats} != "
+          f"{dpool.stats}")
+    check(snap_launches["splay_fold"] > 0 and
+          snap_launches["splay_search_tiered"] > 0,
+          f"the restored pool did not launch B1 and F: {snap_launches}")
+    print(f"[5d] snapshot at decode step 34 (lookup epoch "
+          f"{kv_snap['lookup_no']}, {kv_snap['pending']} ops buffered): "
+          f"{kv_snap['bytes']} B on disk in {kv_snap['files']} files; save "
+          f"{kv_snap['sync_ms']:.3f} ms to the host then "
+          f"{kv_snap['write_ms']:.3f} ms to write, restore "
+          f"{kv_snap['restore_ms']:.3f} ms (load, SHA-256, to the card); "
+          f"the restored pool answered the rest of the trace, every verdict "
+          f"equal to the uninterrupted pool's and the host pool's; chains, "
+          f"free list and stats equal; its launches {snap_launches}",
+          flush=True)
     st5d = dict(dpool.stats)
     check(st5d["audit_failures"] >= 1 and st5d["repairs"] >= 1
           and st5d["faults_injected"] == 2 and st5d["telemetry_dropped"] >= 1,
@@ -1460,6 +1585,9 @@ def main() -> None:
 
     # ---- phase 5e: the model zoo and the serving engine -----------------
     models_phase(torch, dev, read_launches, path_launches, minitron)
+
+    # ---- phase 5f: training ---------------------------------------------
+    train_phase(torch, dev, read_launches, card)
 
     # ---- phase 6: timings at the main path's shapes ---------------------
     kernels = []
@@ -1877,6 +2005,21 @@ def main() -> None:
           f"256 MB array; all F states equal their plain folds, so the "
           f"full list's equal the subset's", flush=True)
 
+    # ---- phase 5f's traced train step, after the other traces -----------
+    import train_step_profile as tsp
+    tr = tsp.profile_train_step(torch, dev)
+    busy = ("not measured (the trace held no device activity)"
+            if tr["device_busy_ms"] is None else
+            f"{tr['device_busy_ms']:.4f} ms over {tr['kernels_per_step']} "
+            f"kernels, idle share {tr['idle_share']:.4f}; top kernels "
+            + "; ".join(f"{k} x{c} {ms:.4f} ms"
+                        for k, c, ms in tr["top_kernels"][:5]))
+    print(f"[5f] one qwen2-0.5b train step, 8 x 512 "
+          f"(scripts/train_step_profile.py): host {tr['host_ms']:.4f} ms, "
+          f"events {tr['event_ms']:.4f} ms (medians of {tr['steps']}), "
+          f"{tr['aten_ops_per_step']} ATen ops, traced device busy {busy}; "
+          f"6NT bound {tr['bound_ms']:.4f} ms", flush=True)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1885,4 +2028,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except CheckFailed as e:      # a failed check of scripts/card_checks.py
+        fail(str(e))

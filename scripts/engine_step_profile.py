@@ -12,9 +12,10 @@ CUDA-event time, the number of ATen operators the step dispatches (a
 ``--steps`` steps the device's busy time (the union of the traced
 kernels' intervals), its kernel launches, its idle share and the
 kernels that take the most time; beside the weight-read bound
-(``chip_smoke.decode_bound_ms``).  Then the card's ``name,
+(``card_checks.decode_bound_ms``).  Then the card's ``name,
 power.limit`` and one JSON line of the numbers.  The bound, the trace's
-busy time and the card line are ``chip_smoke.py``'s own helpers.
+busy time and the card line are ``scripts/card_checks.py``'s, shared
+with ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -44,8 +45,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     sys.path.insert(0, str(HERE.parent / "src"))
-    sys.path.insert(1, str(HERE.parent))
-    import chip_smoke as cs
+    import card_checks as cs
     from repro_torch.configs.minitron_8b import CONFIG
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serve import serve_step as ss

@@ -76,20 +76,23 @@ def params_from_numpy(tree, device="cuda") -> dict:
             for k, v in tree.items()}
 
 
+def tensor_to_numpy(v: torch.Tensor) -> np.ndarray:
+    """A host copy of ``v`` as a numpy array, never sharing its memory
+    (a CPU tensor is copied too).  bfloat16 comes back as an
+    ``ml_dtypes`` bfloat16 array, bit for bit."""
+    h = v.detach().to("cpu", copy=True)
+    if h.dtype == torch.bfloat16:
+        import ml_dtypes
+        return h.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return h.numpy()
+
+
 def params_to_numpy(params) -> dict:
-    """The inverse of :func:`params_from_numpy`: bfloat16 tensors come
-    back as ``ml_dtypes`` bfloat16 arrays, bit for bit."""
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = params_to_numpy(v)
-        elif v.dtype == torch.bfloat16:
-            import ml_dtypes
-            out[k] = v.detach().cpu().view(torch.int16).numpy().view(
-                ml_dtypes.bfloat16)
-        else:
-            out[k] = v.detach().cpu().numpy()
-    return out
+    """The inverse of :func:`params_from_numpy` (each tensor through
+    :func:`tensor_to_numpy`)."""
+    return {k: (params_to_numpy(v) if isinstance(v, dict)
+                else tensor_to_numpy(v))
+            for k, v in params.items()}
 
 
 def level_arrays_from_numpy(fields) -> la.LevelArrays:

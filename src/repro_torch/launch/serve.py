@@ -12,7 +12,9 @@ batches plus the incremental plane refresh with the overflow/rebuild
 state machine), and audit the plane before and after.  The sharded
 serving loop of the reference needs several devices and arrives with
 the multi-device slice; on one device it is skipped, as the reference
-skips it.  Runs on the card unless ``--device cpu`` is given.
+skips it.  ``--snapshot-dir`` publishes a serving snapshot after the
+run, and with ``--resume`` the latest one there is restored before the
+requests arrive.  Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import numpy as np
 from repro_torch.configs import registry
 from repro_torch.core import workload
 from repro_torch.models import model_zoo as zoo
+from repro_torch.serve import snapshot as snap
 from repro_torch.serve.engine import Engine, Request
+from repro_torch.train.checkpoint import CheckpointManager
 
 
 def splay_demo(args) -> dict:
@@ -102,19 +106,18 @@ def main(argv=None):
                     help="Poisson arrival rate in requests per decode "
                          "step (0 = a burst at time zero)")
     ap.add_argument("--snapshot-dir", default=None,
-                    help="serving snapshots: not ported yet")
+                    help="publish a crash-consistent serving snapshot "
+                         "(pool + index + controller + engine queue) "
+                         "here after the run")
     ap.add_argument("--resume", action="store_true",
-                    help="resume from a serving snapshot: not ported yet")
+                    help="restore the latest snapshot from "
+                         "--snapshot-dir before serving (auto-resume; "
+                         "a fresh start if the directory is empty)")
     ap.add_argument("--audit-every", type=int, default=0,
                     help="run the plane fsck every K lookup epochs on "
                          "the device index (0 = off)")
     args = ap.parse_args(argv)
 
-    if args.snapshot_dir or args.resume:
-        raise NotImplementedError(
-            "serving snapshots (--snapshot-dir/--resume) need "
-            "serve/snapshot.py and train/checkpoint.py, which the port "
-            "has not taken over yet (ROADMAP queue A, A11b)")
     if args.splay_demo:
         return splay_demo(args)
 
@@ -124,6 +127,16 @@ def main(argv=None):
     eng = Engine(cfg, params, max_batch=args.max_batch, max_seq=128,
                  device_index=args.device_index,
                  audit_every=args.audit_every, device=args.device)
+    mgr = None
+    if args.snapshot_dir:
+        mgr = CheckpointManager(args.snapshot_dir)
+        if args.resume and mgr.latest_step() is not None:
+            pool, eng_state, summary = snap.restore_serving_snapshot(
+                mgr, audit_every=args.audit_every or None,
+                device=args.device)
+            eng.pool = pool
+            snap.apply_engine_state(eng, eng_state)
+            print(summary)
     arrivals = workload.poisson_zipf_arrivals(
         args.requests, args.rate if args.rate > 0 else float("inf"),
         cfg.vocab, prompt_len=(2, 7), max_new=args.max_new,
@@ -147,6 +160,10 @@ def main(argv=None):
     if eng.pool.device and args.audit_every:
         from repro_torch.core import plane_check as pc
         print(pc.audit_summary(eng.pool.audit()))
+    if mgr is not None:
+        snap.save_serving_snapshot(mgr, eng.clock, eng.pool, engine=eng)
+        print(f"saved serving snapshot step {eng.clock} "
+              f"to {args.snapshot_dir}")
     return results
 
 

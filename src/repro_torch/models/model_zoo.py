@@ -4,8 +4,13 @@ the twin of ``repro.models.model_zoo`` (meshless).
 
 The parameters are the reference's tree: per-layer weights stacked on a
 leading layer axis, the same names and shapes.  The layers run as a
-Python loop over slices of that stack; the reference's ``scan_layers``
-and ``remat`` change no value and do not branch here.  The modality
+Python loop over slices of that stack (the reference's ``scan_layers``
+changes no value and does not branch here).  With ``cfg.remat`` other
+than ``"none"`` and grad mode on, each decoder block (with zamba2's
+shared block) and each encoder block runs under
+``torch.utils.checkpoint``, so the backward pass recomputes its
+activations, as the reference's ``jax.checkpoint`` does; it changes no
+value.  The modality
 frontends of whisper and paligemma are stubs: the caller passes
 precomputed frame or patch embeddings.
 """
@@ -15,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.splaylist import _device
@@ -291,18 +297,43 @@ def _no_tap(name, x):
     return x
 
 
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat``
+    asks for it and a backward pass can follow."""
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _shared_block(x, shared, cfg, cdt, mask_mode, prefix_len):
+    """zamba2's shared attention + MLP block."""
+    a, _ = _attn_block(x, shared, cfg, mask_mode, prefix_len, cdt)
+    x = x + a
+    return x + _mlp_block(x, shared, cfg, cdt)
+
+
+def _unstack(params, keys):
+    """Per-layer views of the stacked weights, split once: the backward
+    pass then stacks each weight's layer gradients in one write, where
+    indexing the stack per layer would accumulate a zero-filled copy of
+    the whole stack for every layer."""
+    views = {k: params[k].unbind(0) for k in keys}
+    return [{k: v[i] for k, v in views.items()}
+            for i in range(len(next(iter(views.values()))))]
+
+
 def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
                 enc_out=None, tap=_no_tap):
-    keys = _layer_keys(params, cfg)
+    layers = _unstack(params, _layer_keys(params, cfg))
     shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
-        x = tap(f"layer{i}", _decoder_block(
-            x, _layer(params, keys, i), cfg, cdt, mask_mode, prefix_len,
-            enc_out))
+        x = tap(f"layer{i}", _remat(
+            cfg, _decoder_block, x, layers[i], cfg, cdt,
+            mask_mode, prefix_len, enc_out))
         if _shared_due(cfg, i):
-            a, _ = _attn_block(x, shared, cfg, mask_mode, prefix_len, cdt)
-            x = x + a
-            x = tap(f"shared{i}", x + _mlp_block(x, shared, cfg, cdt))
+            x = tap(f"shared{i}", _remat(cfg, _shared_block, x, shared,
+                                         cfg, cdt, mask_mode, prefix_len))
     return x
 
 
@@ -338,12 +369,16 @@ def _encode(params, cfg, frames, cdt, tap=_no_tap):
     x = frames.to(cdt) + params["enc_pos"].to(cdt)[None]
     names = ("wq", "wk", "wv", "wo", "ln_attn", "w_gate", "w_up",
              "w_down", "ln_mlp")
+    layers = _unstack({k: params["enc_" + k] for k in names}, names)
     for i in range(cfg.n_enc_layers):
-        lp = {k: params["enc_" + k][i] for k in names}
-        a, _ = _attn_block(x, lp, cfg, "full", 0, cdt)
-        x = x + a
-        x = tap(f"enc{i}", x + _mlp_block(x, lp, cfg, cdt))
+        x = tap(f"enc{i}", _remat(cfg, _enc_block, x, layers[i], cfg, cdt))
     return x
+
+
+def _enc_block(x, lp, cfg, cdt):
+    a, _ = _attn_block(x, lp, cfg, "full", 0, cdt)
+    x = x + a
+    return x + _mlp_block(x, lp, cfg, cdt)
 
 
 def forward(params, cfg: ModelConfig, tokens, frontend=None, tap=None):

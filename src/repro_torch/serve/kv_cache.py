@@ -60,7 +60,7 @@ class PagedKVPool:
                  mesh=None, axis: str = "model",
                  audit_every: int = 0, fault_plan=None,
                  torch_device="cuda"):
-        del axis
+        self.axis = axis
         self.n_pages = n_pages
         self.page_size = page_size
         self.free: List[int] = list(range(n_pages))

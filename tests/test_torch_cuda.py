@@ -8,7 +8,9 @@ ordered ops against a numpy oracle and their CPU runs, the plane audit
 of flipped planes against its CPU run, and a device pool on the card
 under faults against a host pool.  The model zoo (one smoke
 architecture of each family, card against CPU) and the serving engine
-(device index on the card against the host index).  F's list handling (long,
+(device index on the card against the host index).  A serving snapshot
+of a device pool restored onto the card, and one train step of a smoke
+architecture on the card against the CPU.  F's list handling (long,
 mostly zero-weight lists over many of the warp's 128-entry ballots, a
 rebuild stop deep inside an op list, an exhausted capacity, 33- and
 65-row columns), B5's cluster plan
@@ -651,12 +653,12 @@ def test_kv_pool_on_card_matches_host():
 # the model zoo and the serving engine on the card
 # ---------------------------------------------------------------------------
 
-def _chip_smoke():
+def _card_checks():
     import sys
     from pathlib import Path
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
-    return chip_smoke
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import card_checks
+    return card_checks
 
 
 def _smoke_pair(arch):
@@ -674,7 +676,7 @@ def _smoke_pair(arch):
                                   "paligemma-3b"])
 def test_models_on_card_match_cpu(arch):
     """One smoke architecture of each family, float32, through the smoke
-    run's phase-5e check (``chip_smoke.smoke_arch_check``, the same
+    run's phase-5e check (``card_checks.smoke_arch_check``, the same
     seeded inputs): ``forward`` stage by stage (each stage from the
     CPU's state, read through the model's head), ``prefill_loop`` and
     three decode steps (each from the CPU's cache) allclose to the
@@ -683,7 +685,7 @@ def test_models_on_card_match_cpu(arch):
     scale with no miss."""
     from repro_torch.configs import registry
     seed = 17 + list(registry.ARCHS).index(arch)
-    _, trained = _chip_smoke().smoke_arch_check(torch, arch, "cuda", seed)
+    _, trained = _card_checks().smoke_arch_check(torch, arch, "cuda", seed)
     assert not trained.witnessed
 
 
@@ -692,7 +694,7 @@ def test_models_on_card_where_float32_first_missed():
     missed the CPU's at the builder's scale (stage layer0): the card
     lies no more than twice as far from the CPU's float64 result as the
     CPU's own float32 result does."""
-    ref, trained = _chip_smoke().smoke_arch_check(
+    ref, trained = _card_checks().smoke_arch_check(
         torch, "whisper-large-v3", "cuda", 3)
     assert all(e_card <= 2 * e_cpu for _, _, e_card, e_cpu in ref.witnessed)
     assert not trained.witnessed
@@ -730,3 +732,80 @@ def test_engine_device_index_on_card_matches_host_index():
                 counts["splay_search_pipelined"] > 0
     assert out[0] == out[1]
     assert out[0][2] + out[0][3] > 0
+
+
+# ---------------------------------------------------------------------------
+# serving snapshots and training on the card
+# ---------------------------------------------------------------------------
+
+def test_device_pool_snapshot_round_trip_on_card(tmp_path):
+    """A device pool on the card snapshotted with an op buffered,
+    restored onto the card, and driven through the rest of a request
+    trace: every verdict, the chains, the free list and the stats equal
+    the uninterrupted pool's; the restored state and plane lie on the
+    card, and its lookups launch the descent and F."""
+    from repro_torch.serve import snapshot as snap
+    from repro_torch.serve.kv_cache import PagedKVPool
+    from repro_torch.train.checkpoint import CheckpointManager
+    trace = twl.kv_request_trace(160, 24, seed=3)
+    kinds, sids = trace.kinds.tolist(), trace.seq_ids.tolist()
+
+    def drive(pool, lo, hi, rec):
+        for k, s in zip(kinds[lo:hi], sids[lo:hi]):
+            if k == twl.KV_CREATE:
+                pool.create(s)
+            elif k == twl.KV_RELEASE:
+                pool.release(s)
+            else:
+                rec.append(bool(pool.lookup_batch([s])[0]))
+
+    def make():
+        return PagedKVPool(96, 8, device=True, index_width=64,
+                           index_batch=16, audit_every=4)
+
+    ref, pool = make(), make()
+    want, got = [], []
+    drive(ref, 0, 160, want)
+    cut = 80
+    drive(pool, 0, cut, got)
+    while not pool._pending:
+        drive(pool, cut, cut + 1, got)
+        cut += 1
+    mgr = CheckpointManager(str(tmp_path))
+    snap.save_serving_snapshot(mgr, cut, pool)
+    back, _, summary = snap.restore_serving_snapshot(mgr)
+    assert back._st.key.is_cuda and back._plane.keys.is_cuda
+    assert f"{len(pool._pending)} pending ops" in summary
+    tops.reset_launch_counts()
+    drive(back, cut, 160, got)
+    counts = tops.launch_counts()
+    assert got == want
+    assert back.chains == ref.chains and back.free == ref.free
+    assert back.stats == ref.stats
+    assert counts["splay_fold"] > 0
+    assert counts["splay_search_tiered"] + \
+        counts["splay_search_pipelined"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-7b",
+                                  "whisper-large-v3"])
+def test_train_step_on_card_matches_cpu(arch):
+    """One ``make_train_step`` step of a smoke architecture on the card
+    against the CPU from the same parameters and batch, through the
+    smoke run's phase-5f check (``card_checks.train_step_check``): loss,
+    grad_norm and every gradient leaf allclose (rtol 1e-4, atol 1e-5),
+    a miss settled by the CPU's float64 run (the card no more than
+    twice as far from it as the CPU's float32); the updated
+    parameters' largest relative difference finite."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo as zoo
+    cc = _card_checks()
+    cfg = registry.get_smoke(arch)
+    agree = cc.Agreement(torch, arch)
+    share, leaf = cc.train_step_check(
+        torch, cfg, zoo.build_params(cfg, seed=0, device="cpu"),
+        cc.train_batch(cfg, np.random.default_rng(17), 2, 16), "cuda",
+        agree)
+    assert all(e_card <= 2 * e_cpu
+               for _, _, e_card, e_cpu in agree.witnessed)
+    assert np.isfinite(share), leaf

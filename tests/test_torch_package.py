@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax_or_repro():
               "configs.whisper_large_v3", "configs.zamba2_7b",
               "models.layers", "models.attention", "models.moe",
               "models.ssm", "models.model_zoo", "serve.serve_step",
-              "serve.engine", "launch.serve"):
+              "serve.engine", "launch.serve", "core.tree",
+              "train.checkpoint", "serve.snapshot", "train.optimizer",
+              "parallel.compression", "train.train_step", "train.data",
+              "train.straggler", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -73,6 +76,7 @@ def test_every_module_imports_without_jax_or_repro():
     + ["chip_smoke.py", "scripts/fold_timing.py",
        "scripts/torch_fold_ab.py", "scripts/search_timing.py",
        "scripts/torch_search_ab.py", "scripts/engine_step_profile.py",
+       "scripts/train_step_profile.py", "scripts/card_checks.py",
        "tests/test_torch_cuda.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -112,3 +116,24 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1"])
+
+
+def test_train_and_snapshot_entry_points_refuse_cpu_fallback(tmp_path):
+    """The trainer and a device-pool restore default to the card, and
+    raise without one instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    from repro_torch.launch import train
+    from repro_torch.serve import snapshot as snap
+    from repro_torch.serve.kv_cache import PagedKVPool
+    from repro_torch.train.checkpoint import CheckpointManager
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
+    mgr = CheckpointManager(str(tmp_path))
+    pool = PagedKVPool(16, 4, device=True, index_width=8, index_batch=4,
+                       torch_device="cpu")
+    snap.save_serving_snapshot(mgr, 1, pool)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        snap.restore_serving_snapshot(mgr)
+    back, _, _ = snap.restore_serving_snapshot(mgr, device="cpu")
+    assert back._st.key.device.type == "cpu"
