@@ -176,6 +176,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -193,8 +194,30 @@ INT32_PER_SM_CLK = 64     # int32 adds/compares per SM per clock (cc 9.0)
 
 
 def fail(msg: str) -> None:
+    """Print the failure on standard output and on standard error (whose
+    end a caller that keeps only the error stream still sees), exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def host_memory() -> str:
+    """This process's resident and peak resident size (``VmRSS`` and
+    ``VmHWM``: unlike ``ru_maxrss``, a spawned process's peak starts
+    afresh) and the host's available memory, for the log; a field that
+    this kernel's ``/proc`` does not give reads "not reported"."""
+    def kib(path, *names):
+        try:
+            with open(path) as f:
+                got = {x.split(":")[0]: int(x.split()[1]) for x in f
+                       if x.split(":")[0] in names}
+        except OSError:
+            got = {}
+        return [f"{got[n] / 2**20:.2f} GiB" if n in got else "not reported"
+                for n in names]
+    rss, peak = kib("/proc/self/status", "VmRSS", "VmHWM")
+    avail, = kib("/proc/meminfo", "MemAvailable")
+    return f"resident {rss} (peak {peak}), host available {avail}"
 
 
 def check(cond, msg: str) -> None:
@@ -723,6 +746,508 @@ def models_phase(torch, dev, read_launches, path_launches, minitron):
     torch.cuda.empty_cache()
 
 
+KV_PAGES, KV_PAGE_SIZE = 28672, 16   # phase 5d's pool (minitron-8b)
+
+
+def as_plain(x):
+    """An answer as plain Python values (arrays as lists)."""
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, (tuple, list)):
+        return [as_plain(y) for y in x]
+    return x
+
+
+def kv_admit(s, n_tok):
+    return lambda p: p.create(int(s)) and p.append_tokens(int(s), n_tok)
+
+
+def kv_flush(p):
+    return p.lookup_batch(np.empty(0, np.int64))
+
+
+def kv_drive(call, wl, on_step=None) -> int:
+    """Phase 5d's request stream, one pool call at a time: ``call(fn,
+    timed)`` applies ``fn`` to the pool(s) under test and returns its
+    answer (``timed`` names the call's kind for timing).  3584 sessions
+    of 7 pages admitted in groups of 256, each group flushed and looked
+    up; 64 decode steps of 2 creates, 2 releases, a flush and 256 Zipf
+    lookups; then a 300-op ``kv_scan_trace``.  ``on_step`` is called
+    with ``"admitted"`` after the admissions and with each decode step's
+    index before its flush.  Returns the scan trace's length."""
+    krng = np.random.default_rng(31)
+    ids = krng.permutation(1 << 20)[:3584 + 128].astype(np.int64)
+    sessions, spare = list(ids[:3584]), list(ids[3584:])
+    for g in range(0, 3584, 256):
+        grp = ids[g:g + 256]
+        for s in grp:
+            check(call(kv_admit(s, 7 * KV_PAGE_SIZE)), "an admission failed")
+        call(kv_flush, "flush")
+        call(lambda p: p.lookup_batch(grp), "lookup")
+    if on_step:
+        on_step("admitted")
+    zp = 1.0 / np.arange(1, len(sessions) + 1)
+    zp /= zp.sum()
+    for step in range(64):
+        for _ in range(2):
+            s = spare.pop()
+            call(kv_admit(s, 7 * KV_PAGE_SIZE))
+            sessions.append(s)
+        for _ in range(2):
+            victim = sessions.pop(int(krng.integers(len(sessions))))
+            call(lambda p: p.release(int(victim)))
+        if on_step:
+            on_step(step)
+        call(kv_flush, "flush")
+        pick = np.asarray(sessions)[krng.choice(len(sessions), 256, p=zp)]
+        call(lambda p: p.lookup_batch(pick), "lookup")
+    trace = wl.kv_scan_trace(300, 4096, seed=7)
+    for k, s, h in zip(trace.kinds.tolist(), trace.seq_ids.tolist(),
+                       trace.hi_ids.tolist()):
+        if k == wl.KV_CREATE:
+            call(kv_admit(s, 3))
+        elif k == wl.KV_LOOKUP:
+            call(lambda p: p.lookup(s))
+        elif k == wl.KV_RELEASE:
+            call(lambda p: (p.release(s), p.utilization))
+        elif k == wl.KV_SCAN:
+            call(lambda p: p.lookup_range(s, h, max_range=64), "range")
+        else:
+            call(lambda p: p.predecessor(s), "predecessor")
+    return len(trace.kinds)
+
+
+SHARDED_RANKS = 4        # phase 9: ranks, one process each
+SHARDED_CPU_EPOCHS = 2   # phase 9: epochs held against the CPU plain path
+SHARDED_PROFILE_EPOCHS = 4
+
+
+def merged(spans) -> list:
+    """Intervals merged into disjoint ones, in order."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def collective_split(prof, backend: str, n_epochs: int,
+                     wall_ms: float) -> dict:
+    """Where the traced epochs' wall went, read off one
+    ``torch.profiler`` trace (ms an epoch).  The collectives are the
+    process group's own host events (``gloo:<op>``/``nccl:<op>``, one a
+    call, its input's shape recorded; every tensor the port's
+    collectives carry is int32, 4 bytes an element); the device's work
+    is every device activity but NCCL's kernels, which wait on their
+    own stream for the peers.  ``collective_ms`` is the union of the
+    collectives' intervals, ``collective_idle_ms`` the part of it in
+    which the device did no work, ``device_busy_ms`` the union of the
+    device's work, and ``host_ms`` the rest of the wall: the three
+    last add up to ``wall_ms``.  With NCCL the host events are the
+    enqueues, and ``collective_device_ms`` sums NCCL's kernels."""
+    from torch.autograd import DeviceType
+    prefix = ("gloo:", "nccl:")
+    coll = [e for e in prof.events() if e.device_type == DeviceType.CPU
+            and e.name.startswith(prefix)]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    comm = [e for e in dev if "nccl" in e.name.lower()]
+    work = [e for e in dev if "nccl" not in e.name.lower()]
+
+    def spans(evs):
+        return [(e.time_range.start, e.time_range.end) for e in evs]
+
+    def total(ivs):
+        return sum(b - a for a, b in ivs) / 1e3 / n_epochs
+
+    elems = sum(math.prod(e.input_shapes[0]) for e in coll
+                if e.input_shapes and e.input_shapes[0])
+    out = {"backend": backend, "collectives": len(coll) / n_epochs,
+           "collective_bytes": 4 * elems / n_epochs,
+           "collective_ms": total(merged(spans(coll))),
+           "collective_device_ms": sum(b - a for a, b in spans(comm))
+           / 1e3 / n_epochs,
+           "collective_idle_ms": None, "device_busy_ms": None,
+           "host_ms": None, "idle_share": None}
+    if work:                # else the trace saw no device activity
+        w_ms = total(merged(spans(work)))
+        both = total(merged(spans(coll) + spans(work)))
+        out.update(collective_idle_ms=both - w_ms, device_busy_ms=w_ms,
+                   host_ms=wall_ms - both, idle_share=1 - w_ms / wall_ms)
+    return out
+
+
+def plane_digest(plane) -> str:
+    """SHA-256 over a plane's search fields (keys, widths, heights,
+    rank_map, bot_rank), in that order."""
+    import hashlib
+    h = hashlib.sha256()
+    for f in ("keys", "widths", "heights", "rank_map", "bot_rank"):
+        h.update(getattr(plane, f).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_job(torch, dev, served=None, kv_log=None, kv_chains=None):
+    """The references phase 9's ranks are held to: phase 3's meshless
+    verdicts and levels of the paper-scale stream, the digest of its
+    served plane, and every epoch's batch searched on that plane; phase
+    5d's host-pool answers and final chains.  ``served`` (phase 3's
+    ``run_serving`` output) and the 5d log are computed here when not
+    given (``--phase9``)."""
+    import fold_timing as ft
+    from repro_torch.core import device_index as dix
+    from repro_torch.core import splaylist as sx
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import ops
+    from repro_torch.serve.kv_cache import PagedKVPool
+    E, B = ft.PAPER_E, ft.PAPER_B
+    stream, pre_args = ft.paper_prefill(sx, wl)
+    keys = stream.keys.reshape(E, B)
+    if served is None:
+        st = sx.make(capacity=ft.PAPER_CAPACITY, max_level=ft.PAPER_LEVELS,
+                     device=dev)
+        st, _, _ = sx.run_ops(st, *pre_args)
+        plane0 = dix.from_state_device(st, n_levels=ft.PAPER_LEVELS,
+                                       width=ft.PAPER_CAPACITY - 2)
+        served = sx.run_serving(st, plane0, np.zeros((E, B), np.int32), keys,
+                                stream.upd.reshape(E, B), aggregate=True,
+                                plane_search=True)
+    plane = served[1]
+    search = []
+    for e in range(E):
+        q = torch.as_tensor(keys[e], device=dev)
+        search.append([x.cpu().numpy() for x in ops.splay_search(plane, q)])
+    if kv_log is None:
+        hpool = PagedKVPool(KV_PAGES, KV_PAGE_SIZE)
+        kv_log = []
+
+        def host(fn, timed=None):
+            got = fn(hpool)
+            kv_log.append(as_plain(got))
+            return got
+        kv_drive(host, wl)
+        kv_chains = dict(hpool.chains)
+    return {"res": served[2].cpu().numpy(), "plen": served[3].cpu().numpy(),
+            "plane": plane_digest(plane), "search": search,
+            "kv_log": kv_log, "kv_chains": kv_chains,
+            "snap_dir": tempfile.mkdtemp(dir=HERE / "build")}
+
+
+def sharded_rank(mesh, job) -> dict:
+    """Phase 9 on one rank (``launch.spmd`` runs it on every rank; each
+    holds the replicated state and its block of the plane, all on its
+    card).  Paper-scale serving with the mesh (routed under lanes and
+    mass, masked, a forced spill), each epoch's verdicts and levels
+    equal to phase 3's meshless ones; the served plane gathered equal to
+    phase 3's; every epoch's batch searched sharded, masked with B1 and
+    routed with B2, equal to the meshless search; the first epochs'
+    ``RouteStats`` equal to the CPU plain path's over a gloo group; the
+    epoch's time split by a timed and a traced run; then phase 5d's KV
+    pool sharded, with a shard loss to 2 and a snapshot restored onto 2
+    ranks, every answer equal to the host pool's.  Returns the rank's
+    readings and launches."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    import fold_timing as ft
+    from repro_torch.core import convert
+    from repro_torch.core import device_index as dix
+    from repro_torch.core import faults as fl
+    from repro_torch.core import splaylist as sx
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import snapshot as snap
+    from repro_torch.serve.kv_cache import PagedKVPool
+    from repro_torch.train import elastic
+    from repro_torch.train.checkpoint import CheckpointManager
+    dev, me = mesh.device, f"rank {mesh.index}"
+    check(dev.type == "cuda", f"{me} computes on {dev}, not the card")
+    E, B = ft.PAPER_E, ft.PAPER_B
+    stream, pre_args = ft.paper_prefill(sx, wl)
+    kinds = np.zeros((E, B), np.int32)
+    keys = stream.keys.reshape(E, B)
+    upd = stream.upd.reshape(E, B)
+    st = sx.make(capacity=ft.PAPER_CAPACITY, max_level=ft.PAPER_LEVELS,
+                 device=dev)
+    st, _, _ = sx.run_ops(st, *pre_args)
+    W = ft.PAPER_CAPACITY - 2
+    plane0 = dix.from_state_device(st, n_levels=ft.PAPER_LEVELS, width=W)
+    out = {"rank": mesh.index, "backend": mesh.backend,
+           "device": torch.cuda.get_device_name(dev), "runs": {},
+           "launches": {}}
+    total = {}
+
+    def count(name):
+        c = ops.launch_counts()
+        out["launches"][name] = c
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    def serve(name, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        got = sx.run_serving(st, plane0, kinds, keys, upd, aggregate=True,
+                             plane_search=True, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        count(name)
+        check(np.array_equal(got[2].cpu().numpy(), job["res"])
+              and np.array_equal(got[3].cpu().numpy(), job["plen"]),
+              f"{me}: {name}: verdicts or levels differ from phase 3's "
+              "meshless ones")
+        check(int(got[4].sum()) == 0, f"{me}: {name} overflowed")
+        out["runs"][name] = {
+            "ms_per_epoch": 1e3 * wall / E,
+            "spill": got[5].tolist(), "occupancy": got[6].tolist()}
+        return got
+
+    lanes = serve("routed_lanes")
+    check(plane_digest(shd.gather_index_plane(lanes[1])) == job["plane"],
+          f"{me}: the gathered plane differs from phase 3's")
+    mass = serve("routed_mass", split="mass")
+    check(int(mass[1].local_ok[0]) == 1 and dix.plane_is_segmented(mass[1]),
+          f"{me}: the mass split left no resident segmented plane")
+    serve("masked", routed=False)
+    spilled = serve("spill", route_capacity=512)
+    check(int(spilled[5].sum()) > 0, f"{me}: capacity 512 did not spill")
+
+    # every epoch's batch on the served plane: masked through B1, routed
+    # with pipelined=True, against the meshless search of phase 3's
+    # plane.  At 32768 lanes a rank B2's tile count (128 of 256 lanes)
+    # passes its 64-tile budget, so the shard descent takes B1 there by
+    # the reference's rule; B2 runs on the KV pool's 7168-lane blocks
+    for name, kw in (("search_masked_b1", dict(routed=False,
+                                               pipelined=False)),
+                     ("search_routed", dict(pipelined=True))):
+        ops.reset_launch_counts()
+        for e in range(E):
+            got = ops.splay_search_sharded(
+                lanes[1], torch.as_tensor(keys[e], device=dev), mesh=mesh,
+                **kw)
+            check(all(np.array_equal(g.cpu().numpy(), w)
+                      for g, w in zip(got, job["search"][e])),
+                  f"{me}: {name}: epoch {e} differs from the meshless "
+                  "search")
+        torch.cuda.synchronize()
+        count(name)
+
+    # RouteStats, verdicts and levels of the first epochs against the
+    # CPU plain path over a gloo group of the same ranks
+    cpu_group = (mesh.group if mesh.backend == "gloo"
+                 else dist.new_group(backend="gloo"))
+    cpu_mesh = shd.Mesh(cpu_group, device="cpu")
+    st_c = convert.state_from_numpy(sx.to_numpy(st), device="cpu")
+    plane_c = dix.from_state_device(st_c, n_levels=ft.PAPER_LEVELS, width=W)
+    Ec = SHARDED_CPU_EPOCHS
+    for name, card_out, kw in (("routed_lanes", lanes, {}),
+                               ("routed_mass", mass, dict(split="mass"))):
+        t = time.perf_counter()
+        got = sx.run_serving(st_c, plane_c, kinds[:Ec], keys[:Ec],
+                             upd[:Ec], aggregate=True, plane_search=True,
+                             mesh=cpu_mesh, **kw)
+        for i, what in ((2, "verdicts"), (3, "levels"), (5, "spill"),
+                        (6, "occupancy")):
+            check(torch.equal(got[i], card_out[i][:Ec].cpu()),
+                  f"{me}: {name}: the CPU plain path's {what} differ from "
+                  "the card's")
+        out["runs"][name]["cpu_epochs_s"] = time.perf_counter() - t
+
+    # where a steady sharded epoch's time goes (after the runs above,
+    # so no first-call setup is in it): the wall of a plain run, then
+    # one traced run split on the trace's own clock into the host's
+    # waits in collectives while the device is idle, the device's busy
+    # time, and the host's own time (neither)
+    from torch.profiler import ProfilerActivity, profile
+    from card_checks import device_busy
+    Ep = SHARDED_PROFILE_EPOCHS
+
+    def steady():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sx.run_serving(st, plane0, kinds[:Ep], keys[:Ep], upd[:Ep],
+                       aggregate=True, plane_search=True, mesh=mesh)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / Ep
+
+    split = {"wall_ms": steady()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        split["traced_wall_ms"] = steady()
+    split.update(collective_split(prof, mesh.backend, Ep,
+                                  split["traced_wall_ms"]))
+    busy = device_busy(prof)
+    if busy is not None and split["device_busy_ms"] is not None:
+        hand = sum(e.time_range.end - e.time_range.start for e in busy[0]
+                   if "descent_kernel" in e.name
+                   or "fold_kernel" in e.name) / 1e3 / Ep
+        split.update(kernel_ms=hand,
+                     other_device_ms=split["device_busy_ms"] - hand)
+    else:
+        split.update(kernel_ms=None, other_device_ms=None)
+    out["split"] = split
+
+    # phase 5d's KV pool, sharded: a shard loss to 2 at lookup epoch 79
+    # (an audited epoch, so the audit cadence stays 5d's), a snapshot at
+    # decode step 34 (epoch 96, right after an audit) restored onto 2
+    # ranks; every answer equal to the host pool's, and the restored
+    # pool's to the uninterrupted one's
+    plan = fl.FaultPlan(seed=11, events=[
+        fl.FaultEvent(47, fl.FAULT_BITFLIP, 1),
+        fl.FaultEvent(60, fl.FAULT_TELEMETRY, 4),
+        fl.FaultEvent(79, fl.FAULT_SHARD_LOSS, 2)])
+    pool = PagedKVPool(KV_PAGES, KV_PAGE_SIZE, device=True, index_batch=256,
+                       audit_every=16, fault_plan=plan, mesh=mesh)
+    log, at = job["kv_log"], [0]
+    kv = {"restored": None}
+
+    def call(fn, timed=None):
+        got = as_plain(fn(pool))
+        check(got == log[at[0]], f"{me}: KV call {at[0]}: the sharded pool "
+              f"answers {got}, the host pool {log[at[0]]}")
+        if kv["restored"] is not None:
+            again = as_plain(fn(kv["restored"]))
+            check(again == got, f"{me}: KV call {at[0]}: the restored pool "
+                  f"answers {again}, the uninterrupted one {got}")
+        at[0] += 1
+        return got
+
+    def on_step(step):
+        if step != 34:
+            return
+        check(pool.mesh is not None or mesh.index >= 2,
+              f"{me}: a survivor lost its mesh")
+        check(len(pool._pending) == 4 and pool._since_audit == 0,
+              f"{me}: snapshot point: {len(pool._pending)} pending ops, "
+              f"{pool._since_audit} lookups since the last audit")
+        mgr = CheckpointManager(job["snap_dir"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        # the survivors' pool is the one the snapshot holds: its mesh's
+        # ranks save it (the first writes); the rest wait for the write
+        if pool.mesh is not None:
+            snap.save_serving_snapshot(mgr, 1, pool)
+        dist.barrier()
+        kv["save_ms"] = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        mesh2 = elastic.remesh(mesh.ranks[:2], model_parallel=2,
+                               device=dev)
+        kv["restored"], _, kv["summary"] = snap.restore_serving_snapshot(
+            mgr, mesh=mesh2, device=dev)
+        torch.cuda.synchronize()
+        kv["restore_ms"] = 1e3 * (time.perf_counter() - t)
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    kv_drive(call, wl, on_step)
+    torch.cuda.synchronize()
+    kv["s"] = time.perf_counter() - t
+    count("kv_pool")
+    back = kv.pop("restored")
+    check(pool.chains == job["kv_chains"] and back.chains == pool.chains
+          and back.free == pool.free,
+          f"{me}: the pools' chains or free lists differ")
+    survivor = mesh.index < 2
+    check(not survivor or back.stats == pool.stats,
+          f"{me}: the restored pool's stats {back.stats} differ from the "
+          f"uninterrupted one's {pool.stats}")
+    check(pool.stats["remeshes"] == 1 and (pool.mesh is not None) ==
+          survivor and (back.mesh is not None) == survivor,
+          f"{me}: the shard loss left mesh {pool.mesh} / {back.mesh}")
+    kv["stats"] = dict(pool.stats)
+    kv["shards_after"] = int(pool.mesh.size) if pool.mesh else 1
+    out["kv"] = kv
+    out["total_launches"] = total
+    out["memory"] = (f"{host_memory()}; card peak allocated "
+                     f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+                     f"GiB")
+    if mesh.index == 0:
+        shutil.rmtree(job["snap_dir"], ignore_errors=True)
+    return out
+
+
+def sharded_phase(torch, dev, job, backend: str) -> dict:
+    """Phase 9: :func:`sharded_rank` on ``SHARDED_RANKS`` ranks started
+    by the port's launcher (gloo: every rank on ``cuda:0``; nccl: one
+    card a rank).  Prints each rank's readings; returns each kernel's
+    launches by rank."""
+    import gc
+
+    from repro_torch.launch import spmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[9] starting {SHARDED_RANKS} {backend} ranks; this process: "
+          f"{host_memory()}; card free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB", flush=True)
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(sharded_rank, SHARDED_RANKS, job,
+                           backend=backend, device="cuda", timeout=900)
+    except RuntimeError as e:
+        fail(f"phase 9: {e}")
+    wall = time.perf_counter() - t
+    for r in ranks:
+        for k in ("splay_search_tiered", "splay_search_pipelined",
+                  "splay_fold"):
+            check(r["total_launches"][k] > 0, f"rank {r['rank']} never "
+                  f"launched {k} on the sharded path")
+    r0 = ranks[0]
+    print(f"[9] the width-sharded index on {SHARDED_RANKS} ranks "
+          f"({backend}, {r0['device']}): paper scale (10^5 keys, Zipf s=1, "
+          f"L=24, W=131072, {131072 // SHARDED_RANKS} lanes a rank, 25 "
+          f"epochs x 4096 contains): every run's verdicts and levels equal "
+          f"phase 3's meshless ones on every rank; the served plane "
+          f"gathered equals phase 3's; every batch searched masked (B1) "
+          f"and routed equals the meshless search; the first "
+          f"{SHARDED_CPU_EPOCHS} epochs' RouteStats equal the CPU plain "
+          f"path's; {wall:.1f} s for the phase", flush=True)
+    print("[9]   (routed_lanes is each process's first sharded run: its "
+          "ms hold the first collectives' setup and the kernels' loading)",
+          flush=True)
+    for name, run in r0["runs"].items():
+        print(f"[9]   {name}: {run['ms_per_epoch']:.3f} ms an epoch; spill "
+              f"{run['spill']}; occupancy of the first, middle and last "
+              f"epochs {[run['occupancy'][e] for e in (0, len(run['spill']) // 2, -1)]}",
+              flush=True)
+    for r in ranks:
+        sp = r["split"]
+        print(f"[9]   rank {r['rank']} where a steady routed-lanes epoch "
+              f"goes ({SHARDED_PROFILE_EPOCHS} epochs, ms an epoch, from "
+              f"one trace): wall {sp['wall_ms']} untraced, "
+              f"{sp['traced_wall_ms']} traced = collectives with the "
+              f"device idle {sp['collective_idle_ms']} + device busy "
+              f"{sp['device_busy_ms']} + host {sp['host_ms']}; collectives "
+              f"{sp['collectives']} calls, {sp['collective_bytes']} B, "
+              f"{sp['collective_ms']} ms on the host; hand kernels "
+              f"(B1/B2/F) {sp['kernel_ms']}, other device work "
+              f"{sp['other_device_ms']}; NCCL kernels "
+              f"{sp['collective_device_ms']}; idle share "
+              f"{sp['idle_share']}", flush=True)
+        hand = ("splay_search_tiered", "splay_search_pipelined",
+                "splay_fold")
+        print(f"[9]   rank {r['rank']} launches (B1, B2, F) by run: "
+              + "; ".join(f"{run} {[c[k] for k in hand]}"
+                          for run, c in r["launches"].items()), flush=True)
+        print(f"[9]   rank {r['rank']} memory: {r['memory']}", flush=True)
+    kv = r0["kv"]
+    print(f"[9] the KV pool (W={KV_PAGES}, {KV_PAGES // SHARDED_RANKS} "
+          f"lanes a rank) sharded: every answer equal to the host pool's "
+          f"on every rank, under a bitflip (epoch 47), a telemetry "
+          f"blackout (60) and a shard loss to 2 (79); {kv['s']:.1f} s; "
+          f"snapshot at decode step 34 saved in {kv['save_ms']:.3f} ms and "
+          f"restored onto 2 ranks in {kv['restore_ms']:.3f} ms "
+          f"({kv['summary']}), its answers, chains, free list and stats "
+          f"equal to the uninterrupted pool's; stats {kv['stats']}",
+          flush=True)
+    return {k: {f"rank{r['rank']}": r["total_launches"][k] for r in ranks}
+            for k in r0["total_launches"]}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1025,6 +1550,7 @@ def main() -> None:
     check(hit_rate == 1.0, f"hit rate {hit_rate} != 1.0")
     check(int(out[4].sum()) == 0, f"overflow {out[4].tolist()}")
     st3, plane3 = out[0], out[1]
+    served3 = out               # phase 9's reference
     outside = np.concatenate([np.arange(N, N + 2048),
                               np.arange(-2048, 0)]).astype(np.int32)
     miss = sx.run_epoch(st3, plane3, np.zeros(4096, np.int32), outside,
@@ -1445,7 +1971,7 @@ def main() -> None:
     # 28672 pages of 16 tokens (56 GiB of KV beside 16 GB of weights);
     # index_width from n_pages, epochs of 256
     kv_tok = minitron.n_layers * minitron.n_kv * minitron.head_dim * 2 * 2
-    n_pages, page_size = 28672, 16
+    n_pages, page_size = KV_PAGES, KV_PAGE_SIZE
     plan = fl.FaultPlan(seed=11, events=[
         fl.FaultEvent(47, fl.FAULT_BITFLIP, 1),     # an audited epoch
         fl.FaultEvent(60, fl.FAULT_TELEMETRY, 4)])
@@ -1454,16 +1980,10 @@ def main() -> None:
     hpool = PagedKVPool(n_pages, page_size)
     check(dpool.index_width == n_pages, f"index width {dpool.index_width}")
     kv_ms = {"flush": [], "lookup": [], "predecessor": [], "range": []}
-
-    def plain(x):
-        if isinstance(x, np.ndarray):
-            return x.tolist()
-        if isinstance(x, (tuple, list)):
-            return [plain(y) for y in x]
-        return x
-
+    kv_log = []                 # the host pool's answers, for phase 9
     rpool = None                # the pool restored from a snapshot
     snap_launches = {}          # the launches the restored pool made
+    kv_snap = util = None
 
     def both(fn, timed=None):
         t = time.perf_counter()
@@ -1471,47 +1991,26 @@ def main() -> None:
         torch.cuda.synchronize()
         if timed:
             kv_ms[timed].append(1e3 * (time.perf_counter() - t))
-        want = fn(hpool)
-        check(plain(got) == plain(want), f"the device pool answers "
-              f"{plain(got)} where the host pool answers {plain(want)}")
+        got, want = as_plain(got), as_plain(fn(hpool))
+        kv_log.append(want)
+        check(got == want, f"the device pool answers {got} where the host "
+              f"pool answers {want}")
         if rpool is not None:
             before = ops.launch_counts()
             again = fn(rpool)
             torch.cuda.synchronize()
             for k, v in ops.launch_counts().items():
                 snap_launches[k] = snap_launches.get(k, 0) + v - before[k]
-            check(plain(again) == plain(got), f"the restored pool answers "
-                  f"{plain(again)} where the uninterrupted one answers "
-                  f"{plain(got)}")
+            again = as_plain(again)
+            check(again == got, f"the restored pool answers {again} where "
+                  f"the uninterrupted one answers {got}")
         return got
 
-    def admit(s, n_tok):
-        return lambda p: p.create(int(s)) and p.append_tokens(int(s), n_tok)
-
-    flush = lambda p: p.lookup_batch(np.empty(0, np.int64))  # noqa: E731
-    krng = np.random.default_rng(31)
-    ids = krng.permutation(1 << 20)[:3584 + 128].astype(np.int64)
-    sessions, spare = list(ids[:3584]), list(ids[3584:])
-    ops.reset_launch_counts()
-    t5d = time.perf_counter()
-    for g in range(0, 3584, 256):
-        grp = ids[g:g + 256]
-        for s in grp:
-            check(both(admit(s, 7 * page_size)), "an admission failed")
-        both(flush, "flush")
-        both(lambda p: p.lookup_batch(grp), "lookup")
-    util = dpool.utilization
-    zp = 1.0 / np.arange(1, len(sessions) + 1)
-    zp /= zp.sum()
-    for step in range(64):
-        for _ in range(2):
-            s = spare.pop()
-            both(admit(s, 7 * page_size))
-            sessions.append(s)
-        for _ in range(2):
-            victim = sessions.pop(int(krng.integers(len(sessions))))
-            both(lambda p: p.release(int(victim)))
-        if step == 34:
+    def on_step(step):
+        nonlocal rpool, kv_snap, util
+        if step == "admitted":
+            util = dpool.utilization
+        elif step == 34:
             # midway, four ops buffered and the audit cadence at its
             # start (the snapshot does not carry the lookups since the
             # last audit; here there are none), after both faults fired
@@ -1519,22 +2018,10 @@ def main() -> None:
                   f"snapshot point: {len(dpool._pending)} pending ops, "
                   f"{dpool._since_audit} lookups since the last audit")
             rpool, kv_snap = snapshot_round_trip(torch, dpool, dev)
-        both(flush, "flush")
-        pick = np.asarray(sessions)[krng.choice(len(sessions), 256, p=zp)]
-        both(lambda p: p.lookup_batch(pick), "lookup")
-    trace = wl.kv_scan_trace(300, 4096, seed=7)
-    for k, s, h in zip(trace.kinds.tolist(), trace.seq_ids.tolist(),
-                       trace.hi_ids.tolist()):
-        if k == wl.KV_CREATE:
-            both(admit(s, 3))
-        elif k == wl.KV_LOOKUP:
-            both(lambda p: p.lookup(s))
-        elif k == wl.KV_RELEASE:
-            both(lambda p: (p.release(s), p.utilization))
-        elif k == wl.KV_SCAN:
-            both(lambda p: p.lookup_range(s, h, max_range=64), "range")
-        else:
-            both(lambda p: p.predecessor(s), "predecessor")
+
+    ops.reset_launch_counts()
+    t5d = time.perf_counter()
+    n_scan = kv_drive(both, wl, on_step)
     kv_s = time.perf_counter() - t5d
     read_launches("kv_index", ("splay_search_tiered", "splay_fold"))
     path_launches["kv_index"] = {k: v - snap_launches.get(k, 0) for k, v
@@ -1573,7 +2060,7 @@ def main() -> None:
           f"{n_pages * page_size * kv_tok / 2 ** 30:.1f} GiB; index width "
           f"{dpool.index_width}, epochs of 256): 3584 sessions of 7 pages "
           f"admitted (utilization {util:.4f}), 64 decode steps of 256 Zipf "
-          f"lookups with 2 creates and 2 releases, a {len(trace.kinds)}-op "
+          f"lookups with 2 creates and 2 releases, a {n_scan}-op "
           f"scan trace; {kv_s:.1f} s; every answer and the chains equal "
           f"the host pool's, under a bitflip at lookup epoch 47 and a "
           f"telemetry blackout at 60", flush=True)
@@ -2020,6 +2507,12 @@ def main() -> None:
           f"{tr['aten_ops_per_step']} ATen ops, traced device busy {busy}; "
           f"6NT bound {tr['bound_ms']:.4f} ms", flush=True)
 
+    # ---- phase 9: the width-sharded index -------------------------------
+    job = sharded_job(torch, dev, served3, kv_log, dict(hpool.chains))
+    by_rank = sharded_phase(torch, dev, job, "gloo")
+    for k in kernels:
+        k["launches_by_path"]["sharded"] = by_rank.get(k["name"], {})
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2027,8 +2520,41 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def phase9_only(backend: str) -> None:
+    """Phase 9 alone (``--phase9``), its references computed here: with
+    ``--backend nccl`` one rank a card, so the machine needs four."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import build
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} device(s)", flush=True)
+    if backend == "nccl" and torch.cuda.device_count() < SHARDED_RANKS:
+        fail(f"--backend nccl needs {SHARDED_RANKS} cards")
+    build.build()
+    dev = torch.device("cuda")
+    by_rank = sharded_phase(torch, dev, sharded_job(torch, dev), backend)
+    print(json.dumps({"sharded_launches": by_rank}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase9", action="store_true",
+                    help="run only phase 9, the width-sharded index")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="phase 9's process-group backend: gloo (every "
+                         "rank on the one card) or nccl (one rank a card)")
+    cli = ap.parse_args()
     try:
-        main()
+        if cli.phase9:
+            phase9_only(cli.backend)
+        else:
+            main()
     except CheckFailed as e:      # a failed check of scripts/card_checks.py
         fail(str(e))

@@ -111,7 +111,15 @@ def flip_plane_bits(plane, rng: np.random.Generator, n_flips: int = 1,
     height flip targets a lane below the top row when there is one.
     The flips are made on numpy copies and the corrupted fields go back
     to the plane's device with their dtype; the plane passed in is left
-    as it was."""
+    as it was.  A plane laid out on a mesh is flipped whole (every rank
+    of the mesh gathers it, draws the same flips from its copy of
+    ``rng`` and keeps its own block of the result)."""
+    from repro_torch.parallel import sharding as shd
+    mesh = shd.plane_mesh(plane)
+    if mesh is not None:
+        flipped, records = flip_plane_bits(shd.gather_index_plane(plane),
+                                           rng, n_flips, fields)
+        return shd.shard_index_plane(flipped, mesh, mesh.axis), records
     plane_np = {f: getattr(plane, f).cpu().numpy().copy() for f in fields}
     keys = plane.keys.cpu().numpy()
     L, _ = keys.shape

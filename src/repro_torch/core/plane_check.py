@@ -31,9 +31,11 @@ violation counts:
 ====================  ====================================================
 
 ``n_segments`` is 1 for the packed layout and S for a mass-split layout
-of S blocks of ``W/S`` lanes, each an independent local assembly.  The
-port has no mesh layout yet, so :func:`infer_segments` gives 1 for a
-packed plane and refuses a segmented one; pass ``n_segments`` then.
+of S blocks of ``W/S`` lanes, each an independent local assembly.
+:func:`infer_segments` reads it off a plane laid out on a mesh
+(``parallel.sharding.shard_index_plane``) and refuses a segmented plane
+that carries no layout.  A laid-out plane is audited whole: every rank
+of its mesh gathers it and audits it, and all get the same counts.
 
 The searches over unsorted rows (``state_missing``/``state_extra`` on a
 corrupted bottom row) follow the JAX package's binary search step for
@@ -50,6 +52,7 @@ import torch
 
 from repro_torch.core import device_index as dix
 from repro_torch.core import splaylist as sx
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import suffix_min_bounds
 
 PAD_KEY = dix.PAD_KEY
@@ -197,16 +200,20 @@ def _audit(st: sx.SplayState, plane: dix.DeviceLevelArrays, S: int):
 
 
 def infer_segments(plane, axis: str = "model") -> int:
-    """The segment count of a concrete plane: 1 for the packed layout.
-    A segmented plane carries no mesh layout in this package yet, so it
-    raises ``ValueError``; pass ``n_segments`` explicitly then."""
-    del axis
+    """The segment count of a plane: 1 for the packed layout, the shard
+    count of the mesh a segmented plane is laid out on
+    (``sharding.plane_width_mesh``).  A segmented plane without such a
+    layout raises ``ValueError``: pass ``n_segments`` then.  On a
+    laid-out plane every rank of its mesh must call this."""
     if not dix.plane_is_segmented(plane):
         return 1
-    raise ValueError(
-        "plane looks segmented (interior pad runs) but carries no "
-        "width-sharded layout to infer the segment count from; "
-        "pass n_segments explicitly")
+    mesh = shd.plane_width_mesh(plane, axis)
+    if mesh is None:
+        raise ValueError(
+            "plane looks segmented (interior pad runs) but carries no "
+            "width-sharded layout to infer the segment count from; "
+            "pass n_segments explicitly")
+    return int(mesh.shape[axis])
 
 
 def audit_plane(st: sx.SplayState, plane: dix.DeviceLevelArrays,
@@ -215,8 +222,9 @@ def audit_plane(st: sx.SplayState, plane: dix.DeviceLevelArrays,
     """Run the full invariant audit and return host-int violation
     counts.  ``n_segments`` is 1 for the packed layout and the block
     count of a mass-split layout; ``None`` infers it
-    (:func:`infer_segments`)."""
-    W = plane.keys.shape[1]
+    (:func:`infer_segments`).  A laid-out plane is gathered and audited
+    whole on every rank of its mesh."""
+    W = shd.plane_width(plane)
     if n_segments is None:
         n_segments = infer_segments(plane, axis)
     n_segments = int(n_segments)
@@ -227,7 +235,7 @@ def audit_plane(st: sx.SplayState, plane: dix.DeviceLevelArrays,
     if st.device != plane.keys.device:
         raise ValueError(f"state on {st.device}, plane on "
                          f"{plane.keys.device}")
-    return _audit(st, plane, n_segments)
+    return _audit(st, shd.gather_index_plane(plane), n_segments)
 
 
 def audit_ok(audit: PlaneAudit) -> bool:

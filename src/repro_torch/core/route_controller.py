@@ -17,7 +17,8 @@ steers the next epoch:
 (c) a long enough calm streak de-escalates back to the equal-lane
     refresh, with a doubling backoff.
 
-Everything is plain host math over concrete numbers.  Meshless (a
+Everything is plain host math over concrete numbers, the same on
+every rank of a mesh (the statistics are replicated).  Meshless (a
 ``[1]`` occupancy vector) the controller observes and never actuates,
 and :func:`run_serving_controlled` is exactly the replicated
 ``run_serving``.  :func:`overflow_machine_step` is the host step of
@@ -265,30 +266,35 @@ def run_serving_controlled(st, plane, kinds, keys, upd_mask,
                            cfg: ControllerConfig = None,
                            state: ControllerState = None):
     """``splaylist.run_serving`` stepped from the host one epoch at a
-    time, so the controller can pick each epoch's rebuild (its one-shot
-    ``force_rebuild`` OR-ed into the overflow machine's pending flag).
+    time, so the controller can pick each epoch's ``route_slack``,
+    ``split`` and rebuild (its one-shot ``force_rebuild`` OR-ed into the
+    overflow machine's pending flag).  The actuators change where
+    queries are answered, never what they answer.
 
-    Returns ``(st, plane, results[E, B], path_len[E, B], overflow[E],
-    spill[E], occupancy[E, 1], states)``: the first seven as
-    ``run_serving`` returns them, plus the :class:`ControllerState`
-    after each epoch.  Meshless only: a ``mesh`` raises
-    ``NotImplementedError`` until the multi-device slice."""
+    With a ``mesh`` whose axis divides the plane's width (every rank of
+    it runs this loop on the same replicated state and batches) each
+    epoch runs sharded and the controller acts on its ``[S]``
+    occupancy; otherwise it only observes, and the loop is the
+    replicated ``run_serving``.  Returns ``(st, plane, results[E, B],
+    path_len[E, B], overflow[E], spill[E], occupancy[E, S], states)``:
+    the first seven as ``run_serving`` returns them, plus the
+    :class:`ControllerState` after each epoch."""
     from repro_torch.core import splaylist as sx
+    from repro_torch.parallel import sharding as shd
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded serving arrives with the "
-                                  "multi-device slice")
     dev = st.device
     kinds = sx._op_tensor(kinds, torch.int32, dev)
     keys = sx._op_tensor(keys, torch.int32, dev)
     upd_mask = sx._op_tensor(upd_mask, torch.bool, dev)
     E, B = keys.shape
-    width = plane.keys.shape[1]
+    width = shd.plane_width(plane)
+    sharded = sx._sharded(plane, mesh, axis)
+    n_shards = int(mesh.shape[axis]) if sharded else 1
     if cfg is None:
-        cfg, st0 = init_controller(1)
+        cfg, st0 = init_controller(n_shards)
         state = state if state is not None else st0
     elif state is None:
-        _, state = init_controller(1, slack_ladder=cfg.slack_ladder)
+        _, state = init_controller(n_shards, slack_ladder=cfg.slack_ladder)
         state = state._replace(slack_idx=min(state.slack_idx,
                                              len(cfg.slack_ladder) - 1))
 
@@ -298,8 +304,10 @@ def run_serving_controlled(st, plane, kinds, keys, upd_mask,
         out = sx.run_epoch(
             st, plane, kinds[e], keys[e], upd_mask[e],
             aggregate=aggregate, max_new=max_new,
-            rebuild=bool(pending or state.force_rebuild), axis=axis,
-            plane_search=plane_search)
+            rebuild=bool(pending or state.force_rebuild), mesh=mesh,
+            axis=axis, plane_search=plane_search,
+            split=state.split if sharded else "lanes",
+            route_slack=state.slack_of(cfg) if sharded else None)
         st, plane, r, p, ov, sp, oc = out
         outs.append((r, p, ov, sp, oc))
         pending, pressed = overflow_machine_step(

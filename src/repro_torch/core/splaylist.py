@@ -733,22 +733,31 @@ def run_contains_batch(st: SplayState, keys, upd_mask,
 # serving epochs: op batch + device index-plane refresh
 # ---------------------------------------------------------------------------
 
-def _check_plane_dispatch(plane, mesh, split):
-    """Guard for the meshless epoch paths: the sharded ones wait for a
-    later slice, and a segmented (mass-split) plane cannot take the
+def _sharded(plane, mesh, axis) -> bool:
+    """Whether an epoch runs its plane work width-sharded: a mesh whose
+    axis ``axis`` divides the plane's global width."""
+    from repro_torch.parallel import sharding as shd
+    shd.check_mesh(mesh)
+    return (mesh is not None and axis in mesh.shape and axis == mesh.axis
+            and shd.plane_width(plane) % mesh.size == 0)
+
+
+def _check_plane_dispatch(plane, mesh, axis, split):
+    """Guard for the replicated epoch paths: a mass split needs the
+    sharded refresh, and a segmented (mass-split) plane cannot take a
     replicated path."""
     from repro_torch.core import device_index as dix
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded serving arrives with the "
-                                  "multi-device slice")
+    if _sharded(plane, mesh, axis):
+        return
     if split == "mass":
-        raise NotImplementedError(
-            "split='mass' needs the width-sharded path, which arrives "
-            "with the multi-device slice")
+        raise ValueError(
+            "split='mass' requires the width-sharded path — pass mesh= "
+            "with a plane width divisible by the axis size")
     if dix.plane_is_segmented(plane):
         raise ValueError(
             "segmented (mass-split) plane on the replicated epoch path "
-            "— rebuild with from_state_device before meshless serving")
+            "— pass mesh= (a split='lanes' refresh repacks it) or "
+            "rebuild with from_state_device before meshless serving")
 
 
 def _check_route_args(route_capacity, route_slack):
@@ -764,24 +773,45 @@ def _check_route_args(route_capacity, route_slack):
 
 
 def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
-               rebuild, plane_search, ordered):
+               rebuild, plane_search, ordered, mesh=None, axis="model",
+               split="lanes", route_capacity=None, route_slack=None,
+               routed=True):
     from repro_torch.core import device_index as dix
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import splay_search as ssk
+    from repro_torch.parallel import sharding as shd
     dev = st.device
-    n_levels, width = plane.keys.shape
+    n_levels = plane.keys.shape[0]
+    width = shd.plane_width(plane)
+    sharded = _sharded(plane, mesh, axis)
+    plane = (shd.shard_index_plane(plane, mesh, axis) if sharded
+             else shd.gather_index_plane(plane))
     keys = _op_tensor(keys, torch.int32, dev)
+    spill = torch.zeros((), dtype=torch.int32, device=dev)
+    occupancy = torch.zeros((1,), dtype=torch.int32, device=dev)
     if plane_search:
         if not aggregate:
             raise ValueError("plane_search answers the batch from the "
                              "index plane — read-only batches only, "
                              "i.e. aggregate=True")
-        res, rank, plen = kops.splay_search(plane, keys)
+        if sharded:
+            res, rank, plen, rstats = kops.splay_search_sharded(
+                plane, keys, mesh=mesh, axis=axis, routed=routed,
+                capacity=route_capacity,
+                slack=(route_slack if route_slack is not None
+                       else ssk.DEFAULT_ROUTE_SLACK),
+                return_stats=True)
+            spill, occupancy = rstats.spill, rstats.occupancy
+        else:
+            res, rank, plen = kops.splay_search(plane, keys, sharded=False)
         upd_eff = _op_tensor(upd_mask, torch.bool, dev)
         if ordered:
             # ordered lanes answer off the same descent's bottom-row
             # rank; pure reads, so they fold no hit weight
             kinds = _op_tensor(kinds, torch.int32, dev)
-            pred_keys = kops.splay_select(plane, rank)
+            pred_keys = kops.splay_select(plane, rank, sharded=sharded,
+                                          mesh=mesh if sharded else None,
+                                          axis=axis)
             res = torch.where(
                 kinds == OP_PRED,
                 torch.where(rank >= 0, pred_keys, NEG_INF_32),
@@ -803,11 +833,15 @@ def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
         # a full build drops nothing the plane can hold; only alive
         # counts beyond the width remain unrepresentable
         overflow = torch.clamp(st.size - width, min=0).to(torch.int32)
+        if sharded:
+            # the rebuild is replicated math: lay its result out again
+            plane = shd.shard_index_plane(plane, mesh, axis)
+    elif sharded:
+        plane, overflow = dix.refresh_device_sharded(
+            st, plane, max_new=max_new, mesh=mesh, axis=axis, split=split)
     else:
         plane, overflow = dix.refresh_device(st, plane, max_new=max_new,
                                              return_overflow=True)
-    spill = torch.zeros((), dtype=torch.int32, device=dev)
-    occupancy = torch.zeros((1,), dtype=torch.int32, device=dev)
     return st, plane, res, plen, overflow, spill, occupancy
 
 
@@ -835,18 +869,28 @@ def run_epoch(st: SplayState, plane, kinds, keys, upd_mask,
     weight into the fold.  Off the plane-search path ``run_ops``
     answers the ordered codes itself.
 
+    Sharded serving: with a ``mesh`` (``sharding.Mesh``; every rank of
+    it calls this with the same replicated state and batch) whose axis
+    ``axis`` divides the plane's width, the refresh runs as
+    ``device_index.refresh_device_sharded`` (boundary rule ``split``,
+    ``"lanes"`` or ``"mass"``) and plane-search answers come from the
+    sharded search, routed (``routed=True``, sized by
+    ``route_capacity``/``route_slack``) or through the masked trace.
+    The plane may come laid out or global; the returned plane is this
+    rank's block.  A rebuild epoch emits the packed layout.
+    ``split="mass"`` without such a mesh raises ``ValueError``.
+
     Returns ``(state, plane, results[B] int32, path_len[B], overflow,
     spill, occupancy)``: ``overflow`` (0-d int32) counts alive keys the
-    refreshed plane could not represent; ``spill`` is 0 and
-    ``occupancy`` a ``[1]`` zero vector on this meshless path.
-    ``mesh`` and ``split="mass"`` raise ``NotImplementedError`` until
-    the multi-device slice; ``axis``/``routed`` are inert without a
-    mesh."""
-    del axis, routed
-    _check_plane_dispatch(plane, mesh, split)
+    refreshed plane could not represent; ``spill`` (0-d) and
+    ``occupancy`` (``[S]``) are the routed exchange's ``RouteStats`` on
+    the sharded plane-search path, 0 and a ``[1]`` zero vector
+    elsewhere."""
+    _check_plane_dispatch(plane, mesh, axis, split)
     _check_route_args(route_capacity, route_slack)
     return _run_epoch(st, plane, kinds, keys, upd_mask, aggregate,
-                      max_new, bool(rebuild), plane_search, ordered)
+                      max_new, bool(rebuild), plane_search, ordered, mesh,
+                      axis, split, route_capacity, route_slack, routed)
 
 
 def run_serving(st: SplayState, plane, kinds, keys, upd_mask,
@@ -856,32 +900,36 @@ def run_serving(st: SplayState, plane, kinds, keys, upd_mask,
                 route_capacity: int = None, route_slack: float = None,
                 ordered: bool = False, routed: bool = True):
     """The epoch loop: :func:`run_epoch` over ``[E, B]`` op batches,
-    threading (state, plane, rebuild-pending) from epoch to epoch.
+    threading (state, plane, rebuild-pending) from epoch to epoch, with
+    every option of :func:`run_epoch` (a mesh runs each epoch
+    sharded).
 
     Overflow state machine: an epoch whose refresh reports nonzero
     overflow arms a pending flag, and the *next* epoch's refresh is a
     full ``from_state_device`` rebuild.  The alive count *entering* the
     near-full zone (within one batch of the plane width) arms it too,
     edge-triggered, once per crossing
-    (``route_controller.overflow_machine_step``).  ``ordered`` as in
-    :func:`run_epoch`.  Returns ``(state, plane, results[E, B],
-    path_len[E, B], overflow[E], spill[E], occupancy[E, 1])``."""
+    (``route_controller.overflow_machine_step``).  Returns ``(state,
+    plane, results[E, B], path_len[E, B], overflow[E], spill[E],
+    occupancy[E, S])`` (``occupancy[E, 1]`` of zeros off the sharded
+    plane-search path)."""
     from repro_torch.core.route_controller import overflow_machine_step
-    del axis, routed
-    _check_plane_dispatch(plane, mesh, split)
+    from repro_torch.parallel import sharding as shd
+    _check_plane_dispatch(plane, mesh, axis, split)
     _check_route_args(route_capacity, route_slack)
     dev = st.device
     kinds = _op_tensor(kinds, torch.int32, dev)
     keys = _op_tensor(keys, torch.int32, dev)
     upd = _op_tensor(upd_mask, torch.bool, dev)
-    width = plane.keys.shape[1]
+    width = shd.plane_width(plane)
     B = keys.shape[1]
     pending = pressed = False
     outs = []
     for e in range(keys.shape[0]):
         st, plane, *out = _run_epoch(
             st, plane, kinds[e], keys[e], upd[e], aggregate, max_new,
-            pending, plane_search, ordered)
+            pending, plane_search, ordered, mesh, axis, split,
+            route_capacity, route_slack, routed)
         pending, pressed = overflow_machine_step(
             int(out[2]), int(st.size), B, width, pressed)
         outs.append(out)

@@ -1,5 +1,5 @@
-"""Entry points over the port's kernels (the searches, the ordered
-operations over the plane, each one descent plus bottom-row gathers,
+"""Entry points over the port's kernels (the searches, replicated and
+width-sharded, the ordered operations over the plane, each one descent plus bottom-row gathers,
 and the two-tier ``hot_gather``, one launch of the fused gather on the
 card), plus the execution-mode label and the kernels' launch
 counters."""
@@ -13,8 +13,9 @@ from repro_torch.kernels import hot_gather as hg
 from repro_torch.kernels import splay_search as ssk
 from repro_torch.kernels.hot_gather import hot_gather  # noqa: F401
 from repro_torch.kernels.splay_search import (  # noqa: F401
-    splay_predecessor, splay_range_count, splay_range_scan, splay_rank,
-    splay_search, splay_search_full, splay_search_pipelined, splay_select,
+    RouteStats, route_capacity, splay_predecessor, splay_range_count,
+    splay_range_scan, splay_rank, splay_search, splay_search_full,
+    splay_search_pipelined, splay_search_sharded, splay_select,
     splay_successor, splay_top_k)
 
 _COUNTERS = (ssk.LAUNCHES, fold.LAUNCHES, hg.LAUNCHES)

@@ -7,7 +7,7 @@ explicit device.  Its draws cannot match ``jax.random``'s, so the
 parity tests start both packages from the JAX parameters, converted
 array by array (``core.convert.params_from_numpy``).  The logical-axis
 annotations of the reference are mesh-only and arrive with the
-multi-device slice.
+models' mesh placement (ROADMAP queue A, A12b).
 """
 
 from __future__ import annotations

@@ -64,8 +64,9 @@ class Engine:
                  stream_epochs: int = 4, audit_every: int = 0,
                  fault_plan=None, max_retries: int = 8, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError("the mesh-sharded engine arrives "
-                                      "with the multi-device slice")
+            raise NotImplementedError(
+                "the mesh-sharded engine needs the models' mesh placement "
+                "(ROADMAP queue A, A12b)")
         # "cuda" names the current card: compare with the resolved index
         self.device = torch.empty(0, device=_device(device)).device
         if params["embed"].device != self.device:

@@ -1,5 +1,5 @@
 """Paged KV-cache pool with a splay-list page index: the twin of
-``repro.serve.kv_cache`` (host mode and meshless device mode).
+``repro.serve.kv_cache``.
 
 Pages of ``page_size`` positions are pooled; each session owns a chain
 of pages.  The session index is a splay-list, an ordered index: it
@@ -15,8 +15,12 @@ session ids.  Two index backends:
   before any lookup, so the plane a lookup reads is an exact snapshot
   of the live set; lookups batch through plane-search epochs (the
   descent engine B1/B2), predecessor queries through ordered epochs and
-  range queries through ``splay_range_scan``.  Both backends answer
-  every call identically.
+  range queries through ``splay_range_scan``.  With a ``mesh``
+  (``parallel.sharding.Mesh``; every rank of it holds the pool and makes
+  the same calls) the plane is laid out width-sharded, lookups take the
+  routed sharded search, and the route controller steers each lookup
+  epoch's slack and split from its ``[S]`` occupancy.  Both backends
+  answer every call identically.
 
 Page bookkeeping (free list, chains, lengths) stays on the host in both
 modes.
@@ -27,11 +31,11 @@ every entry while degraded.  On a failed audit it repairs the plane
 with one full-rebuild epoch from the state and audits again; a plane
 that stays wrong pins the pool to rung 2, the host ``SplayList`` oracle,
 so a corrupted plane never answers.  The pool climbs back one rung per
-clean pass (rung 1, the masked trace of a sharded search, answers as
-rung 0 here: there is no mesh).  A ``core.faults.FaultPlan`` injects
-its events between the mutation flush and the lookup answer.  All of
-it is counted in ``stats``.  A ``mesh`` raises ``NotImplementedError``
-until the multi-device slice.
+clean pass (rung 1 answers a sharded lookup through the masked trace;
+meshless it answers as rung 0).  A shard loss rebuilds the plane from
+the state and lays it out on the survivors (:meth:`on_shard_loss`).  A
+``core.faults.FaultPlan`` injects its events between the mutation flush
+and the lookup answer.  All of it is counted in ``stats``.
 """
 
 from __future__ import annotations
@@ -51,15 +55,17 @@ class PagedKVPool:
     (``create`` returns ``False`` at the bound; the default rounds
     ``max(n_pages, 64)`` up to a multiple of 8), and ``index_batch`` is
     the width of every op and lookup epoch (``pad_op_batch`` pads each
-    chunk to it).  ``axis`` names the mesh axis a sharded pool will
-    use; it is inert without a mesh."""
+    chunk to it).  ``mesh``/``axis`` lay the plane out width-sharded and
+    route lookups through the all-to-all exchange; ``index_width`` must
+    then divide into the mesh's shards.  ``torch_device`` defaults to
+    the mesh's device, else the card."""
 
     def __init__(self, n_pages: int, page_size: int, max_level: int = 24,
                  p: float = 0.1, device: bool = False,
                  index_width: int = None, index_batch: int = 32,
                  mesh=None, axis: str = "model",
                  audit_every: int = 0, fault_plan=None,
-                 torch_device="cuda"):
+                 torch_device=None):
         self.axis = axis
         self.n_pages = n_pages
         self.page_size = page_size
@@ -90,44 +96,66 @@ class PagedKVPool:
         if not self.device:
             self.index = SplayList(max_level=max_level, p=p)
             return
-        if mesh is not None:
-            raise NotImplementedError("the mesh-sharded pool arrives with "
-                                      "the multi-device slice")
         from repro_torch.core import device_index as dix
         from repro_torch.core import route_controller as rc
         from repro_torch.core import splaylist as sx
-        self._sx, self._dix, self._rc = sx, dix, rc
+        from repro_torch.parallel import sharding as shd
+        self._sx, self._dix, self._rc, self._shd = sx, dix, rc, shd
+        shd.check_mesh(mesh)
+        self.mesh = mesh
+        n_shards = (int(mesh.shape[axis])
+                    if mesh is not None and axis in mesh.shape else 1)
         if index_width is None:
             index_width = -(-max(n_pages, 64) // 8) * 8
+        if mesh is not None and index_width % n_shards:
+            raise ValueError(
+                f"index_width={index_width} not divisible by the "
+                f"{n_shards}-shard mesh axis {axis!r}")
+        if torch_device is None:
+            torch_device = mesh.device if mesh is not None else "cuda"
         self.index_width = int(index_width)
         self.index_batch = int(index_batch)
+        self._sharded = mesh is not None and n_shards > 1
+        # the ranks a shard loss shrinks from: every rank of the mesh
+        # keeps the list, survivor or not, so all make the same remesh
+        self._survivors = list(mesh.ranks) if mesh is not None else None
         self._st = sx.make(self.index_width + 2, max_level=max_level,
                            device=torch_device)
         self._plane = dix.from_state_device(
             self._st, n_levels=max_level, width=self.index_width)
-        self.ctrl_cfg, self.ctrl = rc.init_controller(1)
+        if self._sharded:
+            self._plane = shd.shard_index_plane(self._plane, mesh, axis)
+        self.ctrl_cfg, self.ctrl = rc.init_controller(n_shards)
         self._pending: List[tuple] = []   # (OP_INSERT|OP_DELETE, seq_id)
         self._rebuild_pending = False
         self._pressed = False
-        self.last_occupancy = np.zeros(1, np.int64)
+        self.last_occupancy = np.zeros(max(n_shards, 1), np.int64)
         self.spill_traj: List[int] = []   # per plane-epoch spill counts
         self.share_traj: List[float] = []  # per plane-epoch max-share
 
     # -- device epochs ----------------------------------------------------
 
     def _epoch(self, kinds, keys, upd, aggregate, plane_search,
-               ordered=False):
+               ordered=False, routed=True):
         """One padded op or lookup epoch through ``run_epoch``, stepping
-        the overflow machine and, on lookup epochs, the controller."""
+        the overflow machine and, on lookup epochs, the controller.
+        ``routed=False`` answers a sharded lookup through the masked
+        trace (rung 1 of the degradation ladder)."""
         sx, rc = self._sx, self._rc
         B = kinds.shape[0]
         rebuild = self._rebuild_pending or self.ctrl.force_rebuild
         if rebuild:
             self.stats["rebuilds"] += 1
+        sharded = self._sharded
         st, plane, res, plen, ovf, spl, occ = sx.run_epoch(
             self._st, self._plane, kinds, keys, upd,
             aggregate=aggregate, rebuild=rebuild,
-            plane_search=plane_search, ordered=ordered)
+            mesh=self.mesh if sharded else None, axis=self.axis,
+            plane_search=plane_search,
+            split=self.ctrl.split if sharded else "lanes",
+            route_slack=(self.ctrl.slack_of(self.ctrl_cfg)
+                         if sharded else None),
+            ordered=ordered, routed=routed)
         self._st, self._plane = st, plane
         self._rebuild_pending, self._pressed = rc.overflow_machine_step(
             int(ovf), int(st.size), B, self.index_width, self._pressed)
@@ -180,11 +208,17 @@ class PagedKVPool:
 
     # -- fault tolerance: audit, ladder, fault hooks ----------------------
 
+    def _plane_segments(self) -> int:
+        if self._sharded and self._dix.plane_is_segmented(self._plane):
+            return int(self.mesh.shape[self.axis])
+        return 1
+
     def audit(self):
         """Audit the current ``(state, plane)`` pair; returns the
         ``PlaneAudit`` (also kept as ``self.last_audit``)."""
         from repro_torch.core import plane_check as pcheck
-        a = pcheck.audit_plane(self._st, self._plane, n_segments=1)
+        a = pcheck.audit_plane(self._st, self._plane,
+                               n_segments=self._plane_segments())
         self.stats["audits"] += 1
         self.last_audit = a
         return a
@@ -270,19 +304,38 @@ class PagedKVPool:
                         bool)
 
     def on_shard_loss(self, n_survivors: int) -> None:
-        """Lose shards of the serving mesh.  With one survivor (this
-        package has no mesh yet) the plane is rebuilt from the state on
-        the same device and the pool serves at least one degraded epoch
-        before climbing back; more survivors raise
-        ``NotImplementedError`` until the multi-device slice."""
-        if int(n_survivors) > 1:
-            raise NotImplementedError("remeshing onto several shards "
-                                      "arrives with the multi-device slice")
+        """Shrink the serving mesh to its first ``n_survivors`` ranks:
+        the lost blocks are gone, so the plane is rebuilt from the
+        state (every rank holds it whole) and laid out on the
+        survivors' mesh (``train.elastic.remesh``), or kept replicated
+        when fewer than two survive or the width does not divide.  Every
+        rank of the old mesh calls this (``remesh`` is collective); a
+        rank outside the survivors goes on meshless with its own
+        replicated state, answering as before but joining no collective.
+        The controller restarts for the new shard count and the pool
+        serves at least one masked epoch (rung 1) before climbing back.
+        """
         self.stats["remeshes"] += 1
+        n = max(int(n_survivors), 1)
+        mesh = None
+        if self._survivors is not None:
+            from repro_torch.train import elastic
+            self._survivors = self._survivors[:n]
+            if n > 1 and self.index_width % n == 0 \
+                    and len(self._survivors) == n:
+                mesh = elastic.remesh(self._survivors, model_parallel=n,
+                                      device=self._st.device,
+                                      axis=self.axis)
+        self.mesh = mesh
+        n_shards = int(mesh.shape[self.axis]) if mesh is not None else 1
+        self._sharded = mesh is not None and n_shards > 1
         self._plane = self._dix.from_state_device(
             self._st, n_levels=self._max_level, width=self.index_width)
-        self.ctrl_cfg, self.ctrl = self._rc.init_controller(1)
-        self.last_occupancy = np.zeros(1, np.int64)
+        if self._sharded:
+            self._plane = self._shd.shard_index_plane(self._plane, mesh,
+                                                      self.axis)
+        self.ctrl_cfg, self.ctrl = self._rc.init_controller(n_shards)
+        self.last_occupancy = np.zeros(max(n_shards, 1), np.int64)
         self._last_ctrl_occ = None
         self._rung = max(self._rung, 1)
 
@@ -311,7 +364,7 @@ class PagedKVPool:
                 np.full(chunk.size, sx.OP_CONTAINS, np.int32), chunk,
                 np.ones(chunk.size, bool), B)
             res = self._epoch(kd, ks, up, aggregate=True,
-                              plane_search=True)
+                              plane_search=True, routed=self._rung == 0)
             out[i:i + n] = res[:n]
             self.stats["plane_queries"] += n
             if self._rung == 1:
@@ -341,7 +394,7 @@ class PagedKVPool:
             np.array([int(seq_id)], np.int32), np.zeros(1, bool),
             self.index_batch)
         res = self._epoch(kd, ks, up, aggregate=True, plane_search=True,
-                          ordered=True)
+                          ordered=True, routed=self._rung == 0)
         self.stats["plane_queries"] += 1
         if self._rung == 1:
             self.stats["degraded_masked"] += 1
@@ -362,8 +415,8 @@ class PagedKVPool:
         count, truncated)`` with ``n = min(count, max_range)``; ``count``
         is the full population and ``truncated`` what the capacity cut.
         ``max_range`` defaults to ``index_batch`` (32 in host mode).
-        Device mode is one ``splay_range_scan`` over the flushed
-        plane."""
+        Device mode is one ``splay_range_scan`` over the flushed plane
+        (sharded on a laid-out one)."""
         if max_range is None:
             max_range = self.index_batch if self.device else 32
         self.stats["range_queries"] += 1

@@ -22,12 +22,18 @@ to the uninterrupted run's, because membership is a function of the
 live-key set alone, which the state arrays and the replayed buffer
 reproduce exactly.
 
-The restored pool's tensors live on ``device`` (the card unless the
-caller passes ``"cpu"``).  A snapshot of a sharded pool (``n_shards >
-1``) restores meshless by the reference's rule: a segmented plane is
-rebuilt from the restored state, and the controller starts afresh for
-the new shard count.  ``mesh=`` raises ``NotImplementedError`` until
-the multi-device slice.
+A pool on a mesh has its plane gathered whole into the snapshot, which
+the mesh's first rank writes while the mesh's other ranks wait (every
+rank of the pool's mesh calls :func:`save_serving_snapshot`, and no
+other rank takes part); a pool without a mesh writes its own snapshot
+with no collective.  The restored pool's
+tensors live on ``device`` (the mesh's device, else the card).  A
+snapshot restores onto any mesh by the reference's rule: the saved
+plane is laid out again when the target is meshless and it is packed,
+or the target is sharded and it is packed or segmented over as many
+shards; anything else (a segmented plane onto another shard count) is
+rebuilt from the restored state.  The controller continues when the
+shard count is the same and starts afresh otherwise.
 """
 
 from __future__ import annotations
@@ -92,7 +98,10 @@ def save_serving_snapshot(mgr: CheckpointManager, step: int, pool,
     host pools are metadata-only (the host index is rebuilt from
     ``chains`` on restore).  ``user_extra`` rides along verbatim.
     With ``blocking=False`` this returns once the tensors are on the
-    host, and ``mgr.wait()`` waits for the write."""
+    host, and ``mgr.wait()`` waits for the write.  For a pool on a mesh
+    every rank of ``pool.mesh`` calls this and the mesh's first rank
+    writes; with ``blocking`` the call returns on each of them once the
+    write is complete (a barrier over the mesh's group)."""
     pool_meta: Dict[str, Any] = {
         "device": bool(pool.device),
         "n_pages": int(pool.n_pages),
@@ -110,7 +119,9 @@ def save_serving_snapshot(mgr: CheckpointManager, step: int, pool,
     if pool.device:
         from repro_torch.core import device_index as dix
         from repro_torch.core import route_controller as rc
-        params = {"splay": pool._st, "plane": pool._plane}
+        from repro_torch.parallel import sharding as shd
+        params = {"splay": pool._st,
+                  "plane": shd.gather_index_plane(pool._plane)}
         controller = rc.controller_to_dict(pool.ctrl_cfg, pool.ctrl)
         pool_meta.update({
             "index_width": int(pool.index_width),
@@ -124,7 +135,8 @@ def save_serving_snapshot(mgr: CheckpointManager, step: int, pool,
             "audit_every": int(pool.audit_every),
             "lookup_no": int(pool._lookup_no),
             "segmented": bool(dix.plane_is_segmented(pool._plane)),
-            "n_shards": 1,
+            "n_shards": (int(pool.mesh.shape[pool.axis])
+                         if pool.mesh is not None else 1),
         })
     extra = {
         "snapshot_format": SNAPSHOT_FORMAT,
@@ -133,31 +145,43 @@ def save_serving_snapshot(mgr: CheckpointManager, step: int, pool,
         "engine": _engine_state(engine) if engine is not None else None,
         "user": user_extra or {},
     }
-    mgr.save(step, params, extra=extra, blocking=blocking)
+    mesh = getattr(pool, "mesh", None)
+    if mesh is None:
+        mgr.save(step, params, extra=extra, blocking=blocking)
+        return
+    import torch.distributed as dist
+    if dist.get_rank() == mesh.ranks[0]:
+        mgr.save(step, params, extra=extra, blocking=blocking)
+    if blocking:
+        dist.barrier(group=mesh.group)
 
 
 def restore_serving_snapshot(mgr: CheckpointManager,
                              step: Optional[int] = None, mesh=None,
                              axis: Optional[str] = None,
                              audit_every: Optional[int] = None,
-                             fault_plan=None, device="cuda"
+                             fault_plan=None, device=None
                              ) -> Tuple[Any, Optional[dict], str]:
-    """Load the latest (or ``step``) snapshot and rebuild the pool,
-    meshless, its tensors on ``device``.  Returns ``(pool,
+    """Load the latest (or ``step``) snapshot and rebuild the pool on
+    ``mesh`` (``None``: meshless; a shrunk ``train.elastic.remesh`` mesh
+    re-lays or rebuilds the plane as the module docstring says; every
+    rank of the mesh calls this), its tensors on ``device`` (default: the
+    mesh's device, else the card).  Returns ``(pool,
     engine_state, summary)``: feed ``engine_state`` to
     :func:`apply_engine_state` after constructing the engine around the
     restored pool, and print ``summary`` so restores are visible in
     logs.  ``audit_every``/``fault_plan`` override the restored pool's
     fault-tolerance knobs (a restored machine usually wants auditing on
     and the crashed plan off)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restoring a serving snapshot onto a mesh arrives with the "
-            "multi-device slice (ROADMAP queue A, A12)")
     from repro_torch.core import convert
     from repro_torch.core import device_index as dix
     from repro_torch.core import route_controller as rc
+    from repro_torch.parallel import sharding as shd
     from repro_torch.serve.kv_cache import PagedKVPool
+
+    shd.check_mesh(mesh)
+    if device is None:
+        device = mesh.device if mesh is not None else "cuda"
 
     step = step if step is not None else mgr.latest_step()
     if step is None:
@@ -184,20 +208,28 @@ def restore_serving_snapshot(mgr: CheckpointManager,
     axis = axis if axis is not None else p.get("axis", "model")
     width = int(p["index_width"])
     s_saved = int(p.get("n_shards", 1))
+    s_new = (int(mesh.shape[axis])
+             if mesh is not None and axis in mesh.shape else 1)
+    if mesh is not None and width % s_new:
+        # indivisible target: restore replicated (rebuilt below)
+        mesh, s_new = None, 1
     pool = PagedKVPool(p["n_pages"], p["page_size"],
                        max_level=p["max_level"], p=p["p"], device=True,
                        index_width=width,
-                       index_batch=int(p["index_batch"]),
+                       index_batch=int(p["index_batch"]), mesh=mesh,
                        axis=axis, audit_every=audit_every,
                        fault_plan=fault_plan, torch_device=device)
     _apply_pool_meta(pool, p)
     pool._st = convert.state_from_numpy(
         {f: flat[f"params/splay/{f}"] for f in pool._st._fields},
         device=device)
-    # the saved plane serves as it is unless it has the segmented
-    # (sharded) layout, which is valid only on a mesh: then it is rebuilt
-    # from the just restored, authoritative state
-    relay = not bool(p.get("segmented", False))
+    # the saved arrays are laid out again when the target is meshless
+    # and the plane packed, or the target sharded and the plane packed
+    # or segmented over as many shards; anything else is rebuilt from
+    # the just restored, authoritative state
+    segmented = bool(p.get("segmented", False))
+    relay = ((s_new == 1 and not segmented)
+             or (s_new > 1 and (not segmented or s_new == s_saved)))
     if relay:
         pool._plane = convert.plane_from_numpy(
             {f: flat[f"params/plane/{f}"]
@@ -205,21 +237,23 @@ def restore_serving_snapshot(mgr: CheckpointManager,
     else:
         pool._plane = dix.from_state_device(
             pool._st, n_levels=p["max_level"], width=width)
+    if s_new > 1:
+        pool._plane = shd.shard_index_plane(pool._plane, mesh, axis)
     pool._pending = [(int(op), int(key)) for op, key in p["pending"]]
     pool._rebuild_pending = bool(p["rebuild_pending"])
     pool._pressed = bool(p["pressed"])
     pool._rung = int(p.get("rung", 0))
     pool._lookup_no = int(p.get("lookup_no", 0))
     ctrl = extra.get("controller")
-    if ctrl is not None and s_saved == 1:
+    if ctrl is not None and s_new == s_saved:
         # same shard count: the controller continues its ladder and
         # backoff streaks bit-identically
         pool.ctrl_cfg, pool.ctrl = rc.controller_from_dict(ctrl)
-    # else: __init__ already initialized it for one shard
+    # else: __init__ already initialized it for the new shard count
     summary = (f"restored serving snapshot step {step}: "
                f"{len(pool.chains)} live sessions, "
                f"{len(pool._pending)} pending ops, "
-               f"shards {s_saved}->1, "
+               f"shards {s_saved}->{s_new}, "
                f"plane {'re-laid' if relay else 'rebuilt'}")
     return pool, extra.get("engine"), summary
 

@@ -417,9 +417,12 @@ def test_non_snapshot_checkpoint_refused(tmp_path):
 
 
 def test_mesh_restore_raises_naming_a12(tmp_path):
+    """Restoring onto a mesh is ported (``tests/test_torch_sharded_serving``
+    restores onto 2 ranks); what still raises is a ``mesh`` that is not a
+    ``parallel.sharding.Mesh``."""
     mgr = ck.CheckpointManager(str(tmp_path))
     snap.save_serving_snapshot(mgr, 1, _device_pool())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="sharding.Mesh"):
         snap.restore_serving_snapshot(mgr, mesh=object(), device="cpu")
 
 

@@ -809,3 +809,45 @@ def test_train_step_on_card_matches_cpu(arch):
     assert all(e_card <= 2 * e_cpu
                for _, _, e_card, e_cpu in agree.witnessed)
     assert np.isfinite(share), leaf
+
+
+def _sharded_rank(mesh, seed):
+    """One rank of the 2-rank gloo group on the card: the sharded
+    searches against the replicated one, and B2 on this rank's local
+    sub-plane against its plain version."""
+    from repro_torch.parallel import sharding as tshd
+    plane, qs = _plane(4096, 12, 1001, seed=seed, device=mesh.device)
+    ps = tshd.shard_index_plane(plane, mesh)
+    want = tssk.splay_search(plane, qs, sharded=False)
+    tops.reset_launch_counts()
+    routed = tssk.splay_search_sharded(ps, qs, mesh=mesh, return_stats=True)
+    masked = tssk.splay_search_sharded(ps, qs, mesh=mesh, routed=False,
+                                       return_stats=True)
+    launches = tops.launch_counts()["splay_search_pipelined"]
+    local, _ = tssk._local_subplane(ps)
+    card = tssk._splay_search_pipelined_arrays(
+        local.keys, qs, rank_map=local.rank_map, widths=local.widths,
+        bot_rank=local.bot_rank)
+    plain = tssk._splay_search_pipelined_arrays(
+        *(t.cpu() for t in (local.keys, qs)), rank_map=local.rank_map.cpu(),
+        widths=local.widths.cpu(), bot_rank=local.bot_rank.cpu())
+    same = lambda a, b: all(torch.equal(x.cpu(), y.cpu())  # noqa: E731
+                            for x, y in zip(a, b))
+    return {"routed": same(routed[:3], want), "masked": same(masked, want),
+            "b2_local": same(card, plain), "launches": launches,
+            "occupancy": routed[3].occupancy.tolist(),
+            "device": str(local.keys.device)}
+
+
+def test_sharded_search_on_two_card_ranks():
+    """Two gloo ranks on the one card (``launch.spmd``): the routed and
+    the masked sharded search equal the replicated search, each rank's
+    B2 launches and equals its plain version on its local
+    ``[L, W/2]`` sub-plane (the byte counter included)."""
+    from repro_torch.launch import spmd
+    out = spmd.spawn(_sharded_rank, 2, 3, backend="gloo", device="cuda",
+                     timeout=600)
+    for r in out:
+        assert r["routed"] and r["masked"] and r["b2_local"], r
+        assert r["launches"] > 0 and r["device"].startswith("cuda"), r
+        assert sum(r["occupancy"]) == 1001 + 3, r

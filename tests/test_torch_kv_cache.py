@@ -159,8 +159,11 @@ def test_fault_ladder_matches_jax():
     assert pt._rung == pj._rung == 0
     assert (tuple(pt.last_audit) == tuple(pj.last_audit)
             and tuple(pt.last_audit) == (0,) * 11)
-    with pytest.raises(NotImplementedError):
-        pt.on_shard_loss(2)
+    # meshless, a loss down to two survivors rebuilds meshless, as
+    # the JAX pool does when there are no two devices to remesh onto
+    pt.on_shard_loss(2)
+    assert pt.mesh is None and not pt._sharded and pt._rung == 1
+    assert pt.stats["remeshes"] == 2
 
 
 def test_rung_two_host_oracle_matches_jax():

@@ -180,11 +180,18 @@ def test_empty_batches_and_argument_checks(case):
         tops.splay_top_k(tp, case["ts"].selfhits, 0)
     with pytest.raises(TypeError, match="index plane struct"):
         tops.splay_rank(tp.keys, z)
-    for fn, args in ((tops.splay_rank, (z,)), (tops.splay_select, (z,)),
-                     (tops.splay_range_count, (z, z)),
+    # sharded=True with no mesh to resolve takes the replicated path,
+    # as in the reference; a mesh that is not a sharding.Mesh raises
+    q = torch.as_tensor([-3, 0, 4, 7, 2 ** 31 - 1], dtype=torch.int32)
+    for fn, args in ((tops.splay_rank, (q,)), (tops.splay_select, (q,)),
+                     (tops.splay_range_count, (q, q + 9)),
                      (tops.splay_top_k, (case["ts"].selfhits, 4))):
-        with pytest.raises(NotImplementedError):
-            fn(tp, *args, sharded=True)
+        got, want = fn(tp, *args, sharded=True), fn(tp, *args)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="sharding.Mesh"):
+        tops.splay_select(tp, q, mesh=object())
 
 
 def test_segmented_plane_refused(case):

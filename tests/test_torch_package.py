@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax_or_repro():
               "serve.engine", "launch.serve", "core.tree",
               "train.checkpoint", "serve.snapshot", "train.optimizer",
               "parallel.compression", "train.train_step", "train.data",
-              "train.straggler", "launch.train"):
+              "train.straggler", "launch.train", "parallel.collectives",
+              "train.elastic", "launch.spmd"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -137,3 +138,33 @@ def test_train_and_snapshot_entry_points_refuse_cpu_fallback(tmp_path):
         snap.restore_serving_snapshot(mgr)
     back, _, _ = snap.restore_serving_snapshot(mgr, device="cpu")
     assert back._st.key.device.type == "cpu"
+
+
+def test_spmd_launch_refuses_cpu_fallback_without_a_card():
+    """A rank asked for the card finds none and fails the launch; the
+    launcher stops its processes and raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    from repro_torch.launch import spmd
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.spawn(print, 2, device="cuda", timeout=120)
+    with pytest.raises(ValueError, match="backend"):
+        spmd.spawn(print, 1, backend="mpi")
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """``spawn``, ``Mesh``, ``world_mesh`` and ``elastic.remesh`` put
+    their ranks on the card unless the caller passes ``device="cpu"``:
+    without a card, ``spawn(fn, 1)`` with no device fails the launch."""
+    import inspect
+
+    from repro_torch.launch import spmd
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import elastic
+    for fn in (spmd.spawn, shd.Mesh, shd.world_mesh, elastic.remesh):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmd.spawn(print, 1, timeout=120)

@@ -167,7 +167,7 @@ def test_run_serving_controlled_meshless(mode):
     assert b[7][-1].retraces == 0 and b[7][-1].escalations == 0
     if mode == "mixed":
         assert int(b[4][1]) > 0          # the burst overflowed
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="sharding.Mesh"):
         trc.run_serving_controlled(ts, tp, kinds, keys, ups, mesh=object(),
                                    **kw)
     # a one-shot force_rebuild from a caller's state takes the rebuild

@@ -139,11 +139,13 @@ def test_epoch_guards():
     with pytest.raises(ValueError, match="route_slack"):
         tsx.run_serving(*(a[None] if hasattr(a, "ndim") else a
                           for a in args), route_slack=0.5)
-    for kw in (dict(mesh=object()), dict(split="mass"),
+    for kw in (dict(mesh=object()),
                dict(mesh=object(), ordered=True, aggregate=True,
                     plane_search=True)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="sharding.Mesh"):
             tsx.run_epoch(*args, **kw)
+    with pytest.raises(ValueError, match="split='mass' requires"):
+        tsx.run_epoch(*args, split="mass")
     seg = tp._replace(keys=tp.keys.clone())
     seg.keys[-1, 3] = tdix.PAD_KEY
     with pytest.raises(ValueError, match="segmented"):
