@@ -21,7 +21,9 @@ Phases:
    (16-lane tiles) and an odd batch, each on clusters of 1 to 8 CTAs;
    F update fold on a 2,000-key prefill plus 4 mixed epochs and a
    1024-op list of all five op kinds (the ordered kinds OP_PRED and
-   OP_RANGE included); B3,
+   OP_RANGE included); S skip-list fold on a 4096-key populate (heights
+   from ``sample_heights``) plus two 4096-op mixed lists of contains,
+   inserts, deletes and revives, and its raise at capacity; B3,
    B4 and the fused two-tier gather on float32, bfloat16, int32 and
    uint8 tables at d=4096 (TMA bulk copies) and d=1001 and 37 (vector
    words), q in {0, 1, 333, 8192} with out-of-range ids, int64 ids, and
@@ -146,15 +148,29 @@ Phases:
    one-thread pointer chase that phase 6 measures (``kernels/
    calibrate.py``: ns per dependent load in L2 and from a 256 MB
    array).  Its traces come
-   after phase 7's, which they would otherwise disturb.
+   after phase 7's, which they would otherwise disturb;
+9. the width-sharded index on 4 ranks (``sharded_rank``), each rank
+   also running the drift battery (``benchmarks/drift_probe.py``):
+   ``run_parity`` at the reference's parity shape (W 1024, B 512, 12
+   epochs; it raises unless the four recovery properties hold), then
+   ``run_bench`` at its bench shape (W 4096, q 8192, 10 epochs, L 14),
+   printing per scenario and policy the time to recover, the peak share
+   after each transition and the wall seconds;
+10. the paper's Figs. 3-5 on the card (``benchmarks/
+   concurrent_scaling.py``, :func:`scaling_phase`): 10^5 keys, the
+   90-10 and 99-1 workloads, 8192 contains (cut from the reference's
+   65536: the phase stays within 90 s) in batches of 16, 64 and 256,
+   the splay-list (F) against the skip-list (S populates it); ops/s, mean path, ms a batch and launches of F and S for each; the
+   first batches at B = 256 replayed on the CPU; S's populate and a
+   mixed list against its plain fold, timed by events.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
 5's prefill and serving run, phase 5's full-width searches, phase 5b's
 flushes and lookups, phase 5c's ordered run, phase 5d's pool, phase
 5e's device-indexed engine, phase 5f's run A, phase 6's timed
-composition) and read just after it, before any check or reference
-run; the launches of the pools restored from snapshots (phases 5d and
+composition, phase 10's race) and read just after it, before any
+check or reference run; the launches of the pools restored from snapshots (phases 5d and
 5e) are counted apart, as path ``snapshot``.  Every kernel of a path must
 have run on it; on the vocab tier the fused gather runs once per
 lookup, B4 builds the hot buffer, and F runs at least once per stream
@@ -162,8 +178,8 @@ epoch.  The kernels line reports each kernel's launches on the path it
 serves (B1 and F: phase 3, the main path; B2: phase 5; B5: phase 5's
 full-width searches; B4 and the fused gather: phase 5b; B3, whose only
 caller in the reference is the composition: phase 6's timed
-composition); ``launches_by_path`` adds every other path, the
-engine's, ``snapshot`` and ``train`` (which launches none of them)
+composition; S: phase 10's race); ``launches_by_path`` adds every
+other path, the engine's, ``snapshot`` and ``train`` (which launches none of them)
 among them.  Prints that JSON line, the card's ``name, power.limit``,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, with no result line, on any failed check or without a CUDA
@@ -820,6 +836,8 @@ def kv_drive(call, wl, on_step=None) -> int:
 SHARDED_RANKS = 4        # phase 9: ranks, one process each
 SHARDED_CPU_EPOCHS = 2   # phase 9: epochs held against the CPU plain path
 SHARDED_PROFILE_EPOCHS = 4
+SHARDED_KERNELS = ("splay_search_tiered", "splay_search_pipelined",
+                   "splay_fold")   # B1, B2, F: every rank launches each
 
 
 def merged(spans) -> list:
@@ -1161,6 +1179,18 @@ def sharded_rank(mesh, job) -> dict:
     kv["stats"] = dict(pool.stats)
     kv["shards_after"] = int(pool.mesh.size) if pool.mesh else 1
     out["kv"] = kv
+    # the drift battery (benchmarks/drift_probe.py): the recovery
+    # properties at the reference's parity shape, then the three
+    # policies raced at its bench shape; run_parity raises on a
+    # violation, which fails the launch
+    from repro_torch.benchmarks import drift_probe as dp
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out["drift_parity"] = dp.run_parity(mesh)
+    out["drift_bench"] = dp.run_bench(mesh)
+    torch.cuda.synchronize()
+    out["drift_s"] = time.perf_counter() - t
+    count("drift")
     out["total_launches"] = total
     out["memory"] = (f"{host_memory()}; card peak allocated "
                      f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
@@ -1192,8 +1222,7 @@ def sharded_phase(torch, dev, job, backend: str) -> dict:
         fail(f"phase 9: {e}")
     wall = time.perf_counter() - t
     for r in ranks:
-        for k in ("splay_search_tiered", "splay_search_pipelined",
-                  "splay_fold"):
+        for k in SHARDED_KERNELS:
             check(r["total_launches"][k] > 0, f"rank {r['rank']} never "
                   f"launched {k} on the sharded path")
     r0 = ranks[0]
@@ -1228,12 +1257,36 @@ def sharded_phase(torch, dev, job, backend: str) -> dict:
               f"{sp['other_device_ms']}; NCCL kernels "
               f"{sp['collective_device_ms']}; idle share "
               f"{sp['idle_share']}", flush=True)
-        hand = ("splay_search_tiered", "splay_search_pipelined",
-                "splay_fold")
         print(f"[9]   rank {r['rank']} launches (B1, B2, F) by run: "
-              + "; ".join(f"{run} {[c[k] for k in hand]}"
+              + "; ".join(f"{run} {[c[k] for k in SHARDED_KERNELS]}"
                           for run, c in r["launches"].items()), flush=True)
         print(f"[9]   rank {r['rank']} memory: {r['memory']}", flush=True)
+    for r in ranks:
+        par, ben = r["drift_parity"], r["drift_bench"]
+        print(f"[9]   rank {r['rank']} drift battery ({r['drift_s']:.1f} s; "
+              f"launches (B1, B2, F) "
+              f"{[r['launches']['drift'][k] for k in SHARDED_KERNELS]}): "
+              f"parity "
+              f"W={par['width']} B={par['batch']} E={par['epochs']} K="
+              f"{par['recovery_bound_epochs']}: answers equal the meshless "
+              f"loop's, the controller recovers within K, static lanes "
+              f"fails somewhere, the calm stream never actuates; "
+              + "; ".join(f"{n} ttr on {v['ttr_on']} off {v['ttr_off']} "
+                          f"peak share {v['peak_share']:.4f} wall s "
+                          f"{v['wall_s']['controller']:.3f}/"
+                          f"{v['wall_s']['static_lanes']:.3f}"
+                          for n, v in par["scenarios"].items()),
+              flush=True)
+        for n, row in ben["scenarios"].items():
+            print(f"[9]   rank {r['rank']} drift bench W={ben['width']} "
+                  f"q={ben['batch']} E={ben['epochs']} {n} (transitions "
+                  f"{row['transitions']}): " + "; ".join(
+                      f"{pol} ttr {row[pol]['time_to_recover']} peak share "
+                      f"after {row[pol]['peak_share_post']} peak spill "
+                      f"{row[pol]['peak_spill_rate']} wall "
+                      f"{row[pol]['wall_s']} s"
+                      for pol in ("controller", "static_lanes",
+                                  "static_mass")), flush=True)
     kv = r0["kv"]
     print(f"[9] the KV pool (W={KV_PAGES}, {KV_PAGES // SHARDED_RANKS} "
           f"lanes a rank) sharded: every answer equal to the host pool's "
@@ -1248,6 +1301,164 @@ def sharded_phase(torch, dev, job, backend: str) -> dict:
             for k in r0["total_launches"]}
 
 
+SCALING_N = 100_000       # phase 10: keys (the paper's Tables 1-3)
+SCALING_OPS = 8192        # phase 10: contains a race (cut from the
+                          # reference's 65536 to keep the phase in 90 s)
+SCALING_CHECK = 4         # phase 10: B=256 batches replayed on the CPU
+S_LIST = 4096             # phase 10: S's timed mixed list
+
+
+def scaling_phase(torch, dev, read_launches) -> dict:
+    """Phase 10: the paper's Figs. 3-5 setting on the card
+    (``benchmarks/concurrent_scaling.py``): 10^5 keys, the 90-10 and
+    99-1 workloads (``xy_workload``, seed 9), ``SCALING_OPS`` contains
+    in batches of 16, 64 and 256, the splay-list (coins p = 1/100 from
+    ``default_rng(1)``; find_batch and one F launch a batch) raced
+    against the skip-list (heights from ``default_rng(0)``, populated by
+    one S launch; find_batch), max level 20, capacity 2n + 4.  Every
+    answer must be True; the first ``SCALING_CHECK`` batches at B = 256
+    replayed on CPU copies of the card's starting states through the
+    plain versions must give the same path sums and states.  Then S
+    alone: the populate again (events) against its plain fold on the
+    CPU, bit for bit, and a mixed list of ``S_LIST`` ops on the
+    populated state.  Returns S's readings for the kernels line."""
+    from repro_torch.benchmarks import concurrent_scaling as cs
+    from repro_torch.core import skiplist as skx
+    from repro_torch.core import splaylist as sx
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import ops, skip_fold
+    n, total = SCALING_N, SCALING_OPS
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    res = cs.run(n=n, total_ops=total, device=dev, keep_start=True)
+    read_launches("paper_scaling", ("splay_fold", "skip_fold"))
+    race_s = time.perf_counter() - t
+    for key, r in res.items():
+        if key[1] == "populate":
+            print(f"[10] {key[0]} populate of {n} keys: splay-list "
+                  f"{r['splay_ms']:.3f} ms (one F launch), skip-list "
+                  f"{r['skip_ms']:.3f} ms (one S launch), host clock; "
+                  f"launches {r['launches']}", flush=True)
+            continue
+        check(r["all_found"], f"phase 10 {key}: a contains answered False")
+        print(f"[10] {key[0]} {key[1]} B={key[2]}: {r['ops_s']:.1f} ops/s, "
+              f"mean path {r['path']:.4f} ({r['psum']} steps; the "
+              f"longest lane of a batch {r['loop_steps']:.2f} on average), "
+              f"{r['ms_per_batch']:.4f} ms a batch; launches F "
+              f"{r['launches']['splay_fold']} S "
+              f"{r['launches']['skip_fold']}", flush=True)
+    ratio = {f"{tag}/B{B}": res[(tag, "splay", B)]["ops_s"]
+             / res[(tag, "skip", B)]["ops_s"]
+             for _, _, tag in cs.WORKLOADS for B in cs.BATCHES}
+    print(f"[10] splay/skip ops/s: {ratio}; the race {race_s:.1f} s",
+          flush=True)
+
+    def cpu(st):
+        return type(st)(*(x.cpu() for x in st))
+
+    for x, y, tag in cs.WORKLOADS:
+        q = wl.xy_workload(n, x, y, total, seed=9).keys[:total].reshape(
+            -1, 256)[:SCALING_CHECK]
+        for eng in ("splay", "skip"):
+            r = res[(tag, eng, 256)]
+            coins = (None if r["coins"] is None
+                     else r["coins"][:SCALING_CHECK])
+            got = cs.race(eng, r["start"], torch.as_tensor(q, device=dev),
+                          None if coins is None
+                          else torch.as_tensor(coins, device=dev))
+            want = cs.race(eng, cpu(r["start"]), torch.as_tensor(q),
+                           None if coins is None else torch.as_tensor(coins))
+            sums = [int(v) for v in want[1]]
+            check(sums == [int(v) for v in got[1]]
+                  == r["batch_psums"][:SCALING_CHECK],
+                  f"phase 10 {tag} {eng}: the path sums of the first "
+                  f"batches differ between the card, its race and the CPU")
+            check(max_abs_err(list(got[0]), list(want[0])) == 0,
+                  f"phase 10 {tag} {eng}: the card's state differs from "
+                  f"the CPU's after {SCALING_CHECK} batches")
+    print(f"[10] the first {SCALING_CHECK} batches at B=256 of each "
+          f"workload and engine, replayed on CPU copies of the card's "
+          f"starting states: equal path sums and states", flush=True)
+
+    # S alone: the populate (the 99-1 workload's keys) on the card by
+    # events, and through the plain fold on the CPU; then a mixed list
+    # on the populated state
+    keys = np.sort(wl.xy_workload(n, 0.99, 0.01, total, seed=9).populate)
+    hts = skx.sample_heights(np.random.default_rng(0), n, cs.MAX_LEVEL,
+                             device="cpu")
+    ins = torch.ones(n, dtype=torch.int32)
+    cap = 2 * n + 4
+
+    def s_launch(st, args, on):
+        work = skx.clone(st)
+        args = [a.to(on) for a in args]
+        r_ = torch.zeros(args[0].shape[0], dtype=torch.bool, device=on)
+        p_ = torch.zeros(args[0].shape[0], dtype=torch.int32, device=on)
+        if on.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            stop = skip_fold.fold_ops(work, *args, r_, p_)
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1)
+        else:
+            t0 = time.perf_counter()
+            stop = skip_fold.fold_ops(work, *args, r_, p_)
+            ms = 1e3 * (time.perf_counter() - t0)
+        check(stop == args[0].shape[0], f"S stopped at op {stop}")
+        return work, r_, p_, ms
+
+    def changed_bytes(a, b):
+        return sum(int((x.cpu() != y.cpu()).sum()) * x.element_size()
+                   for x, y in zip(a, b))
+
+    out = {}
+    empty_g = skx.make(cap, cs.MAX_LEVEL, device=dev)
+    pop_args = (ins, torch.as_tensor(keys), hts)
+    g_pop = s_launch(empty_g, pop_args, dev)
+    c_pop = s_launch(cpu(empty_g), pop_args, torch.device("cpu"))
+    err = max(max_abs_err(list(g_pop[0]), list(c_pop[0])),
+              max_abs_err(g_pop[1:3], c_pop[1:3]))
+    check(err == 0, f"S's populate of {n} keys differs from its plain "
+          f"fold (err {err})")
+    check(max_abs_err(list(g_pop[0]),
+                      list(res[("99-1", "skip", 256)]["start"])) == 0,
+          "S's populate differs from the race's")
+    out["populate"] = dict(ms=g_pop[3], plain_ms=c_pop[3], ops=n,
+                           changed=changed_bytes(empty_g, g_pop[0]))
+    mrng = np.random.default_rng(12)
+    m_kinds = torch.as_tensor(mrng.choice(3, S_LIST, p=[0.6, 0.2, 0.2])
+                              .astype(np.int32))
+    m_keys = torch.as_tensor(np.where(
+        mrng.random(S_LIST) < 0.8, mrng.choice(keys, S_LIST),
+        mrng.integers(0, 2 * n, S_LIST)).astype(np.int32))
+    m_h = skx.sample_heights(np.random.default_rng(13), S_LIST,
+                             cs.MAX_LEVEL, device="cpu")
+    m_args = (m_kinds, m_keys, m_h)
+    g_mix = s_launch(g_pop[0], m_args, dev)
+    c_mix = s_launch(c_pop[0], m_args, torch.device("cpu"))
+    err = max(max_abs_err(list(g_mix[0]), list(c_mix[0])),
+              max_abs_err(g_mix[1:3], c_mix[1:3]))
+    check(err == 0, f"S's mixed list differs from its plain fold "
+          f"(err {err})")
+    out["mixed"] = dict(ms=g_mix[3], plain_ms=c_mix[3], ops=S_LIST,
+                        changed=changed_bytes(g_pop[0], g_mix[0]),
+                        walk_steps=int(g_mix[2].sum()))
+    mix_steps = out["mixed"]["walk_steps"]
+    out["ratio"] = ratio
+    out["race_s"] = race_s
+    out["phase_s"] = time.perf_counter() - t
+    print(f"[10] S alone: the populate of {n} keys {g_pop[3]:.3f} ms a "
+          f"launch (events; plain fold on the host CPU {c_pop[3]:.1f} ms), "
+          f"a {S_LIST}-op mixed list {g_mix[3]:.3f} ms "
+          f"({mix_steps} find steps; plain {c_mix[3]:.1f} ms); both "
+          f"equal their plain folds; the phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1259,6 +1470,7 @@ def main() -> None:
     from repro_torch.core import device_index as dix
     from repro_torch.core import faults as fl
     from repro_torch.core import plane_check as pc
+    from repro_torch.core import skiplist as skx
     from repro_torch.core import splaylist as sx
     from repro_torch.core import workload as wl
     from repro_torch.core.splay_cache import SplayVocabCache
@@ -1396,6 +1608,53 @@ def main() -> None:
     errs["splay_fold"] = f_err
     print("[2] F 2000-key prefill + 4 mixed epochs + both contains "
           "folds + a 1024-op list of all five kinds: equal", flush=True)
+
+    # S against its plain fold: a 4096-key populate (heights from
+    # sample_heights), then two mixed lists of contains, inserts and
+    # deletes (present and absent keys; the second list revives what the
+    # first deleted); then the raise at capacity, on the card and in the
+    # plain fold, leaving the caller's state as it was
+    srng = np.random.default_rng(11)
+    s_pool = srng.permutation(20000)[:4096].astype(np.int32)
+    s_h = skx.sample_heights(np.random.default_rng(0), 4096, 20,
+                             device="cpu").numpy()
+    sg = skx.make(2 * 4096 + 4, 20, device=dev)
+    sc = skx.SkipState(*(t.cpu() for t in sg))
+    lists = [(np.ones(4096, np.int32), s_pool, s_h)]
+    for i in range(2):
+        lists.append((
+            srng.choice(3, 4096, p=[0.4, 0.3, 0.3]).astype(np.int32),
+            np.where(srng.random(4096) < 0.8, srng.choice(s_pool, 4096),
+                     srng.integers(20000, 24000, 4096)).astype(np.int32),
+            skx.sample_heights(np.random.default_rng(1 + i), 4096, 20,
+                               device="cpu").numpy()))
+    s_err, revived = 0, 0
+    for args in lists:
+        was_deleted = sc.deleted.clone()
+        g_out = skx.run_ops(sg, *args)
+        c_out = skx.run_ops(sc, *args)
+        s_err = max(s_err, state_err(g_out[0], c_out[0]),
+                    max_abs_err(g_out[1:], c_out[1:]))
+        revived += int((was_deleted & ~c_out[0].deleted).sum())
+        sg, sc = g_out[0], c_out[0]
+    check(s_err == 0, f"S disagrees with its plain version (err {s_err})")
+    check(revived > 0, "S's mixed lists revived no key")
+    small = skx.make(4, 4, device=dev)
+    for st_c in (small, skx.SkipState(*(t.cpu() for t in small))):
+        try:
+            skx.run_ops(st_c, [1, 1, 1], [10, 20, 30], [0, 1, 0])
+            fail(f"S on {st_c.device}: an insert past the capacity did "
+                 "not raise")
+        except RuntimeError as e:
+            check("exhausted at op 2" in str(e), f"S's raise: {e}")
+        check(int(st_c.n_alloc) == 2 and bool((st_c.nxt[:, 2:] == -1)
+                                               .all()),
+              f"S on {st_c.device}: the raise changed the caller's state")
+    torch.cuda.synchronize()
+    errs["skip_fold"] = s_err
+    print(f"[2] S 4096-key populate + two 4096-op mixed lists ({revived} "
+          f"revives): equal; an insert past the capacity raises on the "
+          f"card and in the plain fold, the state untouched", flush=True)
 
     # B3, B4 and the fused two-tier gather on every dtype and copy path
     # (d=4096 rows take TMA bulk copies, d=1001 and 37 the vector words),
@@ -2510,6 +2769,24 @@ def main() -> None:
     # ---- phase 9: the width-sharded index -------------------------------
     job = sharded_job(torch, dev, served3, kv_log, dict(hpool.chains))
     by_rank = sharded_phase(torch, dev, job, "gloo")
+
+    # ---- phase 10: the paper's Figs. 3-5 on the card --------------------
+    sc10 = scaling_phase(torch, dev, read_launches)
+    pop, mix = sc10["populate"], sc10["mixed"]
+    for k in kernels:
+        k["launches_by_path"]["paper_scaling"] = \
+            path_launches["paper_scaling"][k["name"]]
+    # bound: the op list read (kind, key, height) and the answers written
+    # (res, plen), and the state entries the fold changed, read and
+    # written
+    entry("skip_fold", "paper_scaling", "src/repro_torch/kernels/csrc/"
+          "skip_fold.cu", "src/repro/core/skiplist.py:253", pop["ms"],
+          pop["plain_ms"], 17 * pop["ops"] + 2 * pop["changed"], 0,
+          ms_is="one populate launch of 10^5 inserts, events",
+          mixed_ms=mix["ms"], mixed_plain_ms=mix["plain_ms"],
+          mixed_ops=mix["ops"], mixed_walk_steps=mix["walk_steps"],
+          mixed_bound_ms=bound(17 * mix["ops"] + 2 * mix["changed"], 0)[0],
+          splay_over_skip_ops_s=sc10["ratio"])
     for k in kernels:
         k["launches_by_path"]["sharded"] = by_rank.get(k["name"], {})
 

@@ -1,8 +1,11 @@
 """Workload generators for the paper's experiments (Section 6).
 
 The port's own copy of the numpy generators it drives: the op-stream
-record, the Bernoulli rebalancing coins, the bounded Zipf(s) stream of
-Figure 12, the Zipf token ids of the vocab tier, the splay-shaped
+record, the Bernoulli rebalancing coins, the paper's families (the
+read-only ``n-x-y`` streams of Tables 1-4, the uniform and bounded
+Zipf(s) streams of Figures 11-12, the general read-write ``n-r-x-y-s``
+streams of Appendix C.3), the drift scenarios that race the routing
+controller (``DRIFT_SCENARIOS``), the Zipf token ids of the vocab tier, the splay-shaped
 level-array fixture the kernel checks use, and the request traces of
 the paged KV pool's session index (``kv_request_trace``,
 ``kv_scan_trace``) and the serving engine's request arrivals
@@ -13,7 +16,7 @@ package unchanged.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -35,6 +38,35 @@ def _coins(rng: np.random.Generator, t: int, p: float) -> np.ndarray:
     return rng.random(t) < p
 
 
+def xy_workload(n: int, x: float, y: float, ops: int, p: float = 1.0,
+                seed: int = 0, key_space: Optional[int] = None) -> OpStream:
+    """n-x-y read-only workload: x-fraction of contains hit the popular set
+    S (|S| = y*n), the rest hit the complement uniformly."""
+    rng = np.random.default_rng(seed)
+    key_space = key_space or n
+    keys_all = rng.permutation(key_space)[:n].astype(np.int32)
+    n_pop = max(int(round(y * n)), 1)
+    popular = keys_all[:n_pop]
+    rest = keys_all[n_pop:] if n_pop < n else keys_all
+    take_pop = rng.random(ops) < x
+    k_pop = popular[rng.integers(0, len(popular), ops)]
+    k_rest = rest[rng.integers(0, len(rest), ops)]
+    keys = np.where(take_pop, k_pop, k_rest).astype(np.int32)
+    return OpStream(
+        kinds=np.zeros(ops, np.int32), keys=keys,
+        upd=_coins(rng, ops, p), populate=np.sort(keys_all))
+
+
+def uniform_workload(n: int, ops: int, p: float = 1.0, seed: int = 0
+                     ) -> OpStream:
+    """The 1e5-100-100 uniform workload (Figure 11)."""
+    rng = np.random.default_rng(seed)
+    keys_all = np.arange(n, dtype=np.int32)
+    keys = rng.integers(0, n, ops).astype(np.int32)
+    return OpStream(np.zeros(ops, np.int32), keys, _coins(rng, ops, p),
+                    keys_all)
+
+
 def zipf_workload(n: int, ops: int, s: float = 1.0, p: float = 1.0,
                   seed: int = 0) -> OpStream:
     """Bounded Zipf(s) over n keys (Figure 12; s=1 is the paper's setting).
@@ -48,6 +80,175 @@ def zipf_workload(n: int, ops: int, s: float = 1.0, p: float = 1.0,
     keys = perm[draws].astype(np.int32)
     return OpStream(np.zeros(ops, np.int32), keys, _coins(rng, ops, p),
                     np.sort(perm))
+
+
+def general_workload(n: int, r: float, x: float, y: float, s: float,
+                     ops: int, p: float = 1.0, seed: int = 0) -> OpStream:
+    """n-r-x-y-s general workload (Appendix C.3):
+      r%:   contains; the rest split evenly insert/delete;
+      x% of contains target y% of keys (the popular set R);
+      insert/delete draw uniformly from an s-fraction key set W.
+    Keys are pre-populated with probability 90% each (paper's setup)."""
+    rng = np.random.default_rng(seed)
+    keys_all = rng.permutation(2 * n)[:n].astype(np.int32)
+    populate = np.sort(keys_all[rng.random(n) < 0.9])
+    n_r = max(int(round(y * n)), 1)
+    set_r = keys_all[:n_r]
+    rest = keys_all[n_r:] if n_r < n else keys_all
+    n_w = max(int(round(s * n)), 1)
+    set_w = rng.permutation(keys_all)[:n_w]
+
+    u = rng.random(ops)
+    kinds = np.where(u < r, OP_CONTAINS,
+                     np.where(u < r + (1 - r) / 2, OP_INSERT, OP_DELETE)
+                     ).astype(np.int32)
+    take_pop = rng.random(ops) < x
+    k_pop = set_r[rng.integers(0, len(set_r), ops)]
+    k_rest = rest[rng.integers(0, len(rest), ops)]
+    k_reads = np.where(take_pop, k_pop, k_rest)
+    k_writes = set_w[rng.integers(0, len(set_w), ops)]
+    keys = np.where(kinds == OP_CONTAINS, k_reads, k_writes).astype(np.int32)
+    return OpStream(kinds, keys, _coins(rng, ops, p), populate)
+
+
+# ---------------------------------------------------------------------------
+# drift scenarios: epoch-shaped streams whose access distribution shifts
+# mid-run, the adversaries of the routing controller
+# ---------------------------------------------------------------------------
+
+class DriftStream(NamedTuple):
+    """An ``[E, B]`` epoch-shaped op stream with known distribution
+    transitions.  Contains-only (``kinds`` all zero) so every epoch is
+    eligible for the aggregate/plane-search serving path and the routed
+    exchange's answers stay bit-comparable across routing policies;
+    ``upd`` carries the Bernoulli(p) splay coins.  ``transitions`` are
+    the epoch indices whose batch is the *first* drawn from a shifted
+    distribution — the drift probe measures recovery time from them."""
+    kinds: np.ndarray        # int32[E, B] (all OP_CONTAINS)
+    keys: np.ndarray         # int32[E, B]
+    upd: np.ndarray          # bool[E, B]
+    populate: np.ndarray     # int32[n] sorted keys to insert first
+    transitions: tuple       # epoch indices of distribution shifts
+    name: str
+
+
+def _drift_pool(rng: np.random.Generator, n: int,
+                key_space: Optional[int] = None) -> np.ndarray:
+    key_space = key_space or 4 * n
+    return np.sort(rng.choice(key_space, n, replace=False)).astype(
+        np.int32)
+
+
+def rotating_hotset_workload(n: int, epochs: int, batch: int,
+                             period: int = 4, hot_frac: float = 0.01,
+                             hot_prob: float = 0.8, p: float = 0.1,
+                             seed: int = 0,
+                             key_space: Optional[int] = None
+                             ) -> DriftStream:
+    """Rotating hot set: ``hot_prob`` of each batch hits a *contiguous*
+    window of ``hot_frac·n`` keys (contiguous in sorted key order, so
+    under equal-lane boundaries the hot mass lands in one shard — the
+    worst case for the routed exchange), and every ``period`` epochs
+    the window jumps to a different region of the key space.  The rest
+    of the batch is uniform over the pool."""
+    rng = np.random.default_rng(seed)
+    pool = _drift_pool(rng, n, key_space)
+    h = max(int(round(hot_frac * n)), 1)
+    # ~golden-ratio stride: successive windows land in different lanes
+    stride = max(int(round(0.381 * n)), h)
+    kinds = np.zeros((epochs, batch), np.int32)
+    keys = np.empty((epochs, batch), np.int32)
+    transitions = []
+    for e in range(epochs):
+        phase = e // period
+        if e > 0 and e % period == 0:
+            transitions.append(e)
+        lo = (phase * stride) % max(n - h, 1)
+        hot = pool[lo:lo + h]
+        take = rng.random(batch) < hot_prob
+        keys[e] = np.where(take, hot[rng.integers(0, len(hot), batch)],
+                           pool[rng.integers(0, n, batch)])
+    return DriftStream(kinds, keys, _coins(rng, epochs * batch,
+                                           p).reshape(epochs, batch),
+                       pool, tuple(transitions), "rotating_hotset")
+
+
+def flash_crowd_workload(n: int, epochs: int, batch: int,
+                         onset: int = 3, duration: Optional[int] = None,
+                         crowd_frac: float = 0.01, spike: float = 100.0,
+                         p: float = 0.1, seed: int = 0,
+                         key_space: Optional[int] = None) -> DriftStream:
+    """Flash crowd: uniform traffic until ``onset``, then a sudden
+    ``spike``× per-key overweight on a previously *cold* contiguous
+    range of ``crowd_frac·n`` keys (at 100× over 1% of keys, roughly
+    half of every batch piles onto one lane's key range).  ``duration``
+    epochs later the crowd disperses back to uniform (default: holds to
+    the end)."""
+    rng = np.random.default_rng(seed)
+    pool = _drift_pool(rng, n, key_space)
+    c = max(int(round(crowd_frac * n)), 1)
+    lo = (2 * n) // 3                       # a cold, off-center range
+    w = np.ones(n, np.float64)
+    w[lo:lo + c] = spike
+    w /= w.sum()
+    kinds = np.zeros((epochs, batch), np.int32)
+    keys = np.empty((epochs, batch), np.int32)
+    end = epochs if duration is None else min(onset + duration, epochs)
+    transitions = [t for t in (onset, end) if 0 < t < epochs]
+    for e in range(epochs):
+        if onset <= e < end:
+            keys[e] = pool[rng.choice(n, batch, p=w)]
+        else:
+            keys[e] = pool[rng.integers(0, n, batch)]
+    return DriftStream(kinds, keys, _coins(rng, epochs * batch,
+                                           p).reshape(epochs, batch),
+                       pool, tuple(transitions), "flash_crowd")
+
+
+def diurnal_zipf_workload(n: int, epochs: int, batch: int,
+                          period: int = 6, s_day: float = 1.3,
+                          s_night: float = 0.4, p: float = 0.1,
+                          seed: int = 0,
+                          key_space: Optional[int] = None) -> DriftStream:
+    """Diurnal Zipf mixture: batches alternate every ``period/2``
+    epochs between a 'day' regime (Zipf(``s_day``) whose top ranks sit
+    at the *left* end of the sorted pool) and a 'night' regime
+    (Zipf(``s_night``), top ranks in the *middle*) — both the skew
+    exponent and the identity of the hot range move, so a boundary
+    split tuned for one phase is mis-tuned for the next."""
+    rng = np.random.default_rng(seed)
+    pool = _drift_pool(rng, n, key_space)
+    half = max(period // 2, 1)
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+
+    def probs(s):
+        q = ranks ** (-s)
+        return q / q.sum()
+
+    p_day, p_night = probs(s_day), probs(s_night)
+    # rank->key maps: day hot head at the left end, night in the middle
+    day_keys = pool
+    night_keys = np.roll(pool, n // 2)
+    kinds = np.zeros((epochs, batch), np.int32)
+    keys = np.empty((epochs, batch), np.int32)
+    transitions = []
+    for e in range(epochs):
+        phase = (e // half) % 2
+        if e > 0 and e % half == 0:
+            transitions.append(e)
+        kmap, pr = ((day_keys, p_day) if phase == 0
+                    else (night_keys, p_night))
+        keys[e] = kmap[rng.choice(n, batch, p=pr)]
+    return DriftStream(kinds, keys, _coins(rng, epochs * batch,
+                                           p).reshape(epochs, batch),
+                       pool, tuple(transitions), "diurnal_zipf")
+
+
+DRIFT_SCENARIOS = {
+    "rotating_hotset": rotating_hotset_workload,
+    "flash_crowd": flash_crowd_workload,
+    "diurnal_zipf": diurnal_zipf_workload,
+}
 
 
 def zipf_token_ids(rng: np.random.Generator, vocab: int, shape,

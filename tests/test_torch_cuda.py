@@ -28,10 +28,12 @@ import torch
 
 from repro_torch.core import device_index as tdix
 from repro_torch.core import splay_cache as tsc
+from repro_torch.core import skiplist as tskx
 from repro_torch.core import splaylist as tsx
 from repro_torch.core import workload as twl
 from repro_torch.kernels import fold
 from repro_torch.kernels import hot_gather as thg
+from repro_torch.kernels import skip_fold
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import splay_search as tssk
 
@@ -851,3 +853,77 @@ def test_sharded_search_on_two_card_ranks():
         assert r["routed"] and r["masked"] and r["b2_local"], r
         assert r["launches"] > 0 and r["device"].startswith("cuda"), r
         assert sum(r["occupancy"]) == 1001 + 3, r
+
+
+def _skip_cpu(st):
+    return tskx.SkipState(*(t.cpu() for t in st))
+
+
+@pytest.mark.parametrize("max_level", [20, 1, 33])
+def test_skip_fold_kernel_matches_plain(max_level):
+    """Kernel S against its plain fold: inserts of heights from
+    ``sample_heights``, then contains, deletes of present and absent
+    keys and revives; every state array, answer and path length, then
+    the batched searches on the result."""
+    rng = np.random.default_rng(max_level)
+    pool = rng.permutation(3000)[:1000].astype(np.int32)
+    pool[0] = tskx.NEG_INF_32 + 1
+    n = 3000
+    kinds = np.concatenate([np.full(1000, 1, np.int32),
+                            rng.choice(3, n - 1000, p=[0.4, 0.3, 0.3])])
+    keys = np.concatenate([pool, rng.choice(pool, n - 1000)]).astype(
+        np.int32)
+    keys[-50:] = rng.integers(5000, 6000, 50)
+    heights = tskx.sample_heights(np.random.default_rng(0), n, max_level,
+                                  device="cpu").numpy()
+    st0 = tskx.make(1200, max_level, device="cuda")
+    before = skip_fold.LAUNCHES["skip_fold"]
+    g = tskx.run_ops(st0, kinds, keys, heights)
+    assert skip_fold.LAUNCHES["skip_fold"] == before + 1
+    w = tskx.run_ops(_skip_cpu(st0), kinds, keys, heights)
+    _equal(g, w)
+    qs = np.concatenate([rng.choice(pool, 500), rng.integers(-9, 7000, 100)
+                         ]).astype(np.int32)
+    _equal(tskx.run_contains_batch(g[0], qs)[1:],
+           tskx.run_contains_batch(_skip_cpu(g[0]), qs)[1:])
+
+
+def test_skip_fold_capacity_exhausted():
+    """An insert past the capacity stops the launch before it writes
+    that op: the wrapper reports its index, run_ops raises, and the
+    caller's state is untouched."""
+    st = tskx.make(4, 4, device="cuda")
+    kinds, keys, hts = ([1, 1, 1, 0, 0], [10, 20, 30, 30, 20],
+                        [0, 1, 0, 0, 0])
+    with pytest.raises(RuntimeError, match="capacity 4 exhausted at op 2"):
+        tskx.run_ops(st, kinds, keys, hts)
+    assert int(st.n_alloc) == 2 and bool((st.nxt[:, 2:] == -1).all())
+    work = tskx.clone(st)
+    args = [torch.as_tensor(x, dtype=torch.int32, device="cuda")
+            for x in (kinds, keys, hts)]
+    res = torch.zeros(5, dtype=torch.bool, device="cuda")
+    plen = torch.full((5,), -7, dtype=torch.int32, device="cuda")
+    assert skip_fold.fold_ops(work, *args, res, plen) == 2
+    assert plen.tolist() == [0, 0, -7, -7, -7]
+    want = tskx.clone(_skip_cpu(st))
+    assert skip_fold.fold_ops(want, *(a.cpu() for a in args),
+                              torch.zeros(5, dtype=torch.bool),
+                              torch.zeros(5, dtype=torch.int32)) == 2
+    _equal(work, want)
+
+
+def test_concurrent_scaling_on_card_matches_cpu():
+    """Figs. 3-5 at a small size on the card and on the CPU: the same
+    per-batch path sums for both engines, every answer True, F and S
+    launched on the card's populates and F once a splay batch."""
+    from repro_torch.benchmarks import concurrent_scaling as tcs
+    g = tcs.run(n=1000, total_ops=1024, device="cuda")
+    w = tcs.run(n=1000, total_ops=1024, device="cpu")
+    for key, r in g.items():
+        if key[1] == "populate":
+            assert r["launches"] == {"splay_fold": 1, "skip_fold": 1}
+            continue
+        assert r["batch_psums"] == w[key]["batch_psums"], key
+        assert r["all_found"], key
+        if key[1] == "splay":
+            assert r["launches"]["splay_fold"] == 1024 // key[2], key

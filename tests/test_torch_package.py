@@ -1,6 +1,7 @@
 """PyTorch port, package hygiene: ``repro_torch`` (and the card's smoke
-script) imports neither JAX nor anything of the JAX package, and its
-entry points refuse to fall back to the CPU when no card is present."""
+script) imports neither JAX nor anything of the JAX package (nor the
+reference's ``benchmarks`` modules), and its entry points refuse to
+fall back to the CPU when no card is present."""
 
 import ast
 import os
@@ -33,7 +34,7 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -54,14 +55,20 @@ def test_every_module_imports_without_jax_or_repro():
               "train.checkpoint", "serve.snapshot", "train.optimizer",
               "parallel.compression", "train.train_step", "train.data",
               "train.straggler", "launch.train", "parallel.collectives",
-              "train.elastic", "launch.spmd"):
+              "train.elastic", "launch.spmd", "core.skiplist",
+              "core.cbtree", "kernels.skip_fold", "benchmarks.common",
+              "benchmarks.seq_tables", "benchmarks.uniform_zipf",
+              "benchmarks.general_workloads", "benchmarks.long_run",
+              "benchmarks.height_correlation",
+              "benchmarks.concurrent_scaling", "benchmarks.run",
+              "benchmarks.drift_probe"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
