@@ -135,7 +135,8 @@ Phases:
    ``clocks.max.sm``, one compare per element and query) and printed
    beside the bound with an add per compare and the fp32-rate bound of
    the earlier runs;
-7. one paper-scale epoch layer by layer (host clock), and once under
+7. one paper-scale epoch layer by layer (host clock; the search of
+   ``fold_entries`` is kernel W), and once under
    ``torch.profiler``: the device's busy time is the union of the
    traced kernels' intervals; the same for one vocab-tier lookup of a
    prefill chunk, the same chunk through the reference's composition,
@@ -158,18 +159,34 @@ Phases:
    after each transition and the wall seconds;
 10. the paper's Figs. 3-5 on the card (``benchmarks/
    concurrent_scaling.py``, :func:`scaling_phase`): 10^5 keys, the
-   90-10 and 99-1 workloads, 8192 contains (cut from the reference's
-   65536: the phase stays within 90 s) in batches of 16, 64 and 256,
-   the splay-list (F) against the skip-list (S populates it); ops/s, mean path, ms a batch and launches of F and S for each; the
-   first batches at B = 256 replayed on the CPU; S's populate and a
-   mixed list against its plain fold, timed by events.
+   90-10 and 99-1 workloads, the reference's 65536 contains in batches
+   of 16, 64 and 256, the splay-list (W and F a batch) against the
+   skip-list (W a batch; S populates it); ops/s, mean path, ms a batch
+   and launches of F, S and W for each; the first batches at B = 256
+   replayed on the CPU; S's populate and a mixed list against its plain
+   fold, timed by events;
+11. kernel W, the state walk of both engines' ``find_batch``
+   (:func:`walk_phase`), against its plain loop on the card, bit for
+   bit: phase 10's states, the paper serving state, small states with
+   marked keys, lazy nodes and a rebuilt bottom, batches of 0, 1 and
+   333, a POS_INF_32 key and a cyclic state; then per launch by graph
+   replay at the phase-7 shape and at B = 16, 64, 256 on phase 10's
+   states, beside the longest lane and its latency floor;
+12. the four example entry points (``repro_torch.examples``,
+   :func:`examples_phase`), each through its ``main``: ``quickstart``
+   (equal to its run on CPU tensors), ``splay_workloads`` (the host
+   engines, as in the reference: nothing of it runs on the card),
+   ``train_adaptive_lm``'s 60 smoke steps, and ``serve_adaptive`` (the
+   engine demo, then the sharded demos on the 4 gloo ranks on the card
+   that its ``main`` spawns).
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
 5's prefill and serving run, phase 5's full-width searches, phase 5b's
 flushes and lookups, phase 5c's ordered run, phase 5d's pool, phase
 5e's device-indexed engine, phase 5f's run A, phase 6's timed
-composition, phase 10's race) and read just after it, before any
+composition, phase 10's race, phase 12's quickstart, workloads, train
+run and engine demo) and read just after it, before any
 check or reference run; the launches of the pools restored from snapshots (phases 5d and
 5e) are counted apart, as path ``snapshot``.  Every kernel of a path must
 have run on it; on the vocab tier the fused gather runs once per
@@ -178,9 +195,12 @@ epoch.  The kernels line reports each kernel's launches on the path it
 serves (B1 and F: phase 3, the main path; B2: phase 5; B5: phase 5's
 full-width searches; B4 and the fused gather: phase 5b; B3, whose only
 caller in the reference is the composition: phase 6's timed
-composition; S: phase 10's race); ``launches_by_path`` adds every
+composition; S: phase 10's race; W: phase 3 for the splay-list and
+phase 10's race for the skip-list); ``launches_by_path`` adds every
 other path, the engine's, ``snapshot`` and ``train`` (which launches none of them)
-among them.  Prints that JSON line, the card's ``name, power.limit``,
+among them, and the ranks of phase 9 (``sharded``) and of phase 12's
+sharded demos (``examples_sharded``).  Prints that JSON line, the
+card's ``name, power.limit``,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, with no result line, on any failed check or without a CUDA
 device.
@@ -837,7 +857,8 @@ SHARDED_RANKS = 4        # phase 9: ranks, one process each
 SHARDED_CPU_EPOCHS = 2   # phase 9: epochs held against the CPU plain path
 SHARDED_PROFILE_EPOCHS = 4
 SHARDED_KERNELS = ("splay_search_tiered", "splay_search_pipelined",
-                   "splay_fold")   # B1, B2, F: every rank launches each
+                   "splay_fold", "splay_walk")   # B1, B2, F, W: every
+                                                 # rank launches each
 
 
 def merged(spans) -> list:
@@ -1257,14 +1278,14 @@ def sharded_phase(torch, dev, job, backend: str) -> dict:
               f"{sp['other_device_ms']}; NCCL kernels "
               f"{sp['collective_device_ms']}; idle share "
               f"{sp['idle_share']}", flush=True)
-        print(f"[9]   rank {r['rank']} launches (B1, B2, F) by run: "
+        print(f"[9]   rank {r['rank']} launches (B1, B2, F, W) by run: "
               + "; ".join(f"{run} {[c[k] for k in SHARDED_KERNELS]}"
                           for run, c in r["launches"].items()), flush=True)
         print(f"[9]   rank {r['rank']} memory: {r['memory']}", flush=True)
     for r in ranks:
         par, ben = r["drift_parity"], r["drift_bench"]
         print(f"[9]   rank {r['rank']} drift battery ({r['drift_s']:.1f} s; "
-              f"launches (B1, B2, F) "
+              f"launches (B1, B2, F, W) "
               f"{[r['launches']['drift'][k] for k in SHARDED_KERNELS]}): "
               f"parity "
               f"W={par['width']} B={par['batch']} E={par['epochs']} K="
@@ -1302,8 +1323,7 @@ def sharded_phase(torch, dev, job, backend: str) -> dict:
 
 
 SCALING_N = 100_000       # phase 10: keys (the paper's Tables 1-3)
-SCALING_OPS = 8192        # phase 10: contains a race (cut from the
-                          # reference's 65536 to keep the phase in 90 s)
+SCALING_OPS = 65536       # phase 10: contains a race (the reference's)
 SCALING_CHECK = 4         # phase 10: B=256 batches replayed on the CPU
 S_LIST = 4096             # phase 10: S's timed mixed list
 
@@ -1313,9 +1333,9 @@ def scaling_phase(torch, dev, read_launches) -> dict:
     (``benchmarks/concurrent_scaling.py``): 10^5 keys, the 90-10 and
     99-1 workloads (``xy_workload``, seed 9), ``SCALING_OPS`` contains
     in batches of 16, 64 and 256, the splay-list (coins p = 1/100 from
-    ``default_rng(1)``; find_batch and one F launch a batch) raced
+    ``default_rng(1)``; one W and one F launch a batch) raced
     against the skip-list (heights from ``default_rng(0)``, populated by
-    one S launch; find_batch), max level 20, capacity 2n + 4.  Every
+    one S launch; one W launch a batch), max level 20, capacity 2n + 4.  Every
     answer must be True; the first ``SCALING_CHECK`` batches at B = 256
     replayed on CPU copies of the card's starting states through the
     plain versions must give the same path sums and states.  Then S
@@ -1331,7 +1351,8 @@ def scaling_phase(torch, dev, read_launches) -> dict:
     t = time.perf_counter()
     ops.reset_launch_counts()
     res = cs.run(n=n, total_ops=total, device=dev, keep_start=True)
-    read_launches("paper_scaling", ("splay_fold", "skip_fold"))
+    read_launches("paper_scaling", ("splay_fold", "skip_fold", "splay_walk",
+                                    "skip_walk"))
     race_s = time.perf_counter() - t
     for key, r in res.items():
         if key[1] == "populate":
@@ -1346,7 +1367,9 @@ def scaling_phase(torch, dev, read_launches) -> dict:
               f"longest lane of a batch {r['loop_steps']:.2f} on average), "
               f"{r['ms_per_batch']:.4f} ms a batch; launches F "
               f"{r['launches']['splay_fold']} S "
-              f"{r['launches']['skip_fold']}", flush=True)
+              f"{r['launches']['skip_fold']} W "
+              f"{r['launches']['splay_walk'] + r['launches']['skip_walk']}",
+              flush=True)
     ratio = {f"{tag}/B{B}": res[(tag, "splay", B)]["ops_s"]
              / res[(tag, "skip", B)]["ops_s"]
              for _, _, tag in cs.WORKLOADS for B in cs.BATCHES}
@@ -1449,6 +1472,9 @@ def scaling_phase(torch, dev, read_launches) -> dict:
     mix_steps = out["mixed"]["walk_steps"]
     out["ratio"] = ratio
     out["race_s"] = race_s
+    out["starts"] = {(tag, eng): res[(tag, eng, 256)]["start"]
+                     for _, _, tag in cs.WORKLOADS
+                     for eng in ("splay", "skip")}
     out["phase_s"] = time.perf_counter() - t
     print(f"[10] S alone: the populate of {n} keys {g_pop[3]:.3f} ms a "
           f"launch (events; plain fold on the host CPU {c_pop[3]:.1f} ms), "
@@ -1457,6 +1483,289 @@ def scaling_phase(torch, dev, read_launches) -> dict:
           f"equal their plain folds; the phase {out['phase_s']:.1f} s",
           flush=True)
     return out
+
+
+WALK_LOADS = {"splay_walk": 3, "skip_walk": 2}   # dependent loads a step
+
+
+def walk_footprint(torch, st, ks) -> int:
+    """The bytes a batch's walks must move at least: the keys read, the
+    slots and steps written, and each distinct state entry the walks
+    read (``key`` and ``nxt`` entries, and ``nzero`` entries and ``zl``
+    on the splay-list) once; from the reads of the plain walk on the
+    card."""
+    from repro_torch.kernels import state_walk as sw
+    lazy = hasattr(st, "nzero")
+    C = st.capacity
+    reads = []
+    (sw.splay_walk_plain if lazy else sw.skip_walk_plain)(st, ks, reads)
+
+    def distinct(xs):
+        return int(torch.unique(torch.cat(xs)).numel()) if xs else 0
+
+    nxt_seen = [lvl * C + p % C for lvl, p, _ in reads]
+    key_seen = [ks.new_full((1,), sw.HEAD, dtype=torch.int64)] + [
+        c % C for _, _, c in reads]
+    nz_seen = [p % C for _, p, _ in reads] if lazy else []
+    return 12 * ks.shape[0] + 4 * (distinct(nxt_seen) + distinct(key_seen)
+                                   + distinct(nz_seen) + (1 if lazy else 0))
+
+
+def walk_phase(torch, dev, st3, k0, starts, chase_l2, graph_ms,
+               eager_ms) -> dict:
+    """Phase 11: kernel W, the state walk of both engines' find_batch,
+    against its plain loop on the card, bit for bit in slot and steps:
+    phase 10's populated states (256 queries of each workload and 4096
+    random keys, absent and negative ones among them), the paper serving
+    state after its 25 epochs (4096 contains), small states with
+    delete-marked keys, lazy nodes and a bottom raised by a rebuild,
+    batches of 0, 1 and 333, a POS_INF_32 key (refused) and a cyclic
+    state (the step bound).  Then W per launch by graph replay at the
+    phase-7 shape and at B = 16, 64 and 256 on phase 10's states, each
+    beside its longest lane, the latency floor (the longest lane's
+    dependent loads x the pointer chase's ns in L2) and the bytes bound;
+    the plain loop and a find_batch call by events.  Returns the
+    readings for the kernels line."""
+    from repro_torch.benchmarks import concurrent_scaling as cs
+    from repro_torch.core import skiplist as skx
+    from repro_torch.core import splaylist as sx
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import state_walk as sw
+
+    plains = {"splay_walk": sw.splay_walk_plain,
+              "skip_walk": sw.skip_walk_plain}
+    mods = {"splay_walk": sx, "skip_walk": skx}
+    errs = {"splay_walk": 0, "skip_walk": 0}
+    cases = {"splay_walk": 0, "skip_walk": 0}
+
+    def name_of(st):
+        return "splay_walk" if hasattr(st, "nzero") else "skip_walk"
+
+    def hold(st, q, what):
+        name = name_of(st)
+        got = mods[name].find_batch(st, q)
+        want = plains[name](st, q)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"W {name} {what}: differs from its plain loop "
+              f"(err {e})")
+        errs[name] = max(errs[name], e)
+        cases[name] += 1
+        return got
+
+    n = SCALING_N
+    rng = np.random.default_rng(21)
+    rand = torch.as_tensor(np.concatenate([
+        rng.integers(-2 * n, 0, 1024), rng.integers(0, 4 * n, 3072)])
+        .astype(np.int32), device=dev)
+    for x, y, tag in cs.WORKLOADS:
+        wq = torch.as_tensor(wl.xy_workload(n, x, y, SCALING_OPS, seed=9)
+                             .keys[:256], device=dev)
+        for eng in ("splay", "skip"):
+            st = starts[(tag, eng)]
+            hold(st, wq, f"{tag} {eng} 256 workload keys")
+            hold(st, rand, f"{tag} {eng} 4096 random keys")
+            for nq in (0, 1, 333):
+                hold(st, rand[:nq], f"{tag} {eng} batch of {nq}")
+    hold(st3, k0, "paper serving state, 4096 contains")
+
+    # small states (the recipe of tests/test_torch_state_walk.py): 240
+    # inserts, then 20 deletes and six contains epochs (marked keys and
+    # lazy nodes), or 80 deletes, whose hits fire a rebuild that
+    # compacts the list and leaves its bottom above level 0, four
+    # epochs and 12 fresh inserts (lazy nodes again)
+    for what, seed in (("marked", 1), ("rebuilt", 2)):
+        srng = np.random.default_rng(seed)
+        pool = srng.permutation(1000)[:240].astype(np.int32)
+        st = sx.make(320, 10, device=dev)
+        st, _, _ = sx.run_ops(st, np.full(240, sx.OP_INSERT, np.int32),
+                              pool, srng.random(240) < 0.5)
+        gone = pool[:20] if what == "marked" else pool[::3]
+        live = np.setdiff1d(pool, gone)
+        st, _, _ = sx.run_ops(st, np.full(len(gone), sx.OP_DELETE,
+                                          np.int32), gone,
+                              np.zeros(len(gone), bool))
+        hot = srng.choice(live, 24)
+        for e in range(6 if what == "marked" else 4):
+            qs = np.where(srng.random(128) < 0.7, srng.choice(hot, 128),
+                          srng.choice(live, 128)).astype(np.int32)
+            st, _, _ = sx.run_contains_batch(st, qs, srng.random(128) < 0.6,
+                                             aggregate=bool(e % 2))
+        if what == "rebuilt":
+            new = (1000 + srng.permutation(500)[:12]).astype(np.int32)
+            st, _, _ = sx.run_ops(st, np.full(12, sx.OP_INSERT, np.int32),
+                                  new, srng.random(12) < 0.5)
+            pool = np.concatenate([pool, new])
+        nz = st.nzero[2:int(st.n_alloc)]
+        check(bool((nz > st.zl).any()) and int(st.zl) > 0,
+              f"small {what} state: no lazy node or zl == 0")
+        check(int(st.deleted.sum()) == 20 if what == "marked"
+              else int(st.n_alloc) == 2 + 160 + 12,
+              f"small {what} state: marks lost or no rebuild")
+        q = torch.as_tensor(np.concatenate([
+            pool, srng.integers(-50, 2000, 120),
+            [sx.NEG_INF_32, -1, 1000, 2000, sx.POS_INF_32 - 1]])
+            .astype(np.int32), device=dev)
+        for nq in (0, 1, 333, q.shape[0]):
+            hold(st, q[:nq], f"small {what} state, batch of {nq}")
+    for name, mod in mods.items():
+        st = mod.make(8, 4, device=dev)
+        try:
+            mod.find_batch(st, [3, sx.POS_INF_32])
+            fail(f"W {name}: a POS_INF_32 key did not raise")
+        except ValueError:
+            pass
+        if name == "splay_walk":
+            st.nzero[2] = 0
+            st.top[2] = 3
+        st.key[2] = 5
+        st.nxt[:, 0] = 2
+        st.nxt[:, 2] = 0
+        try:
+            mod.find_batch(st, [3, 10])
+            fail(f"W {name}: a cyclic state did not raise")
+        except RuntimeError as e:
+            check("step bound" in str(e), f"W {name}: {e}")
+    print(f"[11] W against its plain loop on the card, bit for bit: "
+          f"{cases} cases (phase 10's states at 10^5 keys, the paper "
+          f"serving state, small states with marked keys, lazy nodes and "
+          f"a rebuilt bottom; batches of 0, 1, 333); a POS_INF_32 key "
+          f"raises ValueError and a cyclic state RuntimeError on both "
+          f"engines", flush=True)
+
+    def timed(st, q, what):
+        name = name_of(st)
+        steps = mods[name].find_batch(st, q)[1]
+        longest = int(steps.max())
+        ms = graph_ms(torch, sw.launcher(st, q))
+        floor_ms = longest * WALK_LOADS[name] * chase_l2 * 1e-6
+        nbytes = walk_footprint(torch, st, q)
+        r = dict(ms=ms, longest=longest, steps=int(steps.sum()),
+                 floor_ms=floor_ms, nbytes=nbytes, nq=q.shape[0])
+        print(f"[11] W {name} {what} q={q.shape[0]}: {ms:.5f} ms a launch "
+              f"(graph replay); longest lane {longest} steps (mean "
+              f"{r['steps'] / q.shape[0]:.2f}); latency floor {longest} x "
+              f"{WALK_LOADS[name]} dependent loads x {chase_l2:.1f} ns = "
+              f"{floor_ms:.5f} ms; {nbytes} B to move", flush=True)
+        return r
+
+    out = {"errs": errs, "splay_walk": {}, "skip_walk": {}}
+    r = timed(st3, k0, "phase-7 shape (paper serving state)")
+    r["call_ms"] = eager_ms(torch, lambda: sx.find_batch(st3, k0), 20)
+    r["plain_ms"] = eager_ms(torch, lambda: sw.splay_walk_plain(st3, k0),
+                             3, 1)
+    print(f"[11] W splay_walk phase-7 shape: find_batch call "
+          f"{r['call_ms']:.5f} ms (events, the key check and the status "
+          f"read included); plain loop {r['plain_ms']:.3f} ms", flush=True)
+    out["splay_walk"]["phase7"] = r
+    for x, y, tag in cs.WORKLOADS:
+        keys = wl.xy_workload(n, x, y, SCALING_OPS, seed=9).keys
+        for eng in ("splay", "skip"):
+            st = starts[(tag, eng)]
+            for B in cs.BATCHES:
+                q = torch.as_tensor(keys[:B], device=dev)
+                r = timed(st, q, f"{tag} {eng} B={B}")
+                if B == 256:
+                    r["plain_ms"] = eager_ms(
+                        torch, lambda: plains[name_of(st)](st, q), 3, 1)
+                    r["call_ms"] = eager_ms(
+                        torch, lambda: mods[name_of(st)].find_batch(st, q),
+                        20)
+                    print(f"[11] W {tag} {eng} B=256: find_batch call "
+                          f"{r['call_ms']:.5f} ms (events); plain loop "
+                          f"{r['plain_ms']:.3f} ms", flush=True)
+                out[name_of(st)][f"{tag}/B{B}"] = r
+    return out
+
+
+def examples_phase(torch, dev, read_launches) -> dict:
+    """Phase 12: the example twins (``repro_torch.examples``) through
+    their ``main``.  ``quickstart`` on the card, its numbers equal to the
+    same twin on CPU tensors; ``splay_workloads`` at its own sizes, which
+    drives the host engines as the reference does and so launches
+    nothing on the card; ``train_adaptive_lm``'s 60 smoke steps
+    (checkpoints into a temporary directory under ``build/``, removed
+    after), every loss finite; ``serve_adaptive``: the engine demo on
+    the card, then the sharded demos on ``SERVE_SHARDS`` (4) gloo ranks
+    on the card, which ``main`` spawns, each rank launching W.  Returns
+    every kernel's launches by rank."""
+    import shutil
+
+    from repro_torch.examples import quickstart, serve_adaptive
+    from repro_torch.examples import splay_workloads, train_adaptive_lm
+    from repro_torch.kernels import ops
+
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    got = quickstart.main([])
+    read_launches("examples_quickstart", ("splay_fold", "splay_walk"))
+    q_s = time.perf_counter() - t
+    want = quickstart.main(["--device", "cpu"])
+    check(got == want, f"quickstart on the card {got} differs from CPU "
+          f"tensors {want}")
+    print(f"[12] quickstart on the card ({q_s:.1f} s): {got}, equal to "
+          f"the twin on CPU tensors", flush=True)
+
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    rows = splay_workloads.main([])
+    read_launches("examples_workloads", ())
+    wk_s = time.perf_counter() - t
+    check(len(rows) == len(splay_workloads.ENGINES)
+          and all(r[2] > 0 and math.isfinite(r[3]) for r in rows),
+          f"splay_workloads: {rows}")
+    paths = {(e, p): path for e, p, _, path in rows}
+    check(paths[("splaylist", 1.0)] < paths[("skiplist", 1.0)],
+          f"splay_workloads: the splay-list's path is not shorter: {rows}")
+    print(f"[12] splay_workloads on the host engines ({wk_s:.1f} s, no "
+          f"launch on the card): avg path {paths}", flush=True)
+
+    (HERE / "build").mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="train-example-",
+                                 dir=HERE / "build"))
+    try:
+        t = time.perf_counter()
+        ops.reset_launch_counts()
+        losses = train_adaptive_lm.main(["--ckpt-dir", str(ckpt)])
+        read_launches("examples_train", ())
+        tr_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(len(losses) == 60 and all(math.isfinite(v) for v in losses),
+          f"train_adaptive_lm: {len(losses)} losses, {losses[-3:]}")
+    print(f"[12] train_adaptive_lm on the card: 60 steps in {tr_s:.1f} s, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+
+    # the engine demo runs in this process, the sharded demos in the
+    # ranks main spawns: this process's counts are the engine demo's
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    try:
+        out = serve_adaptive.main([])
+    except RuntimeError as e:
+        fail(f"phase 12: {e}")
+    read_launches("examples_serve_engine", ())
+    sv_s = time.perf_counter() - t
+    ranks = out["ranks"]
+    check(len(out["engine"]) == 10, f"serve_adaptive engine demo: "
+          f"{out['engine']}")
+    check(len(ranks) == serve_adaptive.N_SHARDS >= 2,
+          f"serve_adaptive ran {len(ranks)} ranks")
+    for i, r in enumerate(ranks):
+        check(r["device"].startswith("cuda"), f"phase 12 rank {i} on "
+              f"{r['device']}")
+        check(r["launches"]["splay_walk"] > 0, f"phase 12 rank {i} never "
+              "launched W")
+    sharded = ranks[0]["lines"]
+    check(any("re-split recovery" in line for line in sharded)
+          and any("controller recovery" in line for line in sharded),
+          f"serve_adaptive's sharded demos: {sharded}")
+    print(f"[12] serve_adaptive on the card ({sv_s:.1f} s; the sharded "
+          f"demos on {len(ranks)} gloo ranks): launches by rank "
+          + "; ".join(f"rank {i} {r['launches']}"
+                      for i, r in enumerate(ranks)), flush=True)
+    return {k: {f"rank{i}": r["launches"][k] for i, r in enumerate(ranks)}
+            for k in ranks[0]["launches"]}
 
 
 def main() -> None:
@@ -1796,7 +2105,8 @@ def main() -> None:
                          plane_search=True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t
-    read_launches("paper_serving", ("splay_search_tiered", "splay_fold"))
+    read_launches("paper_serving", ("splay_search_tiered", "splay_fold",
+                                    "splay_walk"))
     peak = torch.cuda.max_memory_allocated()
     print(f"    max_memory_allocated {peak} B", flush=True)
     walk = sx.run_serving(st, plane0, kinds, keys, upd, aggregate=True)
@@ -2619,7 +2929,7 @@ def main() -> None:
     work = sx.clone(st3)
     layers = {
         "search": lambda: ops.splay_search(plane3, k0),
-        "find_batch": lambda: sx.find_batch(st3, k0),
+        "W (find_batch)": lambda: sx.find_batch(st3, k0),
         "fold_entries": lambda: sx.fold_entries(st3, k0, u0, True),
         "state_clone": lambda: sx.clone(st3),
         "fold_kernel": lambda: fold.fold_weighted(sx.clone(work), *entries),
@@ -2639,7 +2949,7 @@ def main() -> None:
         torch.cuda.synchronize()
         split[name] = round(1e3 * (time.perf_counter() - t) / 5, 4)
     print(f"[7] one epoch, host clock ms (fold_kernel includes a state "
-          f"clone; fold_entries includes find_batch): {split}", flush=True)
+          f"clone; fold_entries includes W): {split}", flush=True)
     traced(torch, "epoch", layers["epoch"], split["epoch"])
 
     # the vocab tier: one prefill-chunk lookup (one fused gather), the
@@ -2772,10 +3082,21 @@ def main() -> None:
 
     # ---- phase 10: the paper's Figs. 3-5 on the card --------------------
     sc10 = scaling_phase(torch, dev, read_launches)
+
+    # ---- phase 11: kernel W, the state walk -----------------------------
+    w11 = walk_phase(torch, dev, st3, k0, sc10["starts"], chase["l2"],
+                     stm.graph_ms, stm.eager_ms)
+    errs.update(w11["errs"])
+
+    # ---- phase 12: the example entry points ------------------------------
+    ex_by_rank = examples_phase(torch, dev, read_launches)
+
     pop, mix = sc10["populate"], sc10["mixed"]
     for k in kernels:
-        k["launches_by_path"]["paper_scaling"] = \
-            path_launches["paper_scaling"][k["name"]]
+        for path in ("paper_scaling", "examples_quickstart",
+                     "examples_workloads", "examples_train",
+                     "examples_serve_engine"):
+            k["launches_by_path"][path] = path_launches[path][k["name"]]
     # bound: the op list read (kind, key, height) and the answers written
     # (res, plen), and the state entries the fold changed, read and
     # written
@@ -2787,8 +3108,27 @@ def main() -> None:
           mixed_ops=mix["ops"], mixed_walk_steps=mix["walk_steps"],
           mixed_bound_ms=bound(17 * mix["ops"] + 2 * mix["changed"], 0)[0],
           splay_over_skip_ops_s=sc10["ratio"])
+    # W: device time per launch by graph replay; bound: the keys read,
+    # the slots and steps written and each distinct state entry the
+    # walks read, once (walk_footprint); beside it the latency floor
+    for name, path, shape, line in (
+            ("splay_walk", "paper_serving", "phase7",
+             "src/repro/core/splaylist.py:157 (find, _eff_next :119)"),
+            ("skip_walk", "paper_scaling", "99-1/B256",
+             "src/repro/core/skiplist.py:160 (find)")):
+        r = w11[name][shape]
+        entry(name, path, "src/repro_torch/kernels/csrc/state_walk.cu",
+              line, r["ms"], r["plain_ms"], r["nbytes"], 0,
+              ms_is=f"device time per launch, graph replay, at {shape} "
+              f"(q={r['nq']})", call_ms=r["call_ms"],
+              longest_lane=r["longest"], latency_floor_ms=r["floor_ms"],
+              by_shape={k: {f: v[f] for f in ("ms", "longest", "floor_ms",
+                                              "nq")}
+                        for k, v in w11[name].items()})
     for k in kernels:
         k["launches_by_path"]["sharded"] = by_rank.get(k["name"], {})
+        k["launches_by_path"]["examples_sharded"] = ex_by_rank.get(
+            k["name"], {})
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,9 +3,10 @@
 The paper's threads become batch lanes: a batch of B lock-free searches
 runs data-parallel against a state snapshot, and the updates fold
 serially, so B plays the role of the thread count.  Races the
-splay-list (p = 1/100: ``splaylist.run_contains_batch``, a batched
-search and one launch of kernel F's weighted fold a batch) against the
-skip-list baseline (``skiplist.run_contains_batch``, a batched search)
+splay-list (p = 1/100: ``splaylist.run_contains_batch``, one launch of
+kernel W's walk and one of kernel F's weighted fold a batch) against the
+skip-list baseline (``skiplist.run_contains_batch``, one W launch a
+batch)
 on the 90-10 and 99-1 workloads, for B in {16, 64, 256}.  Kernel F
 populates the splay-list and kernel S the skip-list, once a workload;
 each B races from those states, after the reference's warm-up
@@ -64,7 +65,7 @@ def race(engine: str, st, batches, coins=None):
     """Run the batches in order: ``(state, [per-batch path sums],
     [per-batch longest path], every answer True)``, all on the device.
     ``coins`` (splay-list only) is the per-batch update mask.  A batch's
-    longest path is the step count of its ``find_batch`` loop."""
+    longest path is the steps of its longest ``find_batch`` lane."""
     sums, longest = [], []
     found = torch.ones((), dtype=torch.bool, device=st.device)
     for i in range(batches.shape[0]):
@@ -80,7 +81,8 @@ def race(engine: str, st, batches, coins=None):
 
 def _launches() -> dict:
     c = kops.launch_counts()
-    return {k: c[k] for k in ("splay_fold", "skip_fold")}
+    return {k: c[k] for k in ("splay_fold", "skip_fold", "splay_walk",
+                              "skip_walk")}
 
 
 def _sync(dev):

@@ -28,8 +28,10 @@ slot 0 = head, slot 1 = tail):
     size      int32[]      unmarked key count
 
 Execution model.  ``find_batch`` (and so ``run_contains_batch``) is one
-masked torch loop over the batch, each lane stepping as the reference's
-vmapped ``while_loop`` does.  ``run_ops``, the serialized fold of
+launch of kernel W (``kernels/state_walk.py``) on the card, each lane
+stepping as the reference's vmapped ``while_loop`` does with no walk
+step waiting on the host; on CPU tensors it is W's plain version, a
+masked torch loop over the batch.  ``run_ops``, the serialized fold of
 contains / insert / delete, is one launch of kernel S
 (``kernels/skip_fold.py``) on CUDA tensors and its plain step-by-step
 fold on CPU tensors.  Inserts take pre-sampled heights
@@ -53,7 +55,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.splaylist import _device, _op_tensor
+from repro_torch.core.splaylist import (_check_walk_keys, _device,
+                                        _op_tensor)
+from repro_torch.kernels import state_walk
 
 NEG_INF = -(1 << 62)
 POS_INF = (1 << 62)
@@ -205,39 +209,16 @@ def clone(st: SkipState) -> SkipState:
     return SkipState(*(t.clone() for t in st))
 
 
-def _check_walk_keys(keys: torch.Tensor) -> None:
-    if keys.numel() and bool((keys >= POS_INF_32).any()):
-        raise ValueError("state-walk keys must lie below POS_INF_32 (a "
-                         "walk for the tail sentinel's key never returns)")
-
-
 def find_batch(st: SkipState, ks) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Vectorised search for a batch of keys (read-only): ``(slot,
-    steps)`` int32, slot -1 where the key is not physically present;
-    ``steps`` counts advances and descents.  One masked loop over the
-    batch, each lane stepping as the scalar walk would."""
+    """Search for a batch of keys (read-only): ``(slot, steps)`` int32,
+    slot -1 where the key is not physically present; ``steps`` counts
+    advances and descents.  One launch of kernel W
+    (``kernels/state_walk.py``) on the card, its plain masked loop on
+    the CPU; each lane steps as the scalar walk would.  Keys
+    ``>= POS_INF_32`` raise ``ValueError`` before any walk."""
     ks = _op_tensor(ks, torch.int32, st.device)
     _check_walk_keys(ks)
-    n = ks.shape[0]
-    dev = st.device
-    pred = torch.full((n,), HEAD, dtype=torch.int64, device=dev)
-    h = torch.full((n,), st.max_level - 1, dtype=torch.int64, device=dev)
-    steps = torch.zeros((n,), dtype=torch.int32, device=dev)
-    found = torch.zeros((n,), dtype=torch.bool, device=dev)
-    key = st.key
-    active = torch.ones((n,), dtype=torch.bool, device=dev)
-    while bool(active.any()):
-        curr = st.nxt[h, pred].to(torch.int64)
-        adv = key[curr] <= ks
-        found = torch.where(active & ~adv, key[pred] == ks, found)
-        pred = torch.where(active & adv, curr, pred)
-        h = torch.where(active & ~adv, h - 1, h)
-        steps = steps + active.to(torch.int32)
-        active = (h >= 0) & ~found
-    # a match is also seen on the descent past the bottom
-    found = found | (key[pred] == ks)
-    slot = torch.where(found & (pred != HEAD), pred, -1)
-    return slot.to(torch.int32), steps
+    return state_walk.skip_walk(st, ks)
 
 
 def find(st: SkipState, k) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -19,16 +19,23 @@ one sentinel level on top; slot 0 = head, slot 1 = tail):
 
 ``cnt`` is ``torch.int32`` (exact for m < 2^30) or ``torch.int64``.
 
-Execution model.  The batched searches (``find_batch``), ``rebuild``
-and the epoch's plane work are vectorised torch ops.  The serialized
-update fold — ``run_ops`` and the fold of ``run_contains_batch`` —
-branches on the state at every step, so on the card it is one CUDA
+Execution model.  The batched search (``find_batch``) is one launch
+of kernel W (``kernels/state_walk.py``) on the card, one thread walking
+each query through the state in device memory, so no walk step waits
+on the host; on CPU tensors it is W's plain version, a masked torch
+loop over the batch.  ``rebuild`` and the epoch's plane work are
+vectorised torch ops.  The serialized update fold — ``run_ops`` and
+the fold of ``run_contains_batch`` — branches on the state at every
+step, so on the card it is one CUDA
 kernel (``kernels/fold.py``, kernel F) walking the state in device
 memory; on CPU tensors it is the step-by-step fold below (``_find``,
 ``_update``, ``_fill_down``, ``_link_bottom`` and the op bodies), which
 mirrors the JAX ``_update`` branch for branch and is the kernel's plain
 version.  The state is functional at the public surface: every entry
 point returns a new ``SplayState`` and leaves its argument untouched.
+Walk keys stay below ``POS_INF_32``: a walk for the tail sentinel's key
+never returns in the reference, and ``find_batch`` raises ``ValueError``
+for one.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (or hands in CPU tensors); without a card a CUDA
@@ -41,6 +48,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import state_walk
 
 NEG_INF_32 = -(2 ** 31) + 1
 POS_INF_32 = 2 ** 31 - 1
@@ -149,39 +158,28 @@ def clone(st: SplayState) -> SplayState:
 
 
 # ---------------------------------------------------------------------------
-# find_batch — the lock-free search phase (pure, vectorised)
+# find_batch — the lock-free search phase (pure; kernel W)
 # ---------------------------------------------------------------------------
 
+def _check_walk_keys(keys: torch.Tensor) -> None:
+    """Refuse walk keys ``>= POS_INF_32`` (both engines): the walk for
+    the tail sentinel's key never returns."""
+    if keys.numel() and bool((keys >= POS_INF_32).any()):
+        raise ValueError("state-walk keys must lie below POS_INF_32 (a "
+                         "walk for the tail sentinel's key never returns)")
+
+
 def find_batch(st: SplayState, ks) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Vectorised lock-free search for a batch of keys (read-only):
-    ``(slot, steps)`` int32, slot -1 where the key is not physically
-    present; ``steps`` counts horizontal moves + level descents (the
-    paper's 'average length of a path' metric).  One masked loop over
-    the batch, each lane stepping exactly as the scalar walk would."""
+    """Lock-free search for a batch of keys (read-only): ``(slot,
+    steps)`` int32, slot -1 where the key is not physically present;
+    ``steps`` counts horizontal moves + level descents (the paper's
+    'average length of a path' metric).  One launch of kernel W
+    (``kernels/state_walk.py``) on the card, its plain masked loop on
+    the CPU; each lane steps exactly as the scalar walk would.  Keys
+    ``>= POS_INF_32`` raise ``ValueError`` before any walk."""
     ks = _op_tensor(ks, torch.int32, st.device)
-    n = ks.shape[0]
-    dev = st.device
-    pred = torch.full((n,), HEAD, dtype=torch.int64, device=dev)
-    h = torch.full((n,), st.max_level - 1, dtype=torch.int64, device=dev)
-    steps = torch.zeros((n,), dtype=torch.int32, device=dev)
-    found = torch.zeros((n,), dtype=torch.bool, device=dev)
-    key = st.key
-    zl = st.zl.to(torch.int64)
-    active = (h >= zl) & ~found
-    while bool(active.any()):
-        lvl = torch.maximum(h, st.nzero[pred].to(torch.int64))
-        curr = st.nxt[lvl, pred].to(torch.int64)
-        adv = key[curr] <= ks
-        found = torch.where(active & ~adv, key[pred] == ks, found)
-        pred = torch.where(active & adv, curr, pred)
-        h = torch.where(active & ~adv, h - 1, h)
-        steps = steps + active.to(torch.int32)
-        active = (h >= zl) & ~found
-    # found can also become true exactly at loop exit (descended past
-    # the bottom)
-    found = found | (key[pred] == ks)
-    slot = torch.where(found & (pred != HEAD), pred, -1)
-    return slot.to(torch.int32), steps
+    _check_walk_keys(ks)
+    return state_walk.splay_walk(st, ks)
 
 
 def find(st: SplayState, k) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -28,7 +28,7 @@ from typing import Dict, Iterable
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("splay_search", "splay_fold", "skip_fold", "hot_gather",
-           "pointer_chase")
+           "state_walk", "pointer_chase")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

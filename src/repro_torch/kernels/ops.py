@@ -12,6 +12,7 @@ from repro_torch.kernels import fold
 from repro_torch.kernels import hot_gather as hg
 from repro_torch.kernels import skip_fold
 from repro_torch.kernels import splay_search as ssk
+from repro_torch.kernels import state_walk
 from repro_torch.kernels.hot_gather import hot_gather  # noqa: F401
 from repro_torch.kernels.splay_search import (  # noqa: F401
     RouteStats, route_capacity, splay_predecessor, splay_range_count,
@@ -19,7 +20,8 @@ from repro_torch.kernels.splay_search import (  # noqa: F401
     splay_search_pipelined, splay_search_sharded, splay_select,
     splay_successor, splay_top_k)
 
-_COUNTERS = (ssk.LAUNCHES, fold.LAUNCHES, skip_fold.LAUNCHES, hg.LAUNCHES)
+_COUNTERS = (ssk.LAUNCHES, fold.LAUNCHES, skip_fold.LAUNCHES, hg.LAUNCHES,
+             state_walk.LAUNCHES)
 
 
 def exec_mode(x) -> str:

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (B1 tiered search, B2
 pipelined search, B5 full-width search, F update fold, B3/B4 row
 gathers and the fused two-tier gather) held against its plain PyTorch
-version on the same inputs, bit-exact, and the epoch loop and the vocab
+version on the same inputs, bit-exact (W, the state walk of both
+engines, too), and the epoch loop and the vocab
 cache on the card against their CPU runs.  The ordered, audited KV page
 index: F's op list with all five kinds against its plain fold, the
 ordered ops against a numpy oracle and their CPU runs, the plane audit
@@ -36,6 +37,7 @@ from repro_torch.kernels import hot_gather as thg
 from repro_torch.kernels import skip_fold
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import splay_search as tssk
+from repro_torch.kernels import state_walk
 
 pytestmark = pytest.mark.cuda
 
@@ -921,9 +923,94 @@ def test_concurrent_scaling_on_card_matches_cpu():
     w = tcs.run(n=1000, total_ops=1024, device="cpu")
     for key, r in g.items():
         if key[1] == "populate":
-            assert r["launches"] == {"splay_fold": 1, "skip_fold": 1}
+            assert r["launches"] == {"splay_fold": 1, "skip_fold": 1,
+                                     "splay_walk": 0, "skip_walk": 0}
             continue
         assert r["batch_psums"] == w[key]["batch_psums"], key
         assert r["all_found"], key
         if key[1] == "splay":
             assert r["launches"]["splay_fold"] == 1024 // key[2], key
+        walk = "splay_walk" if key[1] == "splay" else "skip_walk"
+        assert r["launches"][walk] == 1024 // key[2], key
+
+
+def _walk_states(n_keys, seed):
+    """A splay and a skip state of ``n_keys`` keys built on the card by
+    F and S, a tenth of them deleted (marked); the splay state also
+    takes two contains batches with update coins."""
+    rng = np.random.default_rng(seed)
+    pool = np.sort(rng.choice(4 * n_keys, n_keys, replace=False)).astype(
+        np.int32)
+    cap = n_keys + 4
+    ins = np.full(n_keys, 1, np.int32)
+    gone = rng.choice(pool, n_keys // 10, replace=False)
+    dels = np.full(len(gone), 2, np.int32)
+    sp = tsx.make(cap, 20, device="cuda")
+    sp, _, _ = tsx.run_ops(sp, ins, pool, np.ones(n_keys, bool))
+    sp, _, _ = tsx.run_ops(sp, dels, gone, np.zeros(len(gone), bool))
+    for _ in range(2):
+        live = rng.choice(np.setdiff1d(pool, gone), 1024)
+        sp, _, _ = tsx.run_contains_batch(sp, live, rng.random(1024) < 0.5,
+                                          aggregate=True)
+    hts = tskx.sample_heights(rng, n_keys, 20, device="cpu").numpy()
+    sk = tskx.make(cap, 20, device="cuda")
+    sk, _, _ = tskx.run_ops(sk, ins, pool, hts)
+    sk, _, _ = tskx.run_ops(sk, dels, gone, np.zeros(len(gone), np.int32))
+    return sp, sk, pool
+
+
+@pytest.mark.parametrize("n_keys,nq", [(1000, 333), (20000, 1024),
+                                       (100000, 4096)])
+def test_state_walk_kernel_matches_plain(n_keys, nq):
+    """Kernel W against its plain loop on the card and on the CPU, for
+    both engines: present, absent, negative and NEG_INF_32 keys; one
+    launch a batch, none for an empty batch; the POS_INF_32 refusal."""
+    sp, sk, pool = _walk_states(n_keys, n_keys)
+    rng = np.random.default_rng(nq)
+    eighth = nq // 8
+    qs = np.concatenate([
+        rng.choice(pool, nq - 2 * eighth - 3),
+        rng.integers(0, 4 * n_keys, eighth),
+        rng.integers(-10 ** 6, 0, eighth),
+        [tsx.NEG_INF_32, tsx.NEG_INF_32 + 1, tsx.POS_INF_32 - 1]]).astype(
+        np.int32)
+    assert qs.shape[0] == nq
+    q = torch.as_tensor(qs, device="cuda")
+    assert int(sp.zl) > 0 and bool(sp.deleted.any())
+    for st, name, mod, plain in (
+            (sp, "splay_walk", tsx, state_walk.splay_walk_plain),
+            (sk, "skip_walk", tskx, state_walk.skip_walk_plain)):
+        before = state_walk.LAUNCHES[name]
+        got = mod.find_batch(st, q)
+        assert state_walk.LAUNCHES[name] == before + 1
+        _equal(got, plain(st, q))
+        cpu_st = type(st)(*(t.cpu() for t in st))
+        _equal(got, plain(cpu_st, q.cpu()))
+        slot, steps = mod.find_batch(st, q[:0])
+        assert slot.shape == (0,) and steps.shape == (0,)
+        assert state_walk.LAUNCHES[name] == before + 1
+        with pytest.raises(ValueError, match="POS_INF_32"):
+            mod.find_batch(st, [3, tsx.POS_INF_32])
+        assert state_walk.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("engine", ["splay", "skip"])
+def test_state_walk_step_bound_on_card(engine):
+    """A hand-made cycle through the head: the kernel stops every lane
+    at C + L + 1 steps and the wrapper raises, as the plain loop does;
+    a key that descends before the cycle still walks."""
+    mod = tsx if engine == "splay" else tskx
+    st = mod.make(8, 4, device="cuda")
+    if engine == "splay":
+        st.nzero[2] = 0
+        st.top[2] = 3
+    st.key[2] = 5
+    st.nxt[:, 0] = 2
+    st.nxt[:, 2] = 0
+    with pytest.raises(RuntimeError, match="step bound"):
+        mod.find_batch(st, [3, 10])
+    torch.cuda.synchronize()
+    plain = (state_walk.splay_walk_plain if engine == "splay"
+             else state_walk.skip_walk_plain)
+    q = torch.as_tensor([3], dtype=torch.int32, device="cuda")
+    _equal(mod.find_batch(st, q), plain(st, q))

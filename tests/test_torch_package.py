@@ -1,7 +1,8 @@
 """PyTorch port, package hygiene: ``repro_torch`` (and the card's smoke
 script) imports neither JAX nor anything of the JAX package (nor the
-reference's ``benchmarks`` modules), and its entry points refuse to
-fall back to the CPU when no card is present."""
+reference's ``benchmarks`` and ``examples`` modules), and its entry
+points, the examples among them, refuse to fall back to the CPU when no
+card is present."""
 
 import ast
 import os
@@ -34,7 +35,7 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "benchmarks")
+    return top in ("jax", "jaxlib", "repro", "benchmarks", "examples")
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -61,14 +62,16 @@ def test_every_module_imports_without_jax_or_repro():
               "benchmarks.general_workloads", "benchmarks.long_run",
               "benchmarks.height_correlation",
               "benchmarks.concurrent_scaling", "benchmarks.run",
-              "benchmarks.drift_probe"):
+              "benchmarks.drift_probe", "kernels.state_walk",
+              "examples.quickstart", "examples.splay_workloads",
+              "examples.train_adaptive_lm", "examples.serve_adaptive"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks', 'examples'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -124,6 +127,21 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1"])
+
+
+def test_examples_refuse_cpu_fallback_without_a_card(tmp_path):
+    """The example twins default to the card and raise without one
+    before doing any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    from repro_torch.examples import quickstart, serve_adaptive
+    from repro_torch.examples import train_adaptive_lm
+    for main, argv in ((quickstart.main, []), (serve_adaptive.main, []),
+                       (train_adaptive_lm.main,
+                        ["--ckpt-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_train_and_snapshot_entry_points_refuse_cpu_fallback(tmp_path):

@@ -138,7 +138,8 @@ def test_concurrent_scaling_matches_reference(capsys):
     assert _csv(capsys.readouterr().out) == ref_rows and ref_rows
     for x, y, tag in tcs.WORKLOADS:
         assert got[(tag, "populate")]["launches"] == {
-            "splay_fold": 0, "skip_fold": 0}       # plain versions
+            "splay_fold": 0, "skip_fold": 0, "splay_walk": 0,
+            "skip_walk": 0}                        # plain versions
         for B in tcs.BATCHES:
             splay, skip = _ref_batch_sums(n, T, tag, x, y, B)
             for engine, sums in (("splay", splay), ("skip", skip)):
