@@ -163,15 +163,19 @@ Phases:
    of 16, 64 and 256, the splay-list (W and F a batch) against the
    skip-list (W a batch; S populates it); ops/s, mean path, ms a batch
    and launches of F, S and W for each; the first batches at B = 256
-   replayed on the CPU; S's populate and a mixed list against its plain
-   fold, timed by events;
+   replayed on the CPU; S's populate (ascending, then the same keys
+   descending and shuffled) and a mixed list against its plain fold,
+   timed by events, beside S's latency floor;
 11. kernel W, the state walk of both engines' ``find_batch``
    (:func:`walk_phase`), against its plain loop on the card, bit for
    bit: phase 10's states, the paper serving state, small states with
    marked keys, lazy nodes and a rebuilt bottom, batches of 0, 1 and
-   333, a POS_INF_32 key and a cyclic state; then per launch by graph
-   replay at the phase-7 shape and at B = 16, 64, 256 on phase 10's
-   states, beside the longest lane and its latency floor;
+   333, a POS_INF_32 key (alone, and first, last and inside 4096 keys
+   on phase 10's states, which stay as they were) and a cyclic state;
+   W's block size; then per launch by graph replay at the phase-7 shape
+   and at B = 16, 64, 256 on phase 10's states, beside the longest lane
+   and its latency floor (one dependent round a step; a serial walk's
+   beside it);
 12. the four example entry points (``repro_torch.examples``,
    :func:`examples_phase`), each through its ``main``: ``quickstart``
    (equal to its run on CPU tensors), ``splay_workloads`` (the host
@@ -1340,7 +1344,8 @@ def scaling_phase(torch, dev, read_launches) -> dict:
     replayed on CPU copies of the card's starting states through the
     plain versions must give the same path sums and states.  Then S
     alone: the populate again (events) against its plain fold on the
-    CPU, bit for bit, and a mixed list of ``S_LIST`` ops on the
+    CPU, bit for bit, the same keys descending and shuffled, each against
+    its plain fold too, and a mixed list of ``S_LIST`` ops on the
     populated state.  Returns S's readings for the kernels line."""
     from repro_torch.benchmarks import concurrent_scaling as cs
     from repro_torch.core import skiplist as skx
@@ -1451,6 +1456,22 @@ def scaling_phase(torch, dev, read_launches) -> dict:
           "S's populate differs from the race's")
     out["populate"] = dict(ms=g_pop[3], plain_ms=c_pop[3], ops=n,
                            changed=changed_bytes(empty_g, g_pop[0]))
+    # the same keys descending and shuffled: S's fingers settle every
+    # level of a sorted insert at once, and few of a shuffled one
+    for what, order in (("descending", keys[::-1].copy()),
+                        ("shuffled", np.random.default_rng(3)
+                         .permutation(keys))):
+        o_args = (ins, torch.as_tensor(order), hts)
+        g_o = s_launch(empty_g, o_args, dev)
+        c_o = s_launch(cpu(empty_g), o_args, torch.device("cpu"))
+        err = max(max_abs_err(list(g_o[0]), list(c_o[0])),
+                  max_abs_err(g_o[1:3], c_o[1:3]))
+        check(err == 0, f"S's {what} populate of {n} keys differs from its "
+              f"plain fold (err {err})")
+        out[what] = dict(ms=g_o[3], plain_ms=c_o[3], ops=n)
+        print(f"[10] S {what} populate of {n} keys: {g_o[3]:.3f} ms a "
+              f"launch (events; plain fold {c_o[3]:.1f} ms), equal to its "
+              f"plain fold", flush=True)
     mrng = np.random.default_rng(12)
     m_kinds = torch.as_tensor(mrng.choice(3, S_LIST, p=[0.6, 0.2, 0.2])
                               .astype(np.int32))
@@ -1468,7 +1489,8 @@ def scaling_phase(torch, dev, read_launches) -> dict:
           f"(err {err})")
     out["mixed"] = dict(ms=g_mix[3], plain_ms=c_mix[3], ops=S_LIST,
                         changed=changed_bytes(g_pop[0], g_mix[0]),
-                        walk_steps=int(g_mix[2].sum()))
+                        walk_steps=int(g_mix[2].sum()),
+                        inserts=int((m_kinds == skx.OP_INSERT).sum()))
     mix_steps = out["mixed"]["walk_steps"]
     out["ratio"] = ratio
     out["race_s"] = race_s
@@ -1485,7 +1507,11 @@ def scaling_phase(torch, dev, read_launches) -> dict:
     return out
 
 
-WALK_LOADS = {"splay_walk": 3, "skip_walk": 2}   # dependent loads a step
+# dependent rounds of loads a walk step: W issues a step's loads
+# together; a walk that loads nzero, nxt and key one after another
+# (splay), nxt and key (skip), pays the serial count
+WALK_LOADS = {"splay_walk": 1, "skip_walk": 1}
+WALK_LOADS_SERIAL = {"splay_walk": 3, "skip_walk": 2}
 
 
 def walk_footprint(torch, st, ks) -> int:
@@ -1519,11 +1545,13 @@ def walk_phase(torch, dev, st3, k0, starts, chase_l2, graph_ms,
     random keys, absent and negative ones among them), the paper serving
     state after its 25 epochs (4096 contains), small states with
     delete-marked keys, lazy nodes and a bottom raised by a rebuild,
-    batches of 0, 1 and 333, a POS_INF_32 key (refused) and a cyclic
-    state (the step bound).  Then W per launch by graph replay at the
-    phase-7 shape and at B = 16, 64 and 256 on phase 10's states, each
-    beside its longest lane, the latency floor (the longest lane's
-    dependent loads x the pointer chase's ns in L2) and the bytes bound;
+    batches of 0, 1 and 333, a POS_INF_32 key (refused, first, last and
+    inside 4096 keys on phase 10's states, which stay as they were) and
+    a cyclic state (the step bound).  Then W per launch by graph replay
+    at the phase-7 shape and at B = 16, 64 and 256 on phase 10's states,
+    each beside its longest lane, the latency floor (the longest lane's
+    dependent rounds x the pointer chase's ns in L2; the serial walk's
+    beside it) and the bytes bound;
     the plain loop and a find_batch call by events.  Returns the
     readings for the kernels line."""
     from repro_torch.benchmarks import concurrent_scaling as cs
@@ -1608,6 +1636,26 @@ def walk_phase(torch, dev, st3, k0, starts, chase_l2, graph_ms,
             .astype(np.int32), device=dev)
         for nq in (0, 1, 333, q.shape[0]):
             hold(st, q[:nq], f"small {what} state, batch of {nq}")
+    # the refusal: a POS_INF_32 key first, last and among 4096 keys; W
+    # refuses it in its status word, and the walk leaves the state as it
+    # was
+    refused = 0
+    for x, y, tag in cs.WORKLOADS:
+        for eng in ("splay", "skip"):
+            st = starts[(tag, eng)]
+            before = [t.clone() for t in st]
+            for at in (0, rand.shape[0] - 1, 1234):
+                q = rand.clone()
+                q[at] = sx.POS_INF_32
+                try:
+                    mods[name_of(st)].find_batch(st, q)
+                    fail(f"W {tag} {eng}: a POS_INF_32 key at {at} of "
+                         f"{q.shape[0]} did not raise")
+                except ValueError as e:
+                    check("POS_INF_32" in str(e), f"W's refusal: {e}")
+                refused += 1
+            check(all(torch.equal(a, b) for a, b in zip(before, st)),
+                  f"W {tag} {eng}: a refused batch changed the state")
     for name, mod in mods.items():
         st = mod.make(8, 4, device=dev)
         try:
@@ -1630,8 +1678,10 @@ def walk_phase(torch, dev, st3, k0, starts, chase_l2, graph_ms,
           f"{cases} cases (phase 10's states at 10^5 keys, the paper "
           f"serving state, small states with marked keys, lazy nodes and "
           f"a rebuilt bottom; batches of 0, 1, 333); a POS_INF_32 key "
-          f"raises ValueError and a cyclic state RuntimeError on both "
-          f"engines", flush=True)
+          f"raises ValueError ({refused} batches of 4096 on phase 10's "
+          f"states, the key first, last and inside, each state unchanged) "
+          f"and a cyclic state RuntimeError on both engines; "
+          f"{sw.BLOCK} threads a block", flush=True)
 
     def timed(st, q, what):
         name = name_of(st)
@@ -1639,14 +1689,18 @@ def walk_phase(torch, dev, st3, k0, starts, chase_l2, graph_ms,
         longest = int(steps.max())
         ms = graph_ms(torch, sw.launcher(st, q))
         floor_ms = longest * WALK_LOADS[name] * chase_l2 * 1e-6
+        serial_ms = longest * WALK_LOADS_SERIAL[name] * chase_l2 * 1e-6
         nbytes = walk_footprint(torch, st, q)
         r = dict(ms=ms, longest=longest, steps=int(steps.sum()),
-                 floor_ms=floor_ms, nbytes=nbytes, nq=q.shape[0])
+                 floor_ms=floor_ms, serial_floor_ms=serial_ms,
+                 nbytes=nbytes, nq=q.shape[0])
         print(f"[11] W {name} {what} q={q.shape[0]}: {ms:.5f} ms a launch "
               f"(graph replay); longest lane {longest} steps (mean "
               f"{r['steps'] / q.shape[0]:.2f}); latency floor {longest} x "
-              f"{WALK_LOADS[name]} dependent loads x {chase_l2:.1f} ns = "
-              f"{floor_ms:.5f} ms; {nbytes} B to move", flush=True)
+              f"{WALK_LOADS[name]} dependent round x {chase_l2:.1f} ns = "
+              f"{floor_ms:.5f} ms (a serial walk's, "
+              f"{WALK_LOADS_SERIAL[name]} dependent loads a step: "
+              f"{serial_ms:.5f} ms); {nbytes} B to move", flush=True)
         return r
 
     out = {"errs": errs, "splay_walk": {}, "skip_walk": {}}
@@ -1789,6 +1843,7 @@ def main() -> None:
     from repro_torch.kernels import hot_gather as hg
     from repro_torch.kernels import ops
     from repro_torch.kernels import splay_search as ssk
+    from repro_torch.kernels import state_walk as sw
     from repro_torch.kernels.ref import take_index
     from repro_torch.serve.kv_cache import PagedKVPool
 
@@ -3100,13 +3155,26 @@ def main() -> None:
     # bound: the op list read (kind, key, height) and the answers written
     # (res, plen), and the state entries the fold changed, read and
     # written
+    # S's latency floor: (the finds' path lengths + 2 x the inserts)
+    # dependent loads x the chase's ns in L2 (a populate has no finds)
+    s_floor = {k: (sc10[k].get("walk_steps", 0) + 2 * sc10[k].get(
+        "inserts", sc10[k]["ops"])) * chase["l2"] * 1e-6
+        for k in ("populate", "descending", "shuffled", "mixed")}
+    print(f"[10] S latency floor, (find steps + 2 x inserts) x "
+          f"{chase['l2']:.1f} ns: " + ", ".join(
+              f"{k} {v:.3f} ms (measured {sc10[k]['ms']:.3f})"
+              for k, v in s_floor.items()), flush=True)
     entry("skip_fold", "paper_scaling", "src/repro_torch/kernels/csrc/"
           "skip_fold.cu", "src/repro/core/skiplist.py:253", pop["ms"],
           pop["plain_ms"], 17 * pop["ops"] + 2 * pop["changed"], 0,
-          ms_is="one populate launch of 10^5 inserts, events",
+          ms_is="one populate launch of 10^5 sorted inserts, events",
+          latency_floor_ms=s_floor["populate"],
+          descending_ms=sc10["descending"]["ms"],
+          shuffled_ms=sc10["shuffled"]["ms"],
           mixed_ms=mix["ms"], mixed_plain_ms=mix["plain_ms"],
           mixed_ops=mix["ops"], mixed_walk_steps=mix["walk_steps"],
           mixed_bound_ms=bound(17 * mix["ops"] + 2 * mix["changed"], 0)[0],
+          mixed_latency_floor_ms=s_floor["mixed"],
           splay_over_skip_ops_s=sc10["ratio"])
     # W: device time per launch by graph replay; bound: the keys read,
     # the slots and steps written and each distinct state entry the
@@ -3122,6 +3190,7 @@ def main() -> None:
               ms_is=f"device time per launch, graph replay, at {shape} "
               f"(q={r['nq']})", call_ms=r["call_ms"],
               longest_lane=r["longest"], latency_floor_ms=r["floor_ms"],
+              serial_latency_floor_ms=r["serial_floor_ms"], block=sw.BLOCK,
               by_shape={k: {f: v[f] for f in ("ms", "longest", "floor_ms",
                                               "nq")}
                         for k, v in w11[name].items()})

@@ -55,8 +55,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.splaylist import (_check_walk_keys, _device,
-                                        _op_tensor)
+from repro_torch.core.splaylist import _device, _op_tensor
 from repro_torch.kernels import state_walk
 
 NEG_INF = -(1 << 62)
@@ -215,9 +214,9 @@ def find_batch(st: SkipState, ks) -> Tuple[torch.Tensor, torch.Tensor]:
     advances and descents.  One launch of kernel W
     (``kernels/state_walk.py``) on the card, its plain masked loop on
     the CPU; each lane steps as the scalar walk would.  Keys
-    ``>= POS_INF_32`` raise ``ValueError`` before any walk."""
+    ``>= POS_INF_32`` raise ``ValueError`` and leave the state as it
+    was."""
     ks = _op_tensor(ks, torch.int32, st.device)
-    _check_walk_keys(ks)
     return state_walk.skip_walk(st, ks)
 
 
@@ -257,11 +256,57 @@ def _find(key, nxt, L: int, k: int) -> Tuple[int, int]:
     return (pred if found and pred != HEAD else -1), steps
 
 
-def fold_plain(st: SkipState, kinds, keys, heights, res, plen) -> int:
+def _find_preds(key, nxt, L: int, k: int) -> list:
+    """The reference's predecessors of ``k``: top-down from the head,
+    at each level the last node with key ``<= k``."""
+    preds, pred = [HEAD] * L, HEAD
+    for h in range(L - 1, -1, -1):
+        while key[nxt[h][pred]] <= k:
+            pred = nxt[h][pred]
+        preds[h] = pred
+    return preds
+
+
+def _finger_preds(key, nxt, L: int, k: int, fingers) -> list:
+    """Kernel S's predecessors of ``k``, from ``fingers`` (the last
+    insert's predecessor or new node at each level, None before the
+    first insert).  The skip-list never unlinks, so a finger stays on
+    its level: where its key is ``<= k`` and its successor's ``> k``, it
+    is the predecessor at once.  The other levels resolve top-down, each
+    from the level above's answer or from the finger's successor where
+    that lies further right (both at or before the predecessor).  Equal
+    to :func:`_find_preds` at every level."""
+    preds, starts = [None] * L, [None] * L
+    if fingers is not None:
+        for h, f in enumerate(fingers):
+            if key[f] <= k:
+                succ = nxt[h][f]
+                if key[succ] > k:
+                    preds[h] = f
+                else:
+                    starts[h] = succ
+    cur = HEAD
+    for h in range(L - 1, -1, -1):
+        if preds[h] is None:
+            g = starts[h]
+            if g is not None and key[g] > key[cur]:
+                cur = g
+            while key[nxt[h][cur]] <= k:
+                cur = nxt[h][cur]
+            preds[h] = cur
+        cur = preds[h]
+    return preds
+
+
+def fold_plain(st: SkipState, kinds, keys, heights, res, plen,
+               trace=None) -> int:
     """Contains / insert / delete in order on the CPU state ``st``, in
     place, writing each op's answer and path length (0 for an insert).
     Returns the index of an insert that found the capacity exhausted
-    (nothing of that op written), or ``n``."""
+    (nothing of that op written), or ``n``.  An insert finds its
+    predecessors from the last insert's (:func:`_finger_preds`), as
+    kernel S does.  A list ``trace`` gets, for each insert, its
+    predecessors by the fingers and by :func:`_find_preds`."""
     C, L = st.capacity, st.max_level
     key, nxt, top = st.key.tolist(), st.nxt.tolist(), st.top.tolist()
     deleted = st.deleted.tolist()
@@ -269,17 +314,18 @@ def fold_plain(st: SkipState, kinds, keys, heights, res, plen) -> int:
     n = kinds.shape[0]
     stop = n
     res_l, plen_l = [False] * n, [0] * n
+    fingers = None
     for i, (kind, k, height) in enumerate(zip(
             kinds.tolist(), keys.tolist(), heights.tolist())):
         steps = 0
         if kind == OP_INSERT:
-            preds, pred = [HEAD] * L, HEAD
-            for h in range(L - 1, -1, -1):
-                while key[nxt[h][pred]] <= k:
-                    pred = nxt[h][pred]
-                preds[h] = pred
+            preds = _finger_preds(key, nxt, L, k, fingers)
+            if trace is not None:
+                trace.append((preds, _find_preds(key, nxt, L, k)))
+            pred = preds[0]
             present = key[pred] == k
             marked = present and deleted[pred]
+            fingers = preds
             if marked:
                 deleted[pred] = False
                 size += 1
@@ -297,6 +343,8 @@ def fold_plain(st: SkipState, kinds, keys, heights, res, plen) -> int:
                 key[j], top[j], deleted[j] = k, height, False
                 n_alloc += 1
                 size += 1
+                fingers = [j if h <= height else p
+                           for h, p in enumerate(preds)]
             r = not present or marked
         else:
             slot, steps = _find(key, nxt, L, k)
@@ -332,7 +380,7 @@ def run_ops(st: SkipState, kinds, keys, heights):
     if n and bool(((kinds < OP_CONTAINS) | (kinds > OP_DELETE)).any()):
         raise ValueError("op kinds must be OP_CONTAINS, OP_INSERT or "
                          "OP_DELETE")
-    _check_walk_keys(keys)
+    state_walk.check_keys(keys)
     st = clone(st)
     res = torch.zeros((n,), dtype=torch.bool, device=dev)
     plen = torch.zeros((n,), dtype=torch.int32, device=dev)

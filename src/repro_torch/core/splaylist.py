@@ -161,14 +161,6 @@ def clone(st: SplayState) -> SplayState:
 # find_batch — the lock-free search phase (pure; kernel W)
 # ---------------------------------------------------------------------------
 
-def _check_walk_keys(keys: torch.Tensor) -> None:
-    """Refuse walk keys ``>= POS_INF_32`` (both engines): the walk for
-    the tail sentinel's key never returns."""
-    if keys.numel() and bool((keys >= POS_INF_32).any()):
-        raise ValueError("state-walk keys must lie below POS_INF_32 (a "
-                         "walk for the tail sentinel's key never returns)")
-
-
 def find_batch(st: SplayState, ks) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lock-free search for a batch of keys (read-only): ``(slot,
     steps)`` int32, slot -1 where the key is not physically present;
@@ -176,9 +168,10 @@ def find_batch(st: SplayState, ks) -> Tuple[torch.Tensor, torch.Tensor]:
     'average length of a path' metric).  One launch of kernel W
     (``kernels/state_walk.py``) on the card, its plain masked loop on
     the CPU; each lane steps exactly as the scalar walk would.  Keys
-    ``>= POS_INF_32`` raise ``ValueError`` before any walk."""
+    ``>= POS_INF_32`` raise ``ValueError`` and leave the state as it
+    was (W refuses them in its status word, the plain loop's host check
+    before it starts)."""
     ks = _op_tensor(ks, torch.int32, st.device)
-    _check_walk_keys(ks)
     return state_walk.splay_walk(st, ks)
 
 

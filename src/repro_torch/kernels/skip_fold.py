@@ -6,10 +6,12 @@ given, in place (the caller hands it a private copy), writing each op's
 answer and path length; it returns the index of an insert that found
 the capacity exhausted, or ``n`` when it ran to the end.
 
-On CUDA tensors each call is one launch of the kernel: one thread walks
-the state in device memory.  On CPU tensors it runs the plain version,
-the step-by-step fold of ``core/skiplist.py`` (``fold_plain``).  There
-is no fallback between the two: the tensors' device decides.
+On CUDA tensors each call is one launch of the kernel: one warp walks
+the state in device memory, a lane a level for an insert's
+predecessors, which start from the last insert's (its fingers).  On CPU
+tensors it runs the plain version, the step-by-step fold of
+``core/skiplist.py`` (``fold_plain``), which finds them the same way.
+There is no fallback between the two: the tensors' device decides.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.kernels import build
 # launches of the CUDA kernel (plain CPU runs do not count)
 LAUNCHES = {"skip_fold": 0}
 
-MAX_LEVELS = 64          # the kernel's per-level predecessor array
+MAX_LEVELS = 64          # two levels a lane of the kernel's one warp
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p

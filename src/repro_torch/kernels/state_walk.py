@@ -11,18 +11,23 @@ advances and descents.  The splay walk reads a node's links at
 ``zl``; the skip walk reads ``nxt[h][pred]`` down to level 0.
 
 On CUDA tensors each call is one launch of the kernel (one thread a
-query) on torch's current stream, followed by one read of its status
-word.  On CPU tensors it runs the plain version (:func:`splay_walk_plain`,
+query, :data:`BLOCK` threads a block) on torch's current stream,
+followed by one read of its status word: the call's only wait on the
+card.  On CPU tensors it runs the plain version (:func:`splay_walk_plain`,
 :func:`skip_walk_plain`): the masked torch loop stepping every lane of
 the batch together, which also runs on CUDA tensors when called by
 name.  There is no fallback between the two: the tensors' device
 decides.
 
-Both raise ``RuntimeError`` when a lane reaches ``C + L + 1`` steps
-(``C`` the capacity, ``L`` the engine's ``max_level``): a walk passes
-each slot at most once and descends at most ``L`` times, so only a
-corrupted state gets there.  Keys ``>= POS_INF_32`` never end their
-walk; the callers (``find_batch``) refuse them before the walk.
+Keys ``>= POS_INF_32`` never end their walk (the walk runs past the
+tail sentinel), so both wrappers refuse them with ``ValueError``: the
+kernel marks such a lane in its status word and does not walk it, and
+on CPU tensors :func:`check_keys` runs before the plain loop.  A lane
+that reaches ``C + L + 1`` steps (``C`` the capacity, ``L`` the
+engine's ``max_level``) raises ``RuntimeError``: a walk passes each
+slot at most once and descends at most ``L`` times, so only a
+corrupted state gets there.  The walk is read-only: a refused batch
+leaves the state as it was.
 """
 
 from __future__ import annotations
@@ -37,16 +42,41 @@ from repro_torch.kernels import build
 LAUNCHES = {"splay_walk": 0, "skip_walk": 0}
 
 HEAD = 0
+POS_INF_32 = 2 ** 31 - 1
+BLOCK = 64               # threads a block, the fastest measured (PERF.md §6)
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-_ARGTYPES = {"splay_walk": [_P] * 4 + [_I] * 3 + [_P] * 4 + [_P],
-             "skip_walk": [_P] * 2 + [_I] * 3 + [_P] * 4 + [_P]}
+_ARGTYPES = {"splay_walk": [_P] * 4 + [_I] * 3 + [_P] * 4 + [_I, _P],
+             "skip_walk": [_P] * 2 + [_I] * 3 + [_P] * 4 + [_I, _P]}
 _FIELDS = {"splay_walk": ("key", "nxt", "nzero", "zl"),
            "skip_walk": ("key", "nxt")}
+# the status word's bit flags, the refusal first
+REFUSED_KEY = 4
 _STATUS = {1: "a lane reached the step bound C + L + 1",
-           2: "a slot index outside [-C, C) or a lazy level above the "
-              "top row"}
+           2: "a slot index outside [-C, C) or a level outside [0, L]"}
+REFUSAL = ("state-walk keys must lie below POS_INF_32 (a walk for the "
+           "tail sentinel's key never returns)")
+
+
+def check_keys(keys: torch.Tensor) -> None:
+    """Refuse walk keys ``>= POS_INF_32`` on the host (one read of the
+    device): the plain loop, and the folds that write state, run it
+    before they start."""
+    if keys.numel() and bool((keys >= POS_INF_32).any()):
+        raise ValueError(REFUSAL)
+
+
+def status_error(name: str, word: int):
+    """The exception for a launch's status word, or None when it is 0:
+    ``ValueError`` for a refused key, before any other cause, else
+    ``RuntimeError`` naming every cause set."""
+    if word & REFUSED_KEY:
+        return ValueError(REFUSAL)
+    if word:
+        why = "; ".join(m for b, m in _STATUS.items() if word & b) or word
+        return RuntimeError(f"{name}: {why} (a corrupted state)")
+    return None
 
 
 def step_bound(capacity: int, max_level: int) -> int:
@@ -120,7 +150,7 @@ def _check(name: str, st, ks) -> None:
                          "the state's device")
 
 
-def _bind(name: str, st):
+def _bind(name: str, st, threads: int = BLOCK):
     """The loaded entry point and the launch's state arguments."""
     lib = build.load("state_walk")
     fn = getattr(lib, name)
@@ -131,7 +161,8 @@ def _bind(name: str, st):
     def call(ks, slot, steps, status) -> None:
         p = build.ptr
         code = fn(*ptrs, st.capacity, st.max_level, ks.shape[0], p(ks),
-                  p(slot), p(steps), p(status), build.stream_of(st.key))
+                  p(slot), p(steps), p(status), threads,
+                  build.stream_of(st.key))
         build.check(lib, code, f"{name} launch")
     return call
 
@@ -147,24 +178,24 @@ def _launch(name: str, st, ks):
     status = torch.zeros((1,), dtype=torch.int32, device=dev)
     _bind(name, st)(ks, slot, steps, status)
     LAUNCHES[name] += 1
-    bad = int(status.item())
-    if bad:
-        raise RuntimeError(f"{name}: {_STATUS.get(bad, bad)} (a corrupted "
-                           "state)")
+    err = status_error(name, int(status.item()))
+    if err is not None:
+        raise err
     return slot, steps
 
 
-def launcher(st, ks):
+def launcher(st, ks, threads: int = BLOCK):
     """A function of no arguments that launches W once on the CUDA
     state ``st`` (either engine's) and keys ``ks`` (non-empty) into
-    fixed outputs, with no count and no status read: for timing by CUDA
-    events or a graph replay, which cannot hold the status read.  Its
-    launches are not a path's and do not count."""
+    fixed outputs, ``threads`` a block, with no count and no status
+    read: for timing by CUDA events or a graph replay, which cannot
+    hold the status read (the word only gathers bits across replays).
+    Its launches are not a path's and do not count."""
     name = "splay_walk" if hasattr(st, "nzero") else "skip_walk"
     _check(name, st, ks)
     if ks.shape[0] == 0:
         raise ValueError("launcher needs at least one key")
-    call = _bind(name, st)
+    call = _bind(name, st, threads)
     outs = (torch.empty_like(ks), torch.empty_like(ks),
             torch.zeros((1,), dtype=torch.int32, device=st.device))
     return lambda: call(ks, *outs)
@@ -181,6 +212,7 @@ def _on_cpu(st, ks) -> bool:
 def splay_walk(st, ks):
     """``(slot, steps)`` of the splay-list walk for each key of ``ks``."""
     if _on_cpu(st, ks):
+        check_keys(ks)
         return splay_walk_plain(st, ks)
     return _launch("splay_walk", st, ks)
 
@@ -188,5 +220,6 @@ def splay_walk(st, ks):
 def skip_walk(st, ks):
     """``(slot, steps)`` of the skip-list walk for each key of ``ks``."""
     if _on_cpu(st, ks):
+        check_keys(ks)
         return skip_walk_plain(st, ks)
     return _launch("skip_walk", st, ks)

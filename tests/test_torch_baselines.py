@@ -10,12 +10,17 @@ package, on the same numpy seeds:
   version on CPU tensors), ``find_batch``, ``run_contains_batch`` and
   ``sample_heights`` — every state array, answer and path length bit for
   bit, with revives, deletes of absent keys, keys at ``NEG_INF_32 + 1``
-  and an empty batch;
+  and an empty batch, and on the streams of ``skip_streams.py`` that
+  exercise S's fingers (ascending, descending and interleaved inserts,
+  revives, duplicates, a capacity stop, max levels 1 and 33);
+* the fingers themselves: every insert's predecessors from them equal
+  the reference's top-down ones on random streams;
 * the capacity fault: an insert past the capacity raises and leaves the
   state as it was (the JAX ``run_ops`` does not return there, so it is
   not called)."""
 
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +34,7 @@ from repro_torch.core import cbtree as tcb
 from repro_torch.core import skiplist as tskx
 from repro_torch.core import workload as twl
 from repro_torch.kernels import skip_fold
+from skip_streams import FINGER_SHAPES, FINGER_STREAMS
 
 GENERATORS = [
     ("xy", dict(n=1000, x=0.9, y=0.1, ops=4000, p=1.0, seed=0)),
@@ -161,7 +167,10 @@ STREAMS = {
     "insert-heavy": lambda: _stream(2, [0.1, 0.8, 0.1], 0, 1000),
     "delete-heavy": lambda: _stream(3, [0.2, 0.3, 0.5], 0, 60),
     "revives": lambda: _revives(4),
+    **FINGER_STREAMS,
 }
+# (capacity, max_level) of the streams not on (CAP, ML)
+SHAPES = {name: shape(ML) for name, shape in FINGER_SHAPES.items()}
 
 
 def _heights(seed, n, ml=ML):
@@ -199,12 +208,29 @@ def test_sample_heights_matches_jax(seed, n, ml):
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_run_ops_matches_jax(name):
     kinds, keys = STREAMS[name]()
-    jh, th = _heights(len(name), kinds.shape[0])
-    js, jr, jp = jskx.run_ops(jskx.make(CAP, ML), jnp.asarray(kinds),
-                              jnp.asarray(keys), jh)
-    t0 = tskx.make(CAP, ML, device="cpu")
+    cap, ml = SHAPES.get(name, (CAP, ML))
+    jh, th = _heights(len(name), kinds.shape[0], ml)
+    t0 = tskx.make(cap, ml, device="cpu")
     before = tskx.to_numpy(t0)
-    ts, tr, tp = tskx.run_ops(t0, kinds, keys, th)
+    try:
+        ts, tr, tp = tskx.run_ops(t0, kinds, keys, th)
+        stop = None
+    except RuntimeError as e:
+        stop = int(re.search(r"exhausted at op (\d+)", str(e)).group(1))
+    assert (stop is not None) == (name == "fingers-capacity-stop")
+    if stop is not None:
+        # the port stops before the insert that finds no slot; the JAX
+        # run_ops does not return there, so it takes the ops before it
+        assert int((kinds[:stop] == 1).sum()) > 2 * (cap - 2) // 3
+        ts = tskx.clone(t0)
+        res = torch.zeros(kinds.shape[0], dtype=torch.bool)
+        plen = torch.zeros(kinds.shape[0], dtype=torch.int32)
+        assert skip_fold.fold_ops(ts, *(torch.as_tensor(x) for x in (
+            kinds, keys, th.numpy())), res, plen) == stop
+        kinds, keys, jh = kinds[:stop], keys[:stop], jh[:stop]
+        tr, tp = res[:stop], plen[:stop]
+    js, jr, jp = jskx.run_ops(jskx.make(cap, ml), jnp.asarray(kinds),
+                              jnp.asarray(keys), jh)
     _assert_state_equal(js, ts)
     _eq(jr, tr, "res")
     _eq(jp, tp, "plen")
@@ -224,6 +250,36 @@ def test_run_ops_matches_jax(name):
     for k in q[-7:]:
         _eq(jskx.find(js, jnp.int32(k))[1], tskx.find(ts, int(k))[1],
             "scalar find steps")
+
+
+@pytest.mark.parametrize("seed,ml", [(0, 8), (1, 1), (2, 20), (3, 33),
+                                     (4, 64)])
+def test_finger_preds_equal_top_down(seed, ml):
+    """On random streams (runs of rising and falling inserts, jumps,
+    contains, deletes and revives), every insert's predecessors from
+    the fingers equal the reference's top-down ``_find_preds`` at every
+    level, on the state as the fold had it then."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(12):
+        start, n = int(rng.integers(0, 5000)), int(rng.integers(5, 40))
+        step = int(rng.choice([-7, -1, 1, 3, 50]))
+        parts.append(start + step * np.arange(n))
+        parts.append(rng.integers(-50, 5100, int(rng.integers(1, 10))))
+    keys = np.concatenate(parts).astype(np.int32)
+    kinds = rng.choice(3, keys.shape[0], p=[0.15, 0.7, 0.15]).astype(
+        np.int32)
+    heights = tskx.sample_heights(rng, keys.shape[0], ml, device="cpu")
+    st = tskx.make(keys.shape[0] + 2, ml, device="cpu")
+    res = torch.zeros(keys.shape[0], dtype=torch.bool)
+    plen = torch.zeros(keys.shape[0], dtype=torch.int32)
+    trace = []
+    stop = tskx.fold_plain(st, torch.as_tensor(kinds), torch.as_tensor(keys),
+                           heights, res, plen, trace)
+    assert stop == keys.shape[0]
+    assert len(trace) == int((kinds == 1).sum()) > 100
+    for by_finger, top_down in trace:
+        assert by_finger == top_down
 
 
 def test_run_ops_on_a_populated_state_matches_jax():

@@ -19,9 +19,14 @@ rebuild stop deep inside an op list, an exhausted capacity, 33- and
 panels, the pad sentinel) and the descent engine of B1 and B2 (B1 at
 every block size and B2 on clusters of 1 to 8 CTAs, 16-byte and
 unaligned rows, a lane that never resolves, the plane entry against
-the bare matrix) have cases of their own.  Needs an NVIDIA GPU and
+the bare matrix) have cases of their own, and so do S on the streams
+of ``skip_streams.py`` at max levels 1 to 64, W's refusal of a
+``POS_INF_32`` key inside a batch and ``find_batch``'s one wait on the
+card.  Needs an NVIDIA GPU and
 nvcc; skips without a card.  Imports no JAX (the card's machine has
 none): run it with ``--noconftest``, as the README says."""
+
+import warnings
 
 import numpy as np
 import pytest
@@ -38,6 +43,7 @@ from repro_torch.kernels import skip_fold
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import splay_search as tssk
 from repro_torch.kernels import state_walk
+from skip_streams import FINGER_SHAPES, FINGER_STREAMS
 
 pytestmark = pytest.mark.cuda
 
@@ -861,7 +867,7 @@ def _skip_cpu(st):
     return tskx.SkipState(*(t.cpu() for t in st))
 
 
-@pytest.mark.parametrize("max_level", [20, 1, 33])
+@pytest.mark.parametrize("max_level", [20, 1, 33, 64])
 def test_skip_fold_kernel_matches_plain(max_level):
     """Kernel S against its plain fold: inserts of heights from
     ``sample_heights``, then contains, deletes of present and absent
@@ -888,6 +894,42 @@ def test_skip_fold_kernel_matches_plain(max_level):
                          ]).astype(np.int32)
     _equal(tskx.run_contains_batch(g[0], qs)[1:],
            tskx.run_contains_batch(_skip_cpu(g[0]), qs)[1:])
+
+
+FINGER_CASES = [(name, ml) for name in sorted(FINGER_STREAMS)
+                for ml in (1, 20, 33, 64)
+                if FINGER_SHAPES[name](ml)[1] == ml]
+
+
+@pytest.mark.parametrize("name,max_level", FINGER_CASES)
+def test_skip_fold_finger_streams_match_plain(name, max_level):
+    """Kernel S against its plain fold on the streams that exercise its
+    fingers (ascending, descending and interleaved inserts, revives,
+    duplicates, a capacity stop with every finger set): every state
+    array, answer and path length, and the stop."""
+    kinds, keys = FINGER_STREAMS[name]()
+    cap, ml = FINGER_SHAPES[name](max_level)
+    heights = tskx.sample_heights(np.random.default_rng(len(name)),
+                                  kinds.shape[0], ml, device="cpu").numpy()
+    n = kinds.shape[0]
+    st0 = tskx.make(cap, ml, device="cuda")
+    args = [torch.as_tensor(x, dtype=torch.int32, device="cuda")
+            for x in (kinds, keys, heights)]
+    got = (tskx.clone(st0), torch.zeros(n, dtype=torch.bool, device="cuda"),
+           torch.full((n,), -7, dtype=torch.int32, device="cuda"))
+    want = (tskx.clone(_skip_cpu(st0)), torch.zeros(n, dtype=torch.bool),
+            torch.full((n,), -7, dtype=torch.int32))
+    before = skip_fold.LAUNCHES["skip_fold"]
+    stop = skip_fold.fold_ops(got[0], *args, *got[1:])
+    assert skip_fold.LAUNCHES["skip_fold"] == before + 1
+    assert skip_fold.fold_ops(want[0], *(a.cpu() for a in args),
+                              *want[1:]) == stop
+    assert (stop < n) == (name == "fingers-capacity-stop")
+    _equal(got[0], want[0])
+    # the kernel writes the answers of the ops before the stop only (the
+    # plain fold writes the whole list, zeros after the stop)
+    _equal((got[1][:stop], got[2][:stop]), (want[1][:stop], want[2][:stop]))
+    assert bool((got[2][stop:] == -7).all())
 
 
 def test_skip_fold_capacity_exhausted():
@@ -964,7 +1006,8 @@ def _walk_states(n_keys, seed):
 def test_state_walk_kernel_matches_plain(n_keys, nq):
     """Kernel W against its plain loop on the card and on the CPU, for
     both engines: present, absent, negative and NEG_INF_32 keys; one
-    launch a batch, none for an empty batch; the POS_INF_32 refusal."""
+    launch a batch, none for an empty batch; the POS_INF_32 refusal, one
+    launch that refuses the batch in its status word."""
     sp, sk, pool = _walk_states(n_keys, n_keys)
     rng = np.random.default_rng(nq)
     eighth = nq // 8
@@ -991,7 +1034,8 @@ def test_state_walk_kernel_matches_plain(n_keys, nq):
         assert state_walk.LAUNCHES[name] == before + 1
         with pytest.raises(ValueError, match="POS_INF_32"):
             mod.find_batch(st, [3, tsx.POS_INF_32])
-        assert state_walk.LAUNCHES[name] == before + 1
+        # the kernel refuses the key itself: it launches once more
+        assert state_walk.LAUNCHES[name] == before + 2
 
 
 @pytest.mark.parametrize("engine", ["splay", "skip"])
@@ -1014,3 +1058,64 @@ def test_state_walk_step_bound_on_card(engine):
              else state_walk.skip_walk_plain)
     q = torch.as_tensor([3], dtype=torch.int32, device="cuda")
     _equal(mod.find_batch(st, q), plain(st, q))
+
+
+@pytest.mark.parametrize("engine", ["splay", "skip"])
+def test_state_walk_refusal_on_card(engine):
+    """A POS_INF_32 key first, last or among 4096 keys: W launches,
+    refuses the batch in its status word, and find_batch raises
+    ValueError; the state is as it was."""
+    sp, sk, pool = _walk_states(20000, 7)
+    st, mod = (sp, tsx) if engine == "splay" else (sk, tskx)
+    rng = np.random.default_rng(8)
+    before = [t.clone() for t in st]
+    for at in (0, 4095, 1777):
+        q = rng.choice(pool, 4096).astype(np.int32)
+        q[at] = tsx.POS_INF_32
+        q = torch.as_tensor(q, device="cuda")
+        with pytest.raises(ValueError, match="POS_INF_32"):
+            mod.find_batch(st, q)
+        assert all(torch.equal(a, b) for a, b in zip(before, st))
+    q[1777] = tsx.POS_INF_32 - 1
+    plain = (state_walk.splay_walk_plain if engine == "splay"
+             else state_walk.skip_walk_plain)
+    _equal(mod.find_batch(st, q), plain(st, q))
+
+
+def test_find_batch_synchronises_once():
+    """A find_batch call on CUDA tensors waits on the card once: the
+    read of W's status word (no host check of the keys)."""
+    sp, sk, pool = _walk_states(1000, 9)
+    q = torch.as_tensor(pool[::3], device="cuda")
+    for st, mod in ((sp, tsx), (sk, tskx)):
+        mod.find_batch(st, q)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                mod.find_batch(st, q)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in caught]
+
+
+@pytest.mark.parametrize("engine", ["splay", "skip"])
+def test_state_walk_drops_bad_speculative_links(engine):
+    """Every link of the slot holding 30 lies outside [-C, C).  A walk
+    that stops before 30 loads such a link ahead of its branch and drops
+    it: no status, the plain loop's answers.  A walk that passes 30
+    takes one and raises."""
+    mod = tsx if engine == "splay" else tskx
+    st = mod.make(16, 4, device="cuda")
+    third = [True] * 3 if engine == "splay" else [0, 1, 0]
+    st, _, _ = mod.run_ops(st, [1, 1, 1], [10, 20, 30], third)
+    st.nxt[:, int((st.key == 30).nonzero()[0])] = 10 * 16
+    q = torch.as_tensor([25, 5, 15, 20, 29], dtype=torch.int32,
+                        device="cuda")
+    plain = (state_walk.splay_walk_plain if engine == "splay"
+             else state_walk.skip_walk_plain)
+    _equal(mod.find_batch(st, q), plain(st, q))
+    with pytest.raises(RuntimeError, match="slot index outside"):
+        mod.find_batch(st, [35])

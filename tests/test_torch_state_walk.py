@@ -11,12 +11,14 @@ in ``slot`` and ``steps``, on numpy-seeded states and queries:
 * queries present, absent, negative and at ``NEG_INF_32``, in batches
   of 0, 1 and 333.
 
-Also: CPU tensors never reach the kernel's library; the splay-list's
-refusal of a ``POS_INF_32`` key (the state untouched); the step bound
-``C + L + 1`` raising ``RuntimeError`` on a hand-made cyclic ``nxt``
-for both engines."""
+Also: CPU tensors never reach the kernel's library; the refusal of a
+``POS_INF_32`` key (the state untouched); the step bound ``C + L + 1``
+raising ``RuntimeError`` on a hand-made cyclic ``nxt`` for both
+engines; the decoding of the kernel's status word (bit flags, a refused
+key raising ``ValueError`` before any other cause)."""
 
 import functools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -259,3 +261,30 @@ def test_device_mismatch_is_refused():
     meta = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="state on the CPU"):
         state_walk.splay_walk(st, meta)
+
+
+@pytest.mark.parametrize("word,raised,match", [
+    (0, None, None),
+    (1, RuntimeError, "splay_walk: a lane reached the step bound"),
+    (2, RuntimeError, "skip_walk: a slot index outside"),
+    (3, RuntimeError, "step bound C \\+ L \\+ 1; a slot index outside"),
+    (4, ValueError, "POS_INF_32"),
+    (5, ValueError, "POS_INF_32"),
+    (6, ValueError, "POS_INF_32"),
+    (7, ValueError, "POS_INF_32"),
+])
+def test_status_word_decoding(word, raised, match):
+    """W's status word is bit flags (1 step bound, 2 bad slot or level,
+    4 refused key); a refused key raises ``ValueError`` with the host
+    check's message before any other cause."""
+    name = "skip_walk" if word == 2 else "splay_walk"
+    err = state_walk.status_error(name, word)
+    if raised is None:
+        assert err is None
+        return
+    assert type(err) is raised
+    assert re.search(match, str(err))
+    if raised is ValueError:
+        assert str(err) == state_walk.REFUSAL
+        with pytest.raises(ValueError, match=re.escape(str(err))):
+            state_walk.check_keys(torch.as_tensor([1, tsx.POS_INF_32]))
