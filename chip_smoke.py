@@ -182,7 +182,28 @@ Phases:
    engines, as in the reference: nothing of it runs on the card),
    ``train_adaptive_lm``'s 60 smoke steps, and ``serve_adaptive`` (the
    engine demo, then the sharded demos on the 4 gloo ranks on the card
-   that its ``main`` spawns).
+   that its ``main`` spawns);
+13. the models on a mesh (:func:`mesh_phase`, run right after phase 5e
+   on its bf16 minitron-8b weights, seed 0, and its 8 requests): the
+   weights written as a host flat tree (a file a tensor under
+   ``build/mesh13``, removed after), 4 gloo ranks on the card (``--phase13
+   --backend nccl``: a card a rank) each cutting its blocks out of it
+   (``elastic.reshard`` by ``axes_to_specs`` on the 1 x 4 mesh: about
+   4.94 GB a rank), every block's SHA-256 equal to the global tensor's
+   slice; one sharded decode step of phase 5e's left-padded batch, its
+   logits at most twice as far from the float32 witness (the same
+   weights computed in float32) as the meshless bf16 step's, the greedy
+   ids equal on every rank, the step's collectives from a trace;
+   ``Engine(mesh=...)`` on the 8 requests: latencies, stalls,
+   preemptions, retries, tokens out and the pool's chains equal phase
+   5e's, the ids equal on every rank and each sequence that differs
+   from phase 5e's witnessed at its first differing id by the float32
+   witness (:func:`engine_witness`), B1/B2, F and W launched on every
+   rank (path ``model_mesh``), tokens/s and ms a step; a rank lost
+   (``elastic.remesh`` to the 1 x 2 mesh of ranks 0 and 1, the host tree
+   re-laid, one decode step under the witness); GPipe over the ``pod``
+   axis of the 4 ranks (32 blocks in 4 stages, a bf16 8 x 128 batch in
+   4 microbatches) against the meshless layers under the witness.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
@@ -202,8 +223,9 @@ caller in the reference is the composition: phase 6's timed
 composition; S: phase 10's race; W: phase 3 for the splay-list and
 phase 10's race for the skip-list); ``launches_by_path`` adds every
 other path, the engine's, ``snapshot`` and ``train`` (which launches none of them)
-among them, and the ranks of phase 9 (``sharded``) and of phase 12's
-sharded demos (``examples_sharded``).  Prints that JSON line, the
+among them, and the ranks of phase 9 (``sharded``), of phase 12's
+sharded demos (``examples_sharded``) and of phase 13's engine
+(``model_mesh``).  Prints that JSON line, the
 card's ``name, power.limit``,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, with no result line, on any failed check or without a CUDA
@@ -543,7 +565,8 @@ def train_phase(torch, dev, read_launches, card):
 
 def models_phase(torch, dev, read_launches, path_launches, minitron):
     """Phase 5e: the model zoo and the serving engine (host clocks and
-    CUDA events only).  Frees everything it builds."""
+    CUDA events only).  Frees everything it builds; returns phase 13's
+    inputs (:func:`mesh_job`)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core import workload as wl
@@ -716,6 +739,9 @@ def models_phase(torch, dev, read_launches, path_launches, minitron):
           f"embedding lookups index the table, as the reference's do)",
           flush=True)
 
+    # phase 13's inputs, before the snapshot's requests change the engine
+    job13 = mesh_job(torch, dev, params, cfg16, arr, de, dres, card_line())
+
     # -- a serving snapshot of the device-indexed engine, restored -------
     from repro_torch.launch import serve as serve_main
     from repro_torch.serve import snapshot as snap
@@ -784,6 +810,7 @@ def models_phase(torch, dev, read_launches, path_launches, minitron):
           flush=True)
     del de, he, re, rpool, runs, params
     torch.cuda.empty_cache()
+    return job13
 
 
 KV_PAGES, KV_PAGE_SIZE = 28672, 16   # phase 5d's pool (minitron-8b)
@@ -1822,6 +1849,536 @@ def examples_phase(torch, dev, read_launches) -> dict:
             for k in ranks[0]["launches"]}
 
 
+MESH_RANKS = 4            # phase 13: ranks of the model's mesh
+MESH_DIR = "mesh13"       # phase 13: the host weights, under build/
+PIPE_MB = 4               # phase 13: GPipe's microbatches
+PIPE_SHAPE = (8, 128)     # phase 13: GPipe's batch x sequence
+
+
+def _slice_for(shape, spec, coords, sizes):
+    """The index of the block a rank at ``coords`` holds of a tensor of
+    ``shape`` laid out by ``spec`` (read here independently of the
+    port's ``sharding.block_slices``: axes row-major, the last one
+    fastest)."""
+    idx = []
+    for d, n in enumerate(shape):
+        e = spec[d] if d < len(spec) else None
+        axes = () if e is None else (e,) if isinstance(e, str) else e
+        k, i = 1, 0
+        for a in axes:
+            k *= sizes[a]
+            i = i * sizes[a] + coords[a]
+        idx.append(slice(i * n // k, (i + 1) * n // k))
+    return tuple(idx)
+
+
+def _digest(t) -> str:
+    """SHA-256 of a CPU tensor's bytes."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(t.contiguous().view(-1).view(
+        torch.uint8).numpy()).hexdigest()
+
+
+def mesh_job(torch, dev, params, cfg16, arr, de, dres, card) -> dict:
+    """Phase 13's inputs, from phase 5e's bf16 minitron-8b weights and
+    its device-indexed engine ``de`` (results ``dres``): the weights as
+    a host flat tree, one file a tensor under ``build/mesh13`` (the
+    ranks map them), each rank's expected block digests on the 1 x 4
+    mesh, phase 5e's left-padded batch with its meshless bf16 decode
+    step's logits and the float32 witness (the same weights, computed
+    in float32), GPipe's input's meshless bf16 and float32 outputs, and
+    the engine's length-driven outputs."""
+    import dataclasses
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    t = time.perf_counter()
+    d = HERE / "build" / MESH_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    need = sum(v.numel() * v.element_size() for v in params.values())
+    free_disk = shutil.disk_usage(d).free
+    check(free_disk > need + 2**30, f"phase 13 needs {need} B of disk under "
+          f"build/ for the host weights, {free_disk} B are free")
+    _, axes = zoo.param_axes(cfg16)
+    sizes = {"data": 1, "model": MESH_RANKS}
+    specs = ly.axes_to_specs(params, axes, shd.AbstractMesh(sizes),
+                             shd.default_rules())
+    files, digests = {}, {r: {} for r in range(MESH_RANKS)}
+    with ThreadPoolExecutor(8) as ex:
+        for name, v in params.items():
+            host = v.cpu()
+            files[name] = str(d / f"{name}.pt")
+            torch.save(host, files[name])
+            futs = {r: ex.submit(_digest, host[_slice_for(
+                host.shape, specs[name], {"data": 0, "model": r}, sizes)])
+                for r in range(MESH_RANKS)}
+            for r, f in futs.items():
+                digests[r][name] = f.result()
+            del host
+    write_s = time.perf_counter() - t
+    # the decode step of phase 5e's float32 check, on the bf16 weights:
+    # meshless in bf16, and the witness in float32
+    toks = left_pad(arr.prompts[:4], arr.prompt_lens[:4])
+    B, L = toks.shape
+    cfg32w = dataclasses.replace(cfg16, dtype="float32")
+
+    def step(cfg):
+        dec = ss.make_decode_step(cfg)
+        _, c, _ = ss.prefill_loop(dec, params, toks[:, :-1],
+                                  zoo.init_cache(cfg, B, 16, dev))
+        logits, _ = zoo.decode_step(
+            params, cfg, torch.as_tensor(toks[:, -1:], device=dev), c, L - 1)
+        return logits[:, 0].float().cpu()
+    with torch.no_grad():
+        l16, l32 = step(cfg16), step(cfg32w)
+        x = torch.as_tensor(pipe_input(cfg16.d_model),
+                            device=dev).to(torch.bfloat16)
+        p16 = zoo._run_layers(x, params, cfg16, torch.bfloat16)
+        p32 = zoo._run_layers(x.float(), params, cfg32w, torch.float32)
+    job = dict(
+        files=files, digests=digests, card=card, toks=toks,
+        l16=l16.numpy(), l32=l32.numpy(),
+        e_step=float((l16 - l32).abs().max()),
+        pipe16=p16.float().cpu().numpy(), pipe32=p32.cpu().numpy(),
+        e_pipe=float((p16.float() - p32).abs().max()),
+        engine=dict(ids=dres, latencies=dict(de.latencies),
+                    stalls=de.stalls, preemptions=de.preemptions,
+                    retries=de.degraded_retries, tokens_out=de.tokens_out,
+                    chains=dict(de.pool.chains)),
+        write_s=write_s, nbytes=need, n_layers=cfg16.n_layers)
+    print(f"[13] host weights written in {write_s:.1f} s ({need} B, "
+          f"{len(files)} files under build/{MESH_DIR}); meshless bf16 step "
+          f"vs the float32 witness: max |logit diff| {job['e_step']:.4e}; "
+          f"GPipe input {PIPE_SHAPE[0]}x{PIPE_SHAPE[1]} through "
+          f"{cfg16.n_layers} layers: "
+          f"bf16 vs float32 {job['e_pipe']:.4e}", flush=True)
+    return job
+
+
+def pipe_input(d_model: int):
+    """GPipe's input: a ``[8, 128, d_model]`` batch from seed 0."""
+    return np.random.default_rng(0).standard_normal(
+        PIPE_SHAPE + (d_model,), dtype=np.float32)
+
+
+def _history_logits(torch, params, cfg, hist):
+    """The logits ``[V]`` (float32, on the host) after the ids ``hist``
+    fed one at a time through the decode cell, on a laid-out tree
+    (gathered whole; a collective) or a global one."""
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    dev = params["embed"].device
+    mesh = shd.tree_mesh(params)
+    cache = zoo.init_cache(cfg, 1, len(hist), dev, mesh=mesh,
+                           rules=getattr(params, "rules", None))
+    _, cache, _ = ss.prefill_loop(ss.make_decode_step(cfg), params,
+                                  hist[None, :-1], cache)
+    logits, _ = zoo.decode_step(
+        params, cfg, torch.as_tensor(hist[None, -1:], device=dev), cache,
+        len(hist) - 1)
+    if mesh is not None:
+        return _whole_logits(torch, logits[0, 0], params, cfg).float().cpu()
+    return logits[0, 0].float().cpu()
+
+
+def _whole_logits(torch, block, tree, cfg):
+    """A laid-out tree's logits block gathered whole (a collective)."""
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    axes = zoo.vocab_axes(tree, cfg)
+    spec = (None,) * (block.dim() - 1) + (axes,)
+    return shd.relayout(block, spec, (), tree.mesh)
+
+
+def mesh_rank(mesh, job) -> dict:
+    """Phase 13 on one rank: minitron-8b laid out over the 1 x 4 mesh
+    (from the host flat tree, ``elastic.reshard`` by ``axes_to_specs``),
+    its blocks' digests; one sharded decode step of phase 5e's batch
+    under the float32 witness; ``Engine(mesh=...)`` on phase 5e's 8
+    requests; the re-lay onto the 1 x 2 mesh of ranks 0 and 1 after a
+    rank is lost, and its decode step; GPipe over the ``pod`` mesh of
+    the 4 ranks, the 32 blocks in 4 stages."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.minitron_8b import CONFIG as minitron
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import collectives as cl
+    from repro_torch.parallel import pipeline as pl
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train import elastic
+    torch.set_grad_enabled(False)
+    dev = mesh.device
+    me = mesh.index
+    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    cfg32w = dataclasses.replace(cfg16, dtype="float32")
+    host = {k: torch.load(f, mmap=True, weights_only=True)
+            for k, f in job["files"].items()}
+    _, axes = zoo.param_axes(cfg16)
+    rules = shd.default_rules()
+    out = {"rank": me, "device": str(dev)}
+
+    def lay(m):
+        specs = ly.axes_to_specs(host, axes, m, rules)
+        return shd.LaidOutTree(elastic.reshard(host, specs, m), specs, m,
+                               rules)
+
+    def sync_ms(t0):
+        torch.cuda.synchronize(dev)
+        return 1e3 * (time.perf_counter() - t0)
+
+    toks = job["toks"]
+    B, L = toks.shape
+    l32 = torch.as_tensor(job["l32"])
+
+    def step(tree, cfg):
+        """Phase 5e's batch: prefill then one decode step; the logits
+        gathered whole, the greedy ids, and the step's ms (events)."""
+        dec = ss.make_decode_step(cfg)
+        cache = zoo.init_cache(cfg, B, 16, dev, mesh=tree.mesh, rules=rules)
+        _, c, _ = ss.prefill_loop(dec, tree, toks[:, :-1], cache)
+        last = torch.as_tensor(toks[:, -1:], device=dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits, _ = zoo.decode_step(tree, cfg, last, c, L - 1)
+        e1.record()
+        whole = _whole_logits(torch, logits[:, 0], tree, cfg).float().cpu()
+        tok = ss.greedy(logits[:, 0], tree, cfg)
+        torch.cuda.synchronize(dev)
+        return whole, tok, e0.elapsed_time(e1), (c, last)
+
+    # -- 1. the weights laid out over 1 x 4 -------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tree = lay(mesh)
+    out["lay_ms"] = sync_ms(t0)
+    out["param_bytes"] = sum(v.numel() * v.element_size()
+                             for v in tree.values())
+    out["digests_equal"] = sum(
+        _digest(v.cpu()) == job["digests"][me][k] for k, v in tree.items())
+    out["n_tensors"] = len(tree)
+    out["peak_after_lay"] = torch.cuda.max_memory_allocated(dev)
+
+    # -- 2. one sharded decode step under the witness ----------------------
+    whole, tok, ms, (c, last) = step(tree, cfg16)
+    out["e_step"] = float((whole - l32).abs().max())
+    out["step_ms"] = ms
+    toks_all = cl.all_gather(tok, mesh)
+    out["greedy"] = tok.tolist()
+    out["greedy_equal_on_ranks"] = bool((toks_all == tok).all())
+    out["greedy_meshless"] = torch.as_tensor(job["l16"]).argmax(-1).tolist()
+    # one step traced: the collectives a step
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    zoo.decode_step(tree, cfg16, last, c, L - 1)
+    wall = sync_ms(t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        zoo.decode_step(tree, cfg16, last, c, L - 1)
+        traced = sync_ms(t0)
+    out["step_split"] = dict(collective_split(prof, mesh.backend, 1, traced),
+                             wall_ms=wall, traced_wall_ms=traced)
+    del c
+
+    # -- 3. the engine on the mesh -----------------------------------------
+    arr = wl.poisson_zipf_arrivals(8, float("inf"), minitron.vocab,
+                                   prompt_len=(2, 7), max_new=8, seed=0)
+    eng = Engine(cfg16, tree, max_batch=4, max_seq=128, device_index=True,
+                 index_width=1024, mesh=mesh, device=dev)
+    events, padded = [], {}
+    decode, pad = eng._decode, eng._pad_prompts
+
+    def recorded_pad(reqs):
+        rows = pad(reqs)
+        padded.update({r.seq_id: row for r, row in zip(reqs, rows)})
+        return rows
+
+    def timed_decode(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = decode(*a)
+        e1.record()
+        events.append((e0, e1))
+        return r
+    eng._decode = timed_decode
+    eng._pad_prompts = recorded_pad
+    for i in range(len(arr.seq_ids)):
+        n_i = int(arr.prompt_lens[i])
+        eng.submit(Request(seq_id=int(arr.seq_ids[i]),
+                           prompt=arr.prompts[i, :n_i].copy(),
+                           max_new=int(arr.max_new[i]),
+                           arrival=int(arr.arrival[i])))
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize(dev)
+    out["engine_wall_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out["engine_step_ms"] = [a.elapsed_time(b) for a, b in events]
+    out["engine"] = dict(ids=res, latencies=dict(eng.latencies),
+                         stalls=eng.stalls, preemptions=eng.preemptions,
+                         retries=eng.degraded_retries,
+                         tokens_out=eng.tokens_out,
+                         chains=dict(eng.pool.chains))
+    out["peak_after_engine"] = torch.cuda.max_memory_allocated(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    out["card_used"] = total - free
+    # each sequence whose ids differ from phase 5e's, at its first
+    # differing id: the history both engines saw there (its left-padded
+    # prompt in the wave that finished it, then the ids before) and the
+    # mesh's bf16 logits after it, for the float32 witness (mesh_phase)
+    witnessed = []
+    for s, ids in sorted(res.items()):
+        ref = job["engine"]["ids"][s]
+        if ids == ref:
+            continue
+        p = next(j for j in range(len(ids)) if ids[j] != ref[j])
+        hist = np.concatenate([padded[s], np.asarray(ref[:p], np.int32)])
+        witnessed.append(dict(seq=s, pos=p, mesh_id=ids[p], ref_id=ref[p],
+                              hist=hist, logits=_history_logits(
+                                  torch, tree, cfg16, hist).numpy()))
+    out["witnessed"] = witnessed
+    # the wrappers' bound methods hold the engine, and it the tree
+    del eng, tree, pad, decode, recorded_pad, timed_decode
+    torch.cuda.empty_cache()
+
+    # -- 4. a rank lost: the re-lay onto 1 x 2 ------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    m2 = elastic.remesh([0, 1], model_parallel=2, device=dev)
+    out["relay"] = None
+    if m2 is not None:
+        t0 = time.perf_counter()
+        tree2 = lay(m2)
+        lay_ms = sync_ms(t0)
+        whole2, tok2, ms2, _ = step(tree2, cfg16)
+        out["relay"] = dict(
+            lay_ms=lay_ms, step_ms=ms2, greedy=tok2.tolist(),
+            e_step=float((whole2 - l32).abs().max()),
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in tree2.values()),
+            peak=torch.cuda.max_memory_allocated(dev),
+            shape=dict(m2.shape))
+        del tree2
+        torch.cuda.empty_cache()
+    out["scale_microbatch"] = elastic.scale_microbatch(8, 4, 2, 1)
+
+    # -- 5. GPipe over the pod mesh of the 4 ranks ---------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    pod = shd.world_mesh(device=dev, axis="pod")
+    keys = zoo._layer_keys(host, cfg16)
+    stacked = pl.split_stages({k: host[k] for k in keys}, MESH_RANKS)
+    stage = elastic.reshard(stacked, {k: ("pod",) for k in keys}, pod)
+    cfg_stage = dataclasses.replace(cfg16,
+                                    n_layers=cfg16.n_layers // MESH_RANKS)
+
+    def stage_fn(p, h):
+        return zoo._run_layers(h, p, cfg_stage, torch.bfloat16)
+    x = torch.as_tensor(pipe_input(cfg16.d_model),
+                        device=dev).to(torch.bfloat16)
+    stage_fn({k: v[0] for k, v in stage.items()},
+             x[:PIPE_SHAPE[0] // PIPE_MB])          # warm the kernels
+    # a barrier: the sum's wait (NCCL enqueues it, so wait on the card)
+    cl.psum(torch.zeros(1, device=dev), pod, "pod")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    y = pl.pipeline_forward(x, stage, stage_fn, pod, PIPE_MB, axis="pod")
+    out["pipe_ms"] = sync_ms(t0)
+    out["pipe_stage_bytes"] = sum(v.numel() * v.element_size()
+                                  for v in stage.values())
+    out["pipe_peak"] = torch.cuda.max_memory_allocated(dev)
+    ys = cl.all_gather(y, pod, "pod")
+    out["pipe_equal_on_ranks"] = bool((ys == y).all())
+    out["e_pipe"] = float((y.float().cpu() - torch.as_tensor(
+        job["pipe32"])).abs().max())
+    return out
+
+
+def engine_witness(torch, dev, job, cases) -> list:
+    """The float32 witness of each sequence whose ids on the mesh differ
+    from phase 5e's (``cases``, from :func:`mesh_rank`): the weights
+    loaded whole onto the card from the host tree, the history's logits
+    meshless in bf16 and, the witness, in float32 on the same weights;
+    the mesh's bf16 logits must lie at most twice as far from the
+    witness as the meshless bf16 ones (``Agreement``'s rule).  Returns
+    ``(sequence, position, mesh id, phase 5e's id, mesh distance,
+    meshless distance)`` for each."""
+    import dataclasses
+
+    from repro_torch.configs.minitron_8b import CONFIG as minitron
+    if not cases:
+        return []
+    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    cfg32w = dataclasses.replace(cfg16, dtype="float32")
+    params = {k: torch.load(f, mmap=True, weights_only=True).to(dev)
+              for k, f in job["files"].items()}
+    out = []
+    with torch.no_grad():
+        for w in cases:
+            l16 = _history_logits(torch, params, cfg16, w["hist"])
+            l32 = _history_logits(torch, params, cfg32w, w["hist"])
+            e_mesh = float((torch.as_tensor(w["logits"]) - l32).abs().max())
+            e_one = float((l16 - l32).abs().max())
+            check(e_mesh <= 2 * e_one, f"phase 13: sequence {w['seq']} id "
+                  f"{w['pos']}: {w['mesh_id']} on the mesh, {w['ref_id']} "
+                  f"in phase 5e; the mesh's logits lie {e_mesh:.4e} from "
+                  f"the float32 witness, more than twice the meshless "
+                  f"bf16's {e_one:.4e}")
+            out.append((w["seq"], w["pos"], w["mesh_id"], w["ref_id"],
+                        round(e_mesh, 6), round(e_one, 6)))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(torch, dev, job, backend: str) -> dict:
+    """Phase 13: :func:`mesh_rank` on ``MESH_RANKS`` ranks (gloo: every
+    rank on ``cuda:0``; nccl: one card a rank).  Checks and prints each
+    rank's readings beside the card's name and power limit; removes the
+    host weights; returns each kernel's launches by rank on the engine's
+    path."""
+    import gc
+    import shutil
+
+    from repro_torch.launch import spmd
+    card = job["card"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[13] starting {MESH_RANKS} {backend} ranks; this process: "
+          f"{host_memory()}; card free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB ({card})", flush=True)
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(mesh_rank, MESH_RANKS, job, backend=backend,
+                           device="cuda", timeout=1200)
+        wall = time.perf_counter() - t
+        witness = engine_witness(torch, dev, job, ranks[0]["witnessed"])
+    except RuntimeError as e:
+        fail(f"phase 13: {e}")
+    finally:
+        shutil.rmtree(HERE / "build" / MESH_DIR, ignore_errors=True)
+    e_ref, eng_ref = job["e_step"], job["engine"]
+    for r in ranks:
+        me = f"phase 13 rank {r['rank']}"
+        check(r["digests_equal"] == r["n_tensors"],
+              f"{me}: {r['n_tensors'] - r['digests_equal']} blocks differ "
+              f"from the global tensors' slices")
+        check(r["e_step"] <= 2 * e_ref, f"{me}: the sharded step lies "
+              f"{r['e_step']:.4e} from the float32 witness, more than twice "
+              f"the meshless bf16 step's {e_ref:.4e}")
+        check(r["greedy_equal_on_ranks"], f"{me}: greedy ids differ "
+              f"between the ranks")
+        for k in ("latencies", "stalls", "preemptions", "retries",
+                  "tokens_out", "chains"):
+            check(r["engine"][k] == eng_ref[k], f"{me}: the engine's {k} "
+                  f"differ from phase 5e's: {r['engine'][k]} != "
+                  f"{eng_ref[k]}")
+        check(r["engine"]["ids"] == ranks[0]["engine"]["ids"],
+              f"{me}: generated ids differ from rank 0's")
+        n = r["launches"]
+        check(n["splay_search_tiered"] + n["splay_search_pipelined"] > 0
+              and n["splay_fold"] > 0 and n["splay_walk"] > 0,
+              f"{me}: a kernel of the model_mesh path never launched: {n}")
+        if r["relay"] is not None:
+            check(r["relay"]["e_step"] <= 2 * e_ref, f"{me}: the 1 x 2 "
+                  f"step lies {r['relay']['e_step']:.4e} from the witness, "
+                  f"more than twice {e_ref:.4e}")
+        check(r["pipe_equal_on_ranks"], f"{me}: GPipe outputs differ "
+              f"between ranks")
+        check(r["e_pipe"] <= 2 * job["e_pipe"], f"{me}: GPipe lies "
+              f"{r['e_pipe']:.4e} from the float32 layers, more than twice "
+              f"the meshless bf16 layers' {job['e_pipe']:.4e}")
+    r0 = ranks[0]
+    ids_equal = sum(r0["engine"]["ids"][s] == eng_ref["ids"][s]
+                    for s in eng_ref["ids"])
+    tok_equal = sum(a == b for s in eng_ref["ids"] for a, b in zip(
+        r0["engine"]["ids"][s], eng_ref["ids"][s]))
+    steps = np.concatenate([r["engine_step_ms"] for r in ranks])
+    print(f"[13] minitron-8b bf16 on a 1 x {MESH_RANKS} mesh ({backend}, "
+          f"{r0['device']}), {wall:.1f} s for the phase ({card})",
+          flush=True)
+    for r in ranks:
+        print(f"[13]   rank {r['rank']}: parameter bytes "
+              f"{r['param_bytes']} (laid out in {r['lay_ms']:.1f} ms, "
+              f"{r['digests_equal']}/{r['n_tensors']} block digests equal "
+              f"the global tensors' slices); peak memory after the lay-out "
+              f"{r['peak_after_lay']} B, after the engine "
+              f"{r['peak_after_engine']} B; card used by all processes "
+              f"{r['card_used']} B ({card})", flush=True)
+    sp = r0["step_split"]
+    print(f"[13] one sharded decode step of phase 5e's batch "
+          f"{job['toks'].shape}: largest |logit - float32 witness| by rank "
+          f"{[round(r['e_step'], 6) for r in ranks]} (meshless bf16 "
+          f"{e_ref:.6f}; limit twice it); greedy ids {r0['greedy']} on "
+          f"every rank (meshless bf16 {r0['greedy_meshless']}); ms a step "
+          f"(events) {[round(r['step_ms'], 4) for r in ranks]}; rank 0 "
+          f"traced: wall {sp['wall_ms']:.4f} untraced, "
+          f"{sp['traced_wall_ms']:.4f} traced = collectives with the "
+          f"device idle {sp['collective_idle_ms']} + device busy "
+          f"{sp['device_busy_ms']} + host {sp['host_ms']}; collectives "
+          f"{sp['collectives']} calls, {sp['collective_bytes']} B, "
+          f"{sp['collective_ms']} ms on the host; idle share "
+          f"{sp['idle_share']} ({card})", flush=True)
+    print(f"[13] Engine(mesh=...) on phase 5e's 8 requests, every rank: "
+          f"latencies, stalls {r0['engine']['stalls']}, preemptions "
+          f"{r0['engine']['preemptions']}, retries "
+          f"{r0['engine']['retries']}, tokens out "
+          f"{r0['engine']['tokens_out']} and the pool's chains equal phase "
+          f"5e's; ids equal on every rank; {ids_equal}/8 sequences and "
+          f"{tok_equal}/{r0['engine']['tokens_out']} ids equal phase 5e's, "
+          f"the rest witnessed at their first differing id "
+          f"(sequence, position, mesh id, phase 5e's id, |mesh - float32|,"
+          f" |meshless bf16 - float32|) {witness}; "
+          f"{r0['engine']['tokens_out'] / r0['engine_wall_s']:.2f} tokens/s "
+          f"({r0['engine_wall_s']:.3f} s); ms a decode step (events, "
+          f"{len(steps)} over the ranks) mean {np.mean(steps):.4f}, median "
+          f"{np.median(steps):.4f}, min {np.min(steps):.4f}; launches on "
+          f"path model_mesh by rank (B1, B2, F, W): "
+          + "; ".join(f"{r['rank']} "
+                      f"{[r['launches'][k] for k in SHARDED_KERNELS]}"
+                      for r in ranks) + f" ({card})", flush=True)
+    rl = [r for r in ranks if r["relay"] is not None]
+    print(f"[13] a rank lost: elastic.remesh(ranks=[0, 1], model_parallel="
+          f"2) -> {rl[0]['relay']['shape']}, reshard of the host tree: "
+          + "; ".join(f"rank {r['rank']} {r['relay']['param_bytes']} B in "
+                      f"{r['relay']['lay_ms']:.1f} ms, peak "
+                      f"{r['relay']['peak']} B, step "
+                      f"{r['relay']['step_ms']:.4f} ms, |logit - witness| "
+                      f"{r['relay']['e_step']:.6f}, "
+                      f"greedy {r['relay']['greedy']}" for r in rl)
+          + f"; scale_microbatch(8, 4, 2, 1) = {r0['scale_microbatch']} "
+          f"({card})", flush=True)
+    print(f"[13] GPipe over the pod axis: {MESH_RANKS} stages of "
+          f"{job['n_layers'] // MESH_RANKS} blocks "
+          f"({r0['pipe_stage_bytes']} B a rank), "
+          f"bf16 {PIPE_SHAPE[0]}x{PIPE_SHAPE[1]} in {PIPE_MB} microbatches: "
+          f"{[round(r['pipe_ms'], 3) for r in ranks]} ms a call, bubble "
+          f"{(MESH_RANKS - 1) / (MESH_RANKS - 1 + PIPE_MB):.4f}; "
+          f"|out - float32 layers| {r0['e_pipe']:.6f} (meshless bf16 "
+          f"{job['e_pipe']:.6f}); peak {r0['pipe_peak']} B ({card})",
+          flush=True)
+    return {k: {f"rank{r['rank']}": r["launches"][k] for r in ranks}
+            for k in r0["launches"]}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2695,7 +3252,11 @@ def main() -> None:
           f"synchronised); stats {st5d}", flush=True)
 
     # ---- phase 5e: the model zoo and the serving engine -----------------
-    models_phase(torch, dev, read_launches, path_launches, minitron)
+    job13 = models_phase(torch, dev, read_launches, path_launches, minitron)
+
+    # ---- phase 13: the models on a mesh (on 5e's weights) ---------------
+    mesh_by_rank = mesh_phase(torch, dev, job13, "gloo")
+    del job13
 
     # ---- phase 5f: training ---------------------------------------------
     train_phase(torch, dev, read_launches, card)
@@ -3198,6 +3759,8 @@ def main() -> None:
         k["launches_by_path"]["sharded"] = by_rank.get(k["name"], {})
         k["launches_by_path"]["examples_sharded"] = ex_by_rank.get(
             k["name"], {})
+        k["launches_by_path"]["model_mesh"] = mesh_by_rank.get(
+            k["name"], {})
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3228,18 +3791,69 @@ def phase9_only(backend: str) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def phase13_only(backend: str) -> None:
+    """Phase 13 alone (``--phase13``), its inputs computed here as phase
+    5e computes them (minitron-8b bf16 from seed 0, its device-indexed
+    engine on the 8 requests): with ``--backend nccl`` one rank a card,
+    so the machine needs four."""
+    import dataclasses
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.configs.minitron_8b import CONFIG as minitron
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import build
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import Engine, Request
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} device(s)", flush=True)
+    if backend == "nccl" and torch.cuda.device_count() < MESH_RANKS:
+        fail(f"--backend nccl needs {MESH_RANKS} cards")
+    build.build()
+    dev = torch.device("cuda")
+    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    params = zoo.build_params(cfg16, seed=0, device=dev)
+    arr = wl.poisson_zipf_arrivals(8, float("inf"), minitron.vocab,
+                                   prompt_len=(2, 7), max_new=8, seed=0)
+    eng = Engine(cfg16, params, max_batch=4, max_seq=128,
+                 device_index=True, device=dev)
+    for i in range(len(arr.seq_ids)):
+        n_i = int(arr.prompt_lens[i])
+        eng.submit(Request(seq_id=int(arr.seq_ids[i]),
+                           prompt=arr.prompts[i, :n_i].copy(),
+                           max_new=int(arr.max_new[i]),
+                           arrival=int(arr.arrival[i])))
+    with torch.no_grad():
+        res = eng.run()
+    job = mesh_job(torch, dev, params, cfg16, arr, eng, res, card)
+    del params, eng
+    by_rank = mesh_phase(torch, dev, job, backend)
+    print(json.dumps({"model_mesh_launches": by_rank}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase9", action="store_true",
                     help="run only phase 9, the width-sharded index")
+    ap.add_argument("--phase13", action="store_true",
+                    help="run only phase 13, the models on a mesh")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
-                    help="phase 9's process-group backend: gloo (every "
-                         "rank on the one card) or nccl (one rank a card)")
+                    help="the process-group backend of --phase9 and "
+                         "--phase13: gloo (every rank on the one card) or "
+                         "nccl (one rank a card)")
     cli = ap.parse_args()
     try:
         if cli.phase9:
             phase9_only(cli.backend)
+        elif cli.phase13:
+            phase13_only(cli.backend)
         else:
             main()
     except CheckFailed as e:      # a failed check of scripts/card_checks.py

@@ -1,55 +1,117 @@
 """Shared layers and the parameter builder (the twin of
-``repro.models.layers``, meshless).
+``repro.models.layers``).
 
-``ParamBuilder`` declares every parameter exactly once, with its shape
-and init, and draws it from an explicit ``torch.Generator`` on an
-explicit device.  Its draws cannot match ``jax.random``'s, so the
-parity tests start both packages from the JAX parameters, converted
-array by array (``core.convert.params_from_numpy``).  The logical-axis
-annotations of the reference are mesh-only and arrive with the
-models' mesh placement (ROADMAP queue A, A12b).
+``ParamBuilder`` declares every parameter exactly once, with its shape,
+its logical sharding axes and its init, and draws it from an explicit
+``torch.Generator`` on an explicit device (on ``"meta"``: shapes only,
+no memory and no draw, the twin of the reference's ``abstract=True``).
+Its draws cannot match ``jax.random``'s, so the parity tests start both
+packages from the JAX parameters, converted array by array
+(``core.convert.params_from_numpy``).  :func:`split_axes` separates the
+axes from the parameters and :func:`axes_to_specs` resolves them on a
+mesh (``parallel.sharding``).  On a laid-out tree the layers compute
+from this rank's blocks (:func:`swiglu`: column-parallel gate and up,
+row-parallel down, whose partial sums meet in one sum).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import collectives as cl
+from repro_torch.parallel import sharding as shd
 
 INITS = ("normal", "zeros", "ones", "ssm_a")
 
 
 class ParamBuilder:
-    def __init__(self, generator: torch.Generator, device,
+    def __init__(self, generator: Optional[torch.Generator], device,
                  param_dtype=torch.float32):
         self.gen = generator
         self.device = torch.device(device)
         self.param_dtype = param_dtype
 
     def add(self, tree: Dict, name: str, shape: Sequence[int],
-            init: str = "normal", scale: Optional[float] = None):
-        """``normal``: N(0, 1) times ``scale``, or 1/sqrt(fan_in) with
+            axes: Sequence[Optional[str]], init: str = "normal",
+            scale: Optional[float] = None):
+        """Declare ``tree[name]``: its logical ``axes`` (one name a
+        dimension, recorded in ``tree["__axes__"]``) and its init.
+        ``normal``: N(0, 1) times ``scale``, or 1/sqrt(fan_in) with
         fan_in the leading dimension; ``ones``; ``zeros``; ``ssm_a``:
-        -exp(U(0, 1.5)), the negative SSM decay."""
+        -exp(U(0, 1.5)), the negative SSM decay.  On the meta device
+        only the shape is made."""
         shape = tuple(int(s) for s in shape)
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {shape} has {len(shape)} "
+                             f"dimensions, axes {tuple(axes)} name "
+                             f"{len(axes)}")
+        if init not in INITS:
+            raise ValueError(f"unknown init {init!r} (choose from {INITS})")
         kw = dict(dtype=self.param_dtype, device=self.device)
-        if init == "zeros":
+        if self.device.type == "meta":
+            t = torch.empty(shape, **kw)
+        elif init == "zeros":
             t = torch.zeros(shape, **kw)
         elif init == "ones":
             t = torch.ones(shape, **kw)
         elif init == "ssm_a":
             t = torch.rand(shape, generator=self.gen, **kw).mul_(1.5)
             t = t.exp_().neg_()
-        elif init == "normal":
+        else:
             fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
             s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
             t = torch.randn(shape, generator=self.gen, **kw).mul_(s)
-        else:
-            raise ValueError(f"unknown init {init!r} (choose from {INITS})")
         tree[name] = t
+        tree.setdefault("__axes__", {})[name] = tuple(axes)
         return t
+
+
+def split_axes(tree):
+    """Separate a builder's tree into ``(params, axes)``: the parameter
+    tree, and the same tree of logical-axis tuples."""
+    if isinstance(tree, dict):
+        params, axes = {}, {}
+        for k, v in tree.items():
+            if k == "__axes__":
+                continue
+            if isinstance(v, dict):
+                params[k], axes[k] = split_axes(v)
+            else:
+                params[k] = v
+                axes[k] = tree.get("__axes__", {}).get(k)
+        return params, axes
+    return tree, None
+
+
+def axes_to_specs(params, axes, mesh, rules):
+    """The spec tree matching ``params``, resolved against ``(mesh,
+    rules)`` (``sharding.resolve_spec``; a leaf without axes is
+    replicated)."""
+    if isinstance(params, dict):
+        return {k: axes_to_specs(params[k], axes[k], mesh, rules)
+                for k in params}
+    if axes is None:
+        return ()
+    return shd.resolve_spec(params.shape, axes, mesh, rules)
+
+
+class Blocks(dict):
+    """One layer's weights of a laid-out tree: this rank's blocks, with
+    their specs (``specs``, the stacked specs without the layer axis,
+    which is never split).  The blocks compute on the active mesh."""
+
+    def __init__(self, blocks: dict, specs: dict):
+        super().__init__(blocks)
+        self.specs = specs
+
+
+def split_over(spec, dim: int) -> Tuple[str, ...]:
+    """The mesh axes dimension ``dim`` of ``spec`` is split over."""
+    return shd.entry_axes(spec[dim]) if dim < len(spec) else ()
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +144,35 @@ def rope(q, positions, theta: float):
     return out.to(q.dtype)
 
 
-def swiglu(x, w_gate, w_up, w_down, compute_dtype):
+def swiglu(x, w_gate, w_up, w_down, compute_dtype, specs=None):
+    """The gated MLP.  With ``specs`` (the three weights' specs: this
+    rank's blocks of a laid-out tree) the ``fsdp`` dimensions are
+    gathered first (``gather_param``), ``w_gate``/``w_up`` are
+    column-parallel over ``mlp`` and ``w_down`` row-parallel, and the
+    row blocks' partial sums meet in one sum over the mesh, where the
+    reference constrains the output to ``("batch", "cp_seq",
+    "embed")``."""
+    if specs is not None:
+        sg, su, sd = specs
+        rows = split_over(shd.resolve_spec(
+            shd.global_shape(w_down.shape, sd, shd.active_mesh()),
+            ("mlp", None)), 0)
+        w_gate = shd.gather_param(w_gate, "fsdp", "mlp", spec=sg)
+        w_up = shd.gather_param(w_up, "fsdp", "mlp", spec=su)
+        w_down = shd.gather_param(w_down, "mlp", "fsdp", spec=sd)
     h = x @ w_gate.to(compute_dtype)
     u = x @ w_up.to(compute_dtype)
-    return (F.silu(h) * u) @ w_down.to(compute_dtype)
+    out = (F.silu(h) * u) @ w_down.to(compute_dtype)
+    if specs is not None and rows:
+        out = psum_axes(out, rows)
+    return out
+
+
+def psum_axes(x, axes, mesh=None):
+    """The sum of the partial ``x`` over the mesh ``axes`` (of the
+    active mesh when ``mesh`` is omitted), in float32 for a 16-bit
+    ``x``, rounded once."""
+    mesh = mesh if mesh is not None else shd.active_mesh()
+    for a in axes:
+        x = cl.psum(x, mesh, axis=a)
+    return x

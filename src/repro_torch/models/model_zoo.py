@@ -1,6 +1,6 @@
 """Unified model zoo: every architecture of the registry as one
 parameterized stack (dense / GQA / MoE / SSM / hybrid / enc-dec / VLM),
-the twin of ``repro.models.model_zoo`` (meshless).
+the twin of ``repro.models.model_zoo``.
 
 The parameters are the reference's tree: per-layer weights stacked on a
 leading layer axis, the same names and shapes.  The layers run as a
@@ -13,10 +13,22 @@ activations, as the reference's ``jax.checkpoint`` does; it changes no
 value.  The modality
 frontends of whisper and paligemma are stubs: the caller passes
 precomputed frame or patch embeddings.
+
+On a mesh the parameters are laid out by their logical axes
+(``build_params(..., with_axes=True)``, ``layers.axes_to_specs``,
+``sharding.lay_out``) and the cache by :func:`cache_axes`.  The dense
+family computes on such a tree with explicit collectives, the function
+of the global tree (the reference's constraints are layouts, never
+values): the embedding over a vocab-split table, whole heads of
+attention (:class:`_Heads`), the column- and row-parallel MLP, and
+this rank's block of the logits.  The other families raise for a
+laid-out tree (ROADMAP queue A, A12c); their global trees run on a mesh
+as everywhere.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
@@ -28,6 +40,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.parallel import collectives as cl
+from repro_torch.parallel import sharding as shd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,51 +57,60 @@ def _dt(cfg: ModelConfig):
 def _attn_params(pb, tree, cfg, prefix=""):
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     nl = cfg.n_layers
-    pb.add(tree, prefix + "wq", (nl, d, nh * hd))
-    pb.add(tree, prefix + "wk", (nl, d, nkv * hd))
-    pb.add(tree, prefix + "wv", (nl, d, nkv * hd))
-    pb.add(tree, prefix + "wo", (nl, nh * hd, d))
+    L = ("layers",)
+    pb.add(tree, prefix + "wq", (nl, d, nh * hd), L + ("fsdp", "heads"))
+    pb.add(tree, prefix + "wk", (nl, d, nkv * hd), L + ("fsdp", "kv"))
+    pb.add(tree, prefix + "wv", (nl, d, nkv * hd), L + ("fsdp", "kv"))
+    pb.add(tree, prefix + "wo", (nl, nh * hd, d), L + ("heads", "fsdp"))
     if cfg.qkv_bias:
-        pb.add(tree, prefix + "bq", (nl, nh * hd), init="zeros")
-        pb.add(tree, prefix + "bk", (nl, nkv * hd), init="zeros")
-        pb.add(tree, prefix + "bv", (nl, nkv * hd), init="zeros")
-    pb.add(tree, prefix + "ln_attn", (nl, d), init="ones")
+        pb.add(tree, prefix + "bq", (nl, nh * hd), L + ("heads",),
+               init="zeros")
+        pb.add(tree, prefix + "bk", (nl, nkv * hd), L + ("kv",),
+               init="zeros")
+        pb.add(tree, prefix + "bv", (nl, nkv * hd), L + ("kv",),
+               init="zeros")
+    pb.add(tree, prefix + "ln_attn", (nl, d), L + (None,), init="ones")
 
 
 def _mlp_params(pb, tree, cfg):
     d, ff, nl = cfg.d_model, cfg.d_ff, cfg.n_layers
-    pb.add(tree, "w_gate", (nl, d, ff))
-    pb.add(tree, "w_up", (nl, d, ff))
-    pb.add(tree, "w_down", (nl, ff, d))
-    pb.add(tree, "ln_mlp", (nl, d), init="ones")
+    L = ("layers",)
+    pb.add(tree, "w_gate", (nl, d, ff), L + ("fsdp", "mlp"))
+    pb.add(tree, "w_up", (nl, d, ff), L + ("fsdp", "mlp"))
+    pb.add(tree, "w_down", (nl, ff, d), L + ("mlp", "fsdp"))
+    pb.add(tree, "ln_mlp", (nl, d), L + (None,), init="ones")
 
 
 def _moe_params(pb, tree, cfg):
     d, ff, e, nl = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
-    pb.add(tree, "router", (nl, d, e), scale=0.02)
-    pb.add(tree, "w_gate", (nl, e, d, ff))
-    pb.add(tree, "w_up", (nl, e, d, ff))
-    pb.add(tree, "w_down", (nl, e, ff, d))
+    L = ("layers",)
+    pb.add(tree, "router", (nl, d, e), L + ("embed", None), scale=0.02)
+    pb.add(tree, "w_gate", (nl, e, d, ff), L + ("expert", "fsdp", "mlp"))
+    pb.add(tree, "w_up", (nl, e, d, ff), L + ("expert", "fsdp", "mlp"))
+    pb.add(tree, "w_down", (nl, e, ff, d), L + ("expert", "mlp", "fsdp"))
     if cfg.dense_residual_ff:
         rf = cfg.dense_residual_ff
-        pb.add(tree, "res_gate", (nl, d, rf))
-        pb.add(tree, "res_up", (nl, d, rf))
-        pb.add(tree, "res_down", (nl, rf, d))
-    pb.add(tree, "ln_mlp", (nl, d), init="ones")
+        pb.add(tree, "res_gate", (nl, d, rf), L + ("fsdp", "mlp"))
+        pb.add(tree, "res_up", (nl, d, rf), L + ("fsdp", "mlp"))
+        pb.add(tree, "res_down", (nl, rf, d), L + ("mlp", "fsdp"))
+    pb.add(tree, "ln_mlp", (nl, d), L + (None,), init="ones")
 
 
 def _ssm_params(pb, tree, cfg):
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     h, nl = cfg.ssm_heads, cfg.n_layers
-    pb.add(tree, "in_proj", (nl, d, 2 * di + 2 * n + h))
-    pb.add(tree, "conv_w", (nl, cfg.conv_width, di + 2 * n))
-    pb.add(tree, "conv_b", (nl, di + 2 * n), init="zeros")
-    pb.add(tree, "dt_bias", (nl, h), init="zeros")
-    pb.add(tree, "A", (nl, h), init="ssm_a")
-    pb.add(tree, "D", (nl, h), init="ones")
-    pb.add(tree, "norm", (nl, di), init="ones")
-    pb.add(tree, "out_proj", (nl, di, d))
-    pb.add(tree, "ln", (nl, d), init="ones")
+    L = ("layers",)
+    pb.add(tree, "in_proj", (nl, d, 2 * di + 2 * n + h),
+           L + ("fsdp", "ssm_proj"))
+    pb.add(tree, "conv_w", (nl, cfg.conv_width, di + 2 * n),
+           L + ("conv", None))
+    pb.add(tree, "conv_b", (nl, di + 2 * n), L + (None,), init="zeros")
+    pb.add(tree, "dt_bias", (nl, h), L + ("ssm_heads",), init="zeros")
+    pb.add(tree, "A", (nl, h), L + ("ssm_heads",), init="ssm_a")
+    pb.add(tree, "D", (nl, h), L + ("ssm_heads",), init="ones")
+    pb.add(tree, "norm", (nl, di), L + (None,), init="ones")
+    pb.add(tree, "out_proj", (nl, di, d), L + ("ssm_proj", "fsdp"))
+    pb.add(tree, "ln", (nl, d), L + (None,), init="ones")
 
 
 def _shared_attn_params(pb, tree, cfg):
@@ -95,15 +118,15 @@ def _shared_attn_params(pb, tree, cfg):
     all its applications)."""
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     ff = cfg.d_ff
-    pb.add(tree, "wq", (d, nh * hd))
-    pb.add(tree, "wk", (d, nkv * hd))
-    pb.add(tree, "wv", (d, nkv * hd))
-    pb.add(tree, "wo", (nh * hd, d))
-    pb.add(tree, "ln_attn", (d,), init="ones")
-    pb.add(tree, "w_gate", (d, ff))
-    pb.add(tree, "w_up", (d, ff))
-    pb.add(tree, "w_down", (ff, d))
-    pb.add(tree, "ln_mlp", (d,), init="ones")
+    pb.add(tree, "wq", (d, nh * hd), ("fsdp", "heads"))
+    pb.add(tree, "wk", (d, nkv * hd), ("fsdp", "kv"))
+    pb.add(tree, "wv", (d, nkv * hd), ("fsdp", "kv"))
+    pb.add(tree, "wo", (nh * hd, d), ("heads", "fsdp"))
+    pb.add(tree, "ln_attn", (d,), (None,), init="ones")
+    pb.add(tree, "w_gate", (d, ff), ("fsdp", "mlp"))
+    pb.add(tree, "w_up", (d, ff), ("fsdp", "mlp"))
+    pb.add(tree, "w_down", (ff, d), ("mlp", "fsdp"))
+    pb.add(tree, "ln_mlp", (d,), (None,), init="ones")
 
 
 def _enc_params(pb, tree, cfg):
@@ -111,38 +134,46 @@ def _enc_params(pb, tree, cfg):
     cross-attention projections."""
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     ne, nl = cfg.n_enc_layers, cfg.n_layers
-    pb.add(tree, "enc_wq", (ne, d, nh * hd))
-    pb.add(tree, "enc_wk", (ne, d, nkv * hd))
-    pb.add(tree, "enc_wv", (ne, d, nkv * hd))
-    pb.add(tree, "enc_wo", (ne, nh * hd, d))
-    pb.add(tree, "enc_ln_attn", (ne, d), init="ones")
-    pb.add(tree, "enc_w_gate", (ne, d, cfg.d_ff))
-    pb.add(tree, "enc_w_up", (ne, d, cfg.d_ff))
-    pb.add(tree, "enc_w_down", (ne, cfg.d_ff, d))
-    pb.add(tree, "enc_ln_mlp", (ne, d), init="ones")
-    pb.add(tree, "enc_pos", (cfg.enc_positions, d), scale=0.02)
-    pb.add(tree, "x_wq", (nl, d, nh * hd))
-    pb.add(tree, "x_wk", (nl, d, nkv * hd))
-    pb.add(tree, "x_wv", (nl, d, nkv * hd))
-    pb.add(tree, "x_wo", (nl, nh * hd, d))
-    pb.add(tree, "x_ln", (nl, d), init="ones")
+    L = ("layers",)
+    pb.add(tree, "enc_wq", (ne, d, nh * hd), L + ("fsdp", "heads"))
+    pb.add(tree, "enc_wk", (ne, d, nkv * hd), L + ("fsdp", "kv"))
+    pb.add(tree, "enc_wv", (ne, d, nkv * hd), L + ("fsdp", "kv"))
+    pb.add(tree, "enc_wo", (ne, nh * hd, d), L + ("heads", "fsdp"))
+    pb.add(tree, "enc_ln_attn", (ne, d), L + (None,), init="ones")
+    pb.add(tree, "enc_w_gate", (ne, d, cfg.d_ff), L + ("fsdp", "mlp"))
+    pb.add(tree, "enc_w_up", (ne, d, cfg.d_ff), L + ("fsdp", "mlp"))
+    pb.add(tree, "enc_w_down", (ne, cfg.d_ff, d), L + ("mlp", "fsdp"))
+    pb.add(tree, "enc_ln_mlp", (ne, d), L + (None,), init="ones")
+    pb.add(tree, "enc_pos", (cfg.enc_positions, d), ("frames", None),
+           scale=0.02)
+    pb.add(tree, "x_wq", (nl, d, nh * hd), L + ("fsdp", "heads"))
+    pb.add(tree, "x_wk", (nl, d, nkv * hd), L + ("fsdp", "kv"))
+    pb.add(tree, "x_wv", (nl, d, nkv * hd), L + ("fsdp", "kv"))
+    pb.add(tree, "x_wo", (nl, nh * hd, d), L + ("heads", "fsdp"))
+    pb.add(tree, "x_ln", (nl, d), L + (None,), init="ones")
 
 
-def build_params(cfg: ModelConfig, seed: int = 0, device="cuda"
-                 ) -> Dict[str, Any]:
+def build_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                 with_axes: bool = False):
     """The parameter tree of ``cfg`` (the reference's names and shapes;
     ``shared_attn`` a nested dict for zamba2), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``, in
-    ``cfg.param_dtype``."""
-    dev = _device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    ``cfg.param_dtype``; on ``"meta"`` the shapes alone (no memory).
+    ``with_axes=True`` returns ``(params, axes)`` as the reference's
+    ``build_params`` does, ``axes`` the logical-axis tree for
+    ``layers.axes_to_specs``."""
+    dev = torch.device(device) if str(device) == "meta" else _device(
+        device)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     pb = ly.ParamBuilder(gen, dev, _DTYPES[cfg.param_dtype])
     tree: Dict[str, Any] = {}
-    pb.add(tree, "embed", (cfg.vocab_padded, cfg.d_model), scale=0.02)
-    pb.add(tree, "ln_f", (cfg.d_model,), init="ones")
+    pb.add(tree, "embed", (cfg.vocab_padded, cfg.d_model),
+           ("vocab", "embed"), scale=0.02)
+    pb.add(tree, "ln_f", (cfg.d_model,), (None,), init="ones")
     if not cfg.tie_embeddings:
         pb.add(tree, "unembed", (cfg.d_model, cfg.vocab_padded),
-               scale=0.02)
+               ("embed", "vocab"), scale=0.02)
     fam = cfg.family
     if fam in ("dense", "vlm", "encdec"):
         _attn_params(pb, tree, cfg)
@@ -160,7 +191,34 @@ def build_params(cfg: ModelConfig, seed: int = 0, device="cuda"
         _shared_attn_params(pb, tree["shared_attn"], cfg)
     else:
         raise ValueError(fam)
-    return tree
+    params, axes = ly.split_axes(tree)
+    return (params, axes) if with_axes else params
+
+
+def param_axes(cfg: ModelConfig):
+    """``(shapes, axes)``: the parameter tree of ``cfg`` on the meta
+    device (shapes and dtypes, no memory) and its logical-axis tree."""
+    return build_params(cfg, device="meta", with_axes=True)
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of the decode cache's tensors (for its layout)."""
+    ax: Dict[str, Any] = {}
+    if cfg.family in ("dense", "vlm", "encdec", "moe") or (
+            cfg.family == "hybrid" and cfg.attn_every):
+        ax["k"] = ("layers", "batch", "kvseq", "kv", None)
+        ax["v"] = ("layers", "batch", "kvseq", "kv", None)
+        if cfg.kv_cache_dtype == "int8" and cfg.family in (
+                "dense", "vlm", "moe"):
+            ax["k_sc"] = ("layers", "batch", "kvseq", "kv")
+            ax["v_sc"] = ("layers", "batch", "kvseq", "kv")
+    if cfg.family == "encdec":
+        ax["xk"] = ("layers", "batch", "frames", "kv", None)
+        ax["xv"] = ("layers", "batch", "frames", "kv", None)
+    if cfg.family in ("ssm", "hybrid"):
+        ax["ssm"] = ("layers", "batch", "ssm_heads", "state", None)
+        ax["conv"] = ("layers", "batch", "conv", None)
+    return ax
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +242,26 @@ def _attn_block(x, p, cfg, mask_mode, prefix_len, cdt,
                 cache_len=None):
     """Pre-norm attention block over one layer's (unstacked) params.
     Returns (out, new_kv): on the decode path ``cache``, written in
-    place at ``cache_len``, else this call's (k, v)."""
+    place at ``cache_len``, else this call's (k, v).  On one layer's
+    blocks of a laid-out tree (``layers.Blocks``) it computes whole
+    heads on the active mesh (:func:`_sharded_heads`)."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     h = ly.rms_norm(x, p["ln_attn"], cfg.norm_eps)
     src = h if kv_override is None else kv_override
-    q = h @ p["wq"].to(cdt)
-    k = src @ p["wk"].to(cdt)
-    v = src @ p["wv"].to(cdt)
+    specs = getattr(p, "specs", None)
+    w = {n: p[n] for n in ("wq", "wk", "wv", "wo")}
+    if specs is not None:
+        w, heads = _sharded_heads(p, cfg, cdt)
+    q = h @ w["wq"].to(cdt)
+    k = src @ w["wk"].to(cdt)
+    v = src @ w["wv"].to(cdt)
     if cfg.qkv_bias and "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
+    if specs is not None:
+        q, k, v, nh, nkv = heads(q, k, v)
     q = q.reshape(b, s, nh, hd)
     k = k.reshape(b, src.shape[1], nkv, hd)
     v = v.reshape(b, src.shape[1], nkv, hd)
@@ -209,6 +275,11 @@ def _attn_block(x, p, cfg, mask_mode, prefix_len, cdt,
                      if cache is None else pos_q)
             k = ly.rope(k, pos_k[None, :], cfg.rope_theta)
     if cache is not None:
+        if cache[0].shape[2] != nkv:
+            raise ValueError(f"the cache holds {cache[0].shape[2]} kv "
+                             f"heads, the layer computes {nkv}: lay the "
+                             f"cache out as the params (init_cache(..., "
+                             f"mesh=))")
         if len(cache) == 4:          # int8 cache with per-token scales
             k_cache, v_cache, k_sc, v_sc = cache
             kq, ks = attn.quantize_kv(k)
@@ -226,12 +297,85 @@ def _attn_block(x, p, cfg, mask_mode, prefix_len, cdt,
     else:
         o = attn.attention(q, k, v, mask_mode, prefix_len)
         new_cache = (k, v)
-    return o.reshape(b, s, nh * hd) @ p["wo"].to(cdt), new_cache
+    o = o.reshape(b, s, nh * hd)
+    if specs is not None:
+        return heads.out(o), new_cache
+    return o @ w["wo"].to(cdt), new_cache
+
+
+class _Heads:
+    """How one layer's attention runs on a laid-out tree: which heads
+    this rank computes and how its projections and its output meet the
+    other ranks'.  ``local``: its ``wq``/``wk``/``wv`` columns are whole
+    heads and its q heads' kv heads are its own (the kv head count
+    divides over the axis), so it attends alone to its block of the
+    cache; otherwise each split projection is all-gathered over its
+    axes before the head reshape and every rank attends to all heads
+    (with the cache replicated).  ``wo``'s rows follow the q heads'
+    split and one sum over the mesh ends the block."""
+
+    def __init__(self, cfg, cdt, q_axes, kv_axes, o_axes, wo):
+        mesh = shd.active_mesh()
+        self.mesh, self.cdt, self.wo = mesh, cdt, wo
+        n_kv = shd.axes_size(mesh, kv_axes) if kv_axes else 1
+        self.local = bool(kv_axes) and cfg.n_kv % n_kv == 0 \
+            and q_axes == kv_axes
+        self.q_axes, self.kv_axes, self.o_axes = q_axes, kv_axes, o_axes
+        n = n_kv if self.local else 1
+        self.nh, self.nkv = cfg.n_heads // n, cfg.n_kv // n
+
+    def __call__(self, q, k, v):
+        if not self.local:
+            q = _gather_last(q, self.q_axes, self.mesh)
+            k = _gather_last(k, self.kv_axes, self.mesh)
+            v = _gather_last(v, self.kv_axes, self.mesh)
+        return q, k, v, self.nh, self.nkv
+
+    def out(self, o):
+        """The block's output from this rank's attention ``o``: this
+        rank's columns of ``o`` (all of them when local) times its rows
+        of ``wo``, summed over ``wo``'s row axes."""
+        if self.o_axes and not self.local:
+            k = shd.axes_size(self.mesh, self.o_axes)
+            size = o.shape[-1] // k
+            o = o.narrow(-1, shd.block_index(self.o_axes, self.mesh) * size,
+                         size)
+        out = o @ self.wo.to(self.cdt)
+        return ly.psum_axes(out, self.o_axes) if self.o_axes else out
+
+
+def _gather_last(x, axes, mesh):
+    """The columns of ``x`` split over ``axes`` gathered whole."""
+    for a in reversed(axes):
+        x = torch.cat(list(cl.all_gather(x, mesh, axis=a)), -1)
+    return x
+
+
+def _sharded_heads(p, cfg, cdt):
+    """One layer's projections of a laid-out tree with their ``fsdp``
+    dimension gathered, and its :class:`_Heads`."""
+    sp = p.specs
+    w = {"wq": shd.gather_param(p["wq"], "fsdp", "heads", spec=sp["wq"]),
+         "wk": shd.gather_param(p["wk"], "fsdp", "kv", spec=sp["wk"]),
+         "wv": shd.gather_param(p["wv"], "fsdp", "kv", spec=sp["wv"]),
+         "wo": shd.gather_param(p["wo"], "heads", "fsdp", spec=sp["wo"])}
+    mesh = shd.active_mesh()
+
+    def axes(name, names, dim):
+        shape = shd.global_shape(p[name].shape, sp[name], mesh)
+        return ly.split_over(shd.resolve_spec(shape, names), dim)
+    heads = _Heads(cfg, cdt, axes("wq", (None, "heads"), 1),
+                   axes("wk", (None, "kv"), 1),
+                   axes("wo", ("heads", None), 0), w["wo"])
+    return w, heads
 
 
 def _mlp_block(x, p, cfg, cdt):
     h = ly.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    return ly.swiglu(h, p["w_gate"], p["w_up"], p["w_down"], cdt)
+    specs = getattr(p, "specs", None)
+    if specs is not None:
+        specs = tuple(specs[n] for n in ("w_gate", "w_up", "w_down"))
+    return ly.swiglu(h, p["w_gate"], p["w_up"], p["w_down"], cdt, specs)
 
 
 def _moe_block(x, p, cfg, cdt):
@@ -262,7 +406,10 @@ def _layer_keys(params, cfg):
 
 
 def _layer(params, keys, i):
-    return {k: params[k][i] for k in keys}
+    lp = {k: params[k][i] for k in keys}
+    if isinstance(params, shd.LaidOutTree):
+        return ly.Blocks(lp, {k: tuple(params.specs[k][1:]) for k in keys})
+    return lp
 
 
 def _cross(lp):
@@ -319,8 +466,12 @@ def _unstack(params, keys):
     indexing the stack per layer would accumulate a zero-filled copy of
     the whole stack for every layer."""
     views = {k: params[k].unbind(0) for k in keys}
-    return [{k: v[i] for k, v in views.items()}
-            for i in range(len(next(iter(views.values()))))]
+    layers = [{k: v[i] for k, v in views.items()}
+              for i in range(len(next(iter(views.values()))))]
+    if isinstance(params, shd.LaidOutTree):
+        specs = {k: tuple(params.specs[k][1:]) for k in keys}
+        return [ly.Blocks(lp, specs) for lp in layers]
+    return layers
 
 
 def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
@@ -341,23 +492,75 @@ def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
 # public forward passes
 # ---------------------------------------------------------------------------
 
+def _laid_out(params, cfg) -> bool:
+    """Whether ``params`` is a laid-out tree this port can compute on;
+    raises for one it cannot (no fallback gathers it to one rank)."""
+    mesh = shd.tree_mesh(params)
+    if mesh is None:
+        return False
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the sharded forward of the {cfg.family} family is ROADMAP "
+            f"queue A, A12c: pass the global tree")
+    big = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
+    if big:
+        raise NotImplementedError(
+            f"a model step on a mesh with {big} (fsdp or batch over a data "
+            f"axis of more than one rank) is ROADMAP queue A, A12c")
+    return True
+
+
+def vocab_axes(params, cfg):
+    """The mesh axes the head table's vocab dimension is split over
+    (the logits' last dimension follows it); ``()`` meshless."""
+    if not isinstance(params, shd.LaidOutTree):
+        return ()
+    if cfg.tie_embeddings:
+        return ly.split_over(params.specs["embed"], 0)
+    return ly.split_over(params.specs["unembed"], 1)
+
+
+def vocab_rows(params) -> int:
+    """The global row count of the embedding table, laid out or not."""
+    n = params["embed"].shape[0]
+    if isinstance(params, shd.LaidOutTree):
+        axes = ly.split_over(params.specs["embed"], 0)
+        n *= shd.axes_size(params.mesh, axes) if axes else 1
+    return n
+
+
 def embed_tokens(params, cfg, tokens, cdt):
     """Rows of the embedding table.  jnp indexing clamps an id past the
     table; here an id outside ``[0, vocab_padded)`` is an error.  Ids on
     the host are checked at once (``ValueError``); ids on the card by an
     asynchronous device assert, which reads nothing back and fails the
-    next synchronising call."""
-    n = params["embed"].shape[0]
+    next synchronising call.  On a vocab-split table each rank takes
+    the ids in its rows and zeros for the others, and one sum over the
+    mesh gives every rank the rows (exact: one term is nonzero)."""
+    n = vocab_rows(params)
     ok = ((tokens >= 0) & (tokens < n)).all()
     if tokens.device.type == "cpu":
         if not bool(ok):
             raise ValueError(f"token id out of range [0, {n})")
     else:
         torch._assert_async(ok, f"token id out of range [0, {n})")
-    return params["embed"][tokens].to(cdt)
+    axes = (ly.split_over(params.specs["embed"], 0)
+            if isinstance(params, shd.LaidOutTree) else ())
+    if not axes:
+        return params["embed"][tokens].to(cdt)
+    table = params["embed"]
+    rows = table.shape[0]
+    local = tokens - shd.block_index(axes, params.mesh) * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype,
+                                device=table.device))
+    return ly.psum_axes(x.to(cdt), axes, params.mesh)
 
 
 def logits_out(params, cfg, x, cdt):
+    """Logits ``[..., vocab_padded]``; on a vocab-split head table this
+    rank's block ``[..., vocab_padded / S]`` of them."""
     x = ly.rms_norm(x, params["ln_f"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"].to(cdt).T
@@ -381,13 +584,30 @@ def _enc_block(x, lp, cfg, cdt):
     return x + _mlp_block(x, lp, cfg, cdt)
 
 
+def _on_tree(params, cfg):
+    """The context a pass over ``params`` runs in: its mesh and rules
+    active for a laid-out tree (``sharding.use_mesh``), nothing for a
+    global one."""
+    if _laid_out(params, cfg):
+        return shd.use_mesh(params.mesh, params.rules)
+    return contextlib.nullcontext()
+
+
 def forward(params, cfg: ModelConfig, tokens, frontend=None, tap=None):
     """Training/prefill forward -> logits [B, S, vocab_padded].
     ``frontend``: the stub modality input, whisper frame embeddings or
     paligemma patch embeddings.  ``tap(name, x)``, when given, sees the
     hidden state after each stage (``embed``, ``enc{i}``, ``layer{i}``,
     ``shared{i}``) and returns the one the pass continues from: a parity
-    check compares each stage and carries one input into both sides."""
+    check compares each stage and carries one input into both sides.
+    On a laid-out tree (``sharding.lay_out``; the dense family) every
+    rank of its mesh must call this; each gets its block of the logits
+    (``[B, S, vocab_padded / S]`` on a vocab-split head)."""
+    with _on_tree(params, cfg):
+        return _forward(params, cfg, tokens, frontend, tap)
+
+
+def _forward(params, cfg, tokens, frontend, tap):
     tap = tap or _no_tap
     cdt = _dt(cfg)
     x = embed_tokens(params, cfg, tokens, cdt)
@@ -409,16 +629,25 @@ def forward(params, cfg: ModelConfig, tokens, frontend=None, tap=None):
 # decode (serving) path
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
+               mesh=None, rules=None):
     """Stacked decode cache, zeros.  Attention archs: K/V per layer
     (int8 with float32 per-token scales when ``kv_cache_dtype`` is
     ``int8``, for dense, vlm and moe); SSM/hybrid: SSM state + conv
-    buffer (+ the shared block's K/V for hybrid)."""
+    buffer (+ the shared block's K/V for hybrid).  With ``mesh``, this
+    rank's block of each tensor in the layout :func:`cache_axes`
+    resolves to under ``rules`` (``default_rules()`` when omitted): the
+    cache of a tree laid out on that mesh."""
     dev = _device(device)
     cdt = _dt(cfg)
     nkv, hd = cfg.n_kv, cfg.head_dim
+    axes = cache_axes(cfg)
+    rules = rules if rules is not None else shd.default_rules()
 
-    def mk(shape, dtype):
+    def mk(shape, dtype, name):
+        if mesh is not None:
+            shape = shd.local_shape(
+                shape, shd.resolve_spec(shape, axes[name], mesh, rules), mesh)
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     cache: Dict[str, Any] = {}
@@ -427,25 +656,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     kv_dt = torch.int8 if q8 else cdt
     if cfg.family in ("dense", "vlm", "encdec", "moe"):
         shape = (cfg.n_layers, batch, max_seq, nkv, hd)
-        cache["k"] = mk(shape, kv_dt)
-        cache["v"] = mk(shape, kv_dt)
+        cache["k"] = mk(shape, kv_dt, "k")
+        cache["v"] = mk(shape, kv_dt, "v")
         if q8:
-            cache["k_sc"] = mk(shape[:-1], torch.float32)
-            cache["v_sc"] = mk(shape[:-1], torch.float32)
+            cache["k_sc"] = mk(shape[:-1], torch.float32, "k_sc")
+            cache["v_sc"] = mk(shape[:-1], torch.float32, "v_sc")
         if cfg.family == "encdec":
             xshape = (cfg.n_layers, batch, cfg.enc_positions, nkv, hd)
-            cache["xk"] = mk(xshape, cdt)
-            cache["xv"] = mk(xshape, cdt)
+            cache["xk"] = mk(xshape, cdt, "xk")
+            cache["xv"] = mk(xshape, cdt, "xv")
     if cfg.family in ("ssm", "hybrid"):
         di, n = cfg.d_inner, cfg.ssm_state
         cache["ssm"] = mk((cfg.n_layers, batch, cfg.ssm_heads, n,
-                           cfg.ssm_head_dim), torch.float32)
+                           cfg.ssm_head_dim), torch.float32, "ssm")
         cache["conv"] = mk((cfg.n_layers, batch, cfg.conv_width - 1,
-                            di + 2 * n), cdt)
+                            di + 2 * n), cdt, "conv")
         if cfg.family == "hybrid" and cfg.attn_every:
             n_attn = cfg.n_layers // cfg.attn_every
-            cache["k"] = mk((n_attn, batch, max_seq, nkv, hd), cdt)
-            cache["v"] = mk((n_attn, batch, max_seq, nkv, hd), cdt)
+            cache["k"] = mk((n_attn, batch, max_seq, nkv, hd), cdt, "k")
+            cache["v"] = mk((n_attn, batch, max_seq, nkv, hd), cdt, "v")
     return cache
 
 
@@ -454,7 +683,15 @@ def decode_step(params, cfg: ModelConfig, tokens, cache,
     """One decode step: tokens [B, 1] + cache -> (logits [B, 1, V],
     new cache).  ``cache_len``: the filled length before this step.
     The cache passed in is left as it was: each stacked tensor the step
-    writes is copied once, and the layers write into the copy."""
+    writes is copied once, and the layers write into the copy.  On a
+    laid-out tree (the dense family) every rank of its mesh must call
+    this with the cache ``init_cache(..., mesh=)`` lays out; each gets
+    its block of the logits, as :func:`forward`."""
+    with _on_tree(params, cfg):
+        return _decode_step(params, cfg, tokens, cache, cache_len)
+
+
+def _decode_step(params, cfg, tokens, cache, cache_len):
     cdt = _dt(cfg)
     b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens, cdt)

@@ -1,1 +1,2 @@
-"""Multi-device plane helpers (the twin of ``repro.parallel``)."""
+"""Mesh layouts (logical axes and the index plane), collectives and the
+GPipe pipeline over ranks (the twin of ``repro.parallel``)."""

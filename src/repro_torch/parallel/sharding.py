@@ -1,12 +1,35 @@
-"""The width-sharded layout of the splay index plane: the twin of the
-plane half of ``repro.parallel.sharding``, for SPMD over
-``torch.distributed`` (one process per shard).
+"""Logical-axis sharding and the width-sharded index plane, for SPMD
+over ``torch.distributed`` (one process per rank): the twin of
+``repro.parallel.sharding``.
 
-The reference lays one global plane out over a ``jax.sharding.Mesh``
-and runs ``shard_map`` bodies over its ``"model"`` axis.  Here each
-rank is one shard: a :class:`Mesh` is that rank's view of the mesh (its
-process group, the axis name, the shard count ``S``, its own index and
-its device), the ``mesh=`` arguments of the port take it, and a
+**Logical axes.**  Model code names each tensor dimension with a
+*logical* axis (``"batch"``, ``"heads"``, ``"mlp"``, ...).  A rule table
+(:func:`default_rules`) maps the names to mesh axes, and
+:func:`resolve_spec` turns a shape and its names into a ``PartitionSpec``
+twin: a tuple with one entry per dimension (``None``, an axis name, or
+a tuple of names), trailing ``None`` entries dropped.  Resolution never
+raises: an unknown name, a rule axis absent from the mesh, a dimension
+the axis product does not divide, and an axis an earlier dimension
+already took each resolve to replication for that dimension, as in the
+reference.
+
+In the reference a spec is a placement of one global array; here each
+rank holds its *block*.  :func:`shard_tensor` cuts a global tensor into
+this rank's block (the twin of ``device_put(x, NamedSharding(mesh,
+spec))``); :func:`relayout` moves a block from one spec to another
+(all-gathers where a dimension loses an axis, slices where it gains
+one); :func:`constrain` is the reference's layout constraint on a
+replicated tensor (this rank's view of it), and :func:`gather_param`
+its ZeRO-3 gather of the ``fsdp`` axes.  A :class:`LaidOutTree` is a
+parameter tree of blocks that carries its mesh, spec tree and rules
+(:func:`tree_mesh`), as a laid-out plane carries its mesh.
+
+**The index plane.**  A :class:`Mesh` is one rank's view of the mesh:
+its axis sizes (``shape``), its coordinate on each axis (``coords``),
+a process group per axis of more than one rank (``groups``), the main
+axis (``axis``, ``"model"`` unless the caller names another) with its
+group ``group``, size ``size`` and this rank's index ``index``, and
+its device.  The ``mesh=`` arguments of the port take it, and a
 width-sharded plane is this rank's block of the global plane:
 
 * ``keys``/``rank_map``/``bot_rank``: the column block ``[L, W/S]``
@@ -29,27 +52,33 @@ active (``use_mesh``).
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.parallel import collectives as cl
 
+Rules = Dict[Optional[str], Optional[Tuple[str, ...]]]
+Spec = Tuple              # one entry a dimension: None, a name, a tuple
 
 
 class Mesh:
-    """One rank's view of a ``("data", axis)`` mesh of ``1 × S`` shards:
-    the process group ``group`` (``None``: the default group), its size
-    ``S`` and this rank's index in it, and the device this rank computes
-    on.  ``shape`` maps axis names to sizes as ``jax.sharding.Mesh.shape``
-    does (``data`` is 1 unless :func:`repro_torch.train.elastic.remesh`
-    builds a larger grid; the group is then this rank's row along
-    ``axis``).  ``device`` is the card unless the caller asks for the
-    CPU."""
+    """One rank's view of a mesh of ranks: ``shape`` maps axis names to
+    sizes as ``jax.sharding.Mesh.shape`` does, ``coords`` gives this
+    rank's index on each axis, and ``groups`` the process group of each
+    axis of more than one rank (the ranks that differ from this one on
+    that axis only; ``None`` is the default group).  ``axis`` is the
+    main axis (``group``, ``size`` and ``index`` are its), the one the
+    index plane is width-sharded over.  Without ``shape`` the mesh is
+    ``{"data": 1, axis: S}``.  ``device`` is the card unless the caller
+    asks for the CPU."""
 
     def __init__(self, group=None, axis: str = "model", device="cuda",
-                 shape: Optional[dict] = None):
+                 shape: Optional[dict] = None,
+                 coords: Optional[dict] = None,
+                 groups: Optional[dict] = None):
         import torch.distributed as dist
         self.group = group
         self.axis = axis
@@ -57,6 +86,11 @@ class Mesh:
         self.index = dist.get_rank(group)
         self.shape = dict(shape) if shape else {"data": 1}
         self.shape[axis] = self.size
+        self.coords = {a: 0 for a in self.shape}
+        self.coords.update(coords or {})
+        self.coords[axis] = self.index
+        self.groups = dict(groups or {})
+        self.groups[axis] = group
         self.device = torch.device(device)
         self.backend = str(dist.get_backend(group))
         self.ranks = (dist.get_process_group_ranks(group)
@@ -64,9 +98,31 @@ class Mesh:
                       else list(range(dist.get_world_size())))
         self._plane_classes = {}
 
+    def axis_group(self, axis: str):
+        """The process group of ``axis`` (``None``: the default group).
+        Raises ``ValueError`` for an axis of more than one rank whose
+        group this mesh was not given."""
+        if axis not in self.groups:
+            raise ValueError(f"{self!r} has no process group for axis "
+                             f"{axis!r}")
+        return self.groups[axis]
+
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape}, index={self.index}, "
+        return (f"Mesh({self.shape}, coords={self.coords}, "
                 f"backend={self.backend}, device={self.device})")
+
+
+class AbstractMesh:
+    """A mesh's axis names and sizes and nothing else, the twin of
+    ``jax.sharding.AbstractMesh``: enough to resolve specs
+    (:func:`resolve_spec`, ``layers.axes_to_specs``) for a mesh no rank
+    belongs to."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
 
 
 def check_mesh(mesh) -> None:
@@ -77,33 +133,299 @@ def check_mesh(mesh) -> None:
 
 
 def world_mesh(device="cuda", axis: str = "model") -> Mesh:
-    """The mesh of every rank of the default process group."""
+    """The mesh of every rank of the default process group, all on
+    ``axis``."""
     return Mesh(None, axis=axis, device=device)
+
+
+# -- default rule tables -----------------------------------------------------
+
+def default_rules(multi_pod: bool = False,
+                  seq_sharded: bool = False,
+                  fsdp: bool = True) -> Rules:
+    """The reference's rule table, name for name: data parallel over
+    ``data`` (and ``pod`` on a multi-pod mesh), tensor parallel over
+    ``model``, ``fsdp`` the ZeRO-style second axis of a weight."""
+    dp: Tuple[str, ...] = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": dp,
+        "seq": ("data",) if seq_sharded else None,
+        "kvseq": ("data",) if seq_sharded else None,
+        "cp_seq": None,   # sequence-parallel residual stream
+        "cp_q": None,     # context-parallel attention q
+        "embed": None,
+        "heads": ("model",),
+        "kv": ("model",),
+        "head_dim": None,
+        "mlp": ("model",),
+        "expert": ("model",),
+        "expert_cap": None,
+        "vocab": ("model",),
+        "fsdp": dp if fsdp else None,
+        "layers": None,
+        "ssm_heads": ("model",),
+        "ssm_proj": ("model",),
+        "state": None,
+        "conv": None,
+        "frames": None,
+        # the splay index plane: levels replicated, width over model
+        "splay_level": None,
+        "splay_width": ("model",),
+        None: None,
+    }
 
 
 class _Ctx(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
+        self.rules: Rules = {}
 
 
 _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh]):
-    """Make ``mesh`` the active mesh (``None``: none) for the sharded
-    entry points that resolve one; thread-local and reentrant, the
-    previous one restored on exit."""
-    old = _CTX.mesh
-    _CTX.mesh = mesh
+def use_mesh(mesh: Optional[Mesh], rules: Optional[Rules] = None):
+    """Make ``(mesh, rules)`` the active pair (``mesh=None``: none, and
+    every constraint is the identity) for logical-axis resolution and
+    the sharded entry points that resolve a mesh; thread-local and
+    reentrant, the previous pair restored on exit even when the body
+    raises.  Without ``rules`` the table is empty: every name resolves
+    to replication, as in the reference."""
+    old = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, (rules or {})
     try:
         yield
     finally:
-        _CTX.mesh = old
+        _CTX.mesh, _CTX.rules = old
 
 
 def active_mesh() -> Optional[Mesh]:
     return _CTX.mesh
+
+
+def active_rules() -> Rules:
+    return _CTX.rules
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (``None``, a name, or a tuple of
+    names) as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axes_size(mesh, axes: Sequence[str]) -> int:
+    """The number of blocks a dimension split over ``axes`` has."""
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def resolve_spec(shape: Sequence[int], names: Sequence[Optional[str]],
+                 mesh=None, rules: Optional[Rules] = None) -> Spec:
+    """Logical names -> the spec of ``shape`` on ``mesh`` (the active
+    mesh and rules when omitted; ``()`` without a mesh).  ``mesh`` is
+    anything with a ``shape`` dict (:class:`Mesh`,
+    :class:`AbstractMesh`).  A mesh axis is used once (the first
+    dimension wins); unknown names, rule axes absent from the mesh and
+    indivisible dimensions resolve to ``None``."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    rules = rules if rules is not None else _CTX.rules
+    if mesh is None:
+        return ()
+    used = set()
+    out = []
+    for dim, name in zip(shape, names):
+        axes = rules.get(name) if name is not None else None
+        if not axes:
+            out.append(None)
+            continue
+        axes = tuple(a for a in axes if a in mesh.shape and a not in used)
+        if not axes or dim % axes_size(mesh, axes) != 0:
+            out.append(None)
+            continue
+        used.update(axes)
+        out.append(axes if len(axes) > 1 else axes[0])
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh (the twin of ``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: Spec
+
+
+def named_sharding(shape: Sequence[int],
+                   names: Sequence[Optional[str]]
+                   ) -> Optional[NamedSharding]:
+    """The active mesh with the spec ``names`` resolve to, or ``None``
+    without an active mesh."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, resolve_spec(shape, names))
+
+
+def block_index(axes: Sequence[str], mesh) -> int:
+    """This rank's block along a dimension split over ``axes``: its
+    coordinates on them, row-major (the last axis fastest), as a
+    ``NamedSharding`` numbers a dimension's blocks."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return idx
+
+
+def block_slices(shape: Sequence[int], spec: Spec, mesh) -> tuple:
+    """The index of this rank's block of a global ``shape`` laid out by
+    ``spec`` on ``mesh``: one slice a dimension."""
+    out = []
+    for d, n in enumerate(shape):
+        axes = entry_axes(spec[d]) if d < len(spec) else ()
+        if not axes:
+            out.append(slice(None))
+            continue
+        k = axes_size(mesh, axes)
+        if n % k:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                             f"divide into {k} blocks over {axes}")
+        size = n // k
+        i = block_index(axes, mesh)
+        out.append(slice(i * size, (i + 1) * size))
+    return tuple(out)
+
+
+def global_shape(local_shape: Sequence[int], spec: Spec, mesh) -> tuple:
+    """The global shape of a block laid out by ``spec``."""
+    return tuple(n * (axes_size(mesh, entry_axes(spec[d]))
+                      if d < len(spec) else 1)
+                 for d, n in enumerate(local_shape))
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple:
+    """The shape of a rank's block of a global ``shape`` laid out by
+    ``spec`` (the inverse of :func:`global_shape`)."""
+    return tuple(n // (axes_size(mesh, entry_axes(spec[d]))
+                       if d < len(spec) else 1)
+                 for d, n in enumerate(shape))
+
+
+def shard_tensor(x, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of the global ``x`` (a tensor on any device or
+    a numpy array) laid out by ``spec``, a new contiguous tensor on
+    ``mesh.device``: the twin of ``jax.device_put(x,
+    NamedSharding(mesh, spec))``.  Only the block is copied."""
+    block = x[block_slices(x.shape, spec, mesh)]
+    if not isinstance(block, torch.Tensor):
+        import numpy as np
+        block = torch.from_numpy(np.array(block))
+    out = torch.empty(block.shape, dtype=block.dtype, device=mesh.device)
+    out.copy_(block)
+    return out
+
+
+def relayout(x: torch.Tensor, spec_in: Spec, spec_out: Spec,
+             mesh=None) -> torch.Tensor:
+    """This rank's block ``x`` of a tensor laid out by ``spec_in``, in
+    the layout ``spec_out`` (the active mesh when omitted): a dimension
+    that loses mesh axes is all-gathered over them, one that gains axes
+    is sliced.  A collective over every axis gathered: each rank of
+    those axes' groups must call it."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    for d in range(x.dim()):
+        a_in = entry_axes(spec_in[d]) if d < len(spec_in) else ()
+        a_out = entry_axes(spec_out[d]) if d < len(spec_out) else ()
+        if a_in == a_out:
+            continue
+        for a in reversed(a_in):       # the last axis is the fastest
+            x = torch.cat(list(cl.all_gather(x, mesh, axis=a)), d)
+        if a_out:
+            k = axes_size(mesh, a_out)
+            size = x.shape[d] // k
+            x = x.narrow(d, block_index(a_out, mesh) * size, size)
+    return x.contiguous()
+
+
+def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """The reference's layout constraint on a replicated ``x`` (every
+    rank holds all of it): this rank's view of ``x`` in the layout
+    ``names`` resolve to under the active (mesh, rules).  A layout,
+    never a value; the identity without an active mesh.  One name per
+    dimension (trailing ones may be left out)."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    sl = block_slices(x.shape, resolve_spec(x.shape, names), mesh)
+    return x[sl]
+
+
+def gather_param(w: torch.Tensor, *storage_names: Optional[str],
+                 spec: Spec) -> torch.Tensor:
+    """ZeRO-3: this rank's block ``w`` of a weight stored in the layout
+    ``spec`` (what ``storage_names`` resolved to when it was laid out),
+    with its ``fsdp`` dimension all-gathered: the block of the layout
+    ``storage_names`` resolve to with ``fsdp`` replaced by ``None``
+    (the tensor-parallel axes kept), under the active (mesh, rules).
+    The identity without an active mesh.  A collective over the
+    gathered axes when they hold more than one rank."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return w
+    names = [None if n == "fsdp" else n for n in storage_names]
+    out = resolve_spec(global_shape(w.shape, spec, mesh), names)
+    if tuple(spec) == out:
+        return w
+    return relayout(w, spec, out, mesh)
+
+
+class LaidOutTree(dict):
+    """A parameter tree of this rank's blocks: a dict of the leaves'
+    blocks (nested dicts for nested trees) that also carries the
+    ``mesh``, the spec tree ``specs`` (the same keys) and the ``rules``
+    it was laid out by.  The model and the engine find the layout on the
+    tree (:func:`tree_mesh`), as the search finds a plane's."""
+
+    def __init__(self, blocks: dict, specs: dict, mesh: Mesh,
+                 rules: Optional[Rules] = None):
+        super().__init__(blocks)
+        self.specs = specs
+        self.mesh = mesh
+        self.rules = rules if rules is not None else default_rules()
+
+
+def tree_mesh(tree) -> Optional[Mesh]:
+    """The mesh a parameter tree is laid out on, or ``None`` for a
+    global tree."""
+    return tree.mesh if isinstance(tree, LaidOutTree) else None
+
+
+def lay_out(tree: dict, specs: dict, mesh: Mesh,
+            rules: Optional[Rules] = None) -> LaidOutTree:
+    """This rank's blocks of a global parameter tree (leaves on any
+    device, or numpy), laid out by the spec tree ``specs``
+    (``layers.axes_to_specs``) on ``mesh``, on ``mesh.device``."""
+    def cut(t, s):
+        return {k: cut(v, s[k]) if isinstance(v, dict)
+                else shard_tensor(v, s[k], mesh) for k, v in t.items()}
+    return LaidOutTree(cut(tree, specs), specs, mesh, rules)
+
+
+def constrain_index_plane(plane):
+    """The splay index plane in the layout its rules give under the
+    active mesh: width-sharded over the mesh's axis
+    (:func:`shard_index_plane`) when ``"splay_width"`` resolves to it,
+    the plane as it is otherwise and without an active mesh, so serving
+    loops can call it unconditionally.  An indivisible width stays
+    replicated."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return plane
+    axes = _CTX.rules.get("splay_width") or ()
+    if tuple(axes) != (getattr(mesh, "axis", None),):
+        return plane
+    return shard_index_plane(plane, mesh, mesh.axis)
 
 
 def index_plane_specs(plane_cls, axis: str = "model"):

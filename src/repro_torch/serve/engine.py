@@ -1,5 +1,5 @@
 """Batched serving engine with the splay-adaptive session index and
-vocab tier (the twin of ``repro.serve.engine``, meshless).
+vocab tier (the twin of ``repro.serve.engine``).
 
 A continuous-batching loop: requests arrive on a virtual clock
 (decode-step units), wait in an arrival queue, and are admitted into
@@ -27,6 +27,19 @@ Decoding is greedy, so a host-indexed and a device-indexed engine given
 the same arrivals produce identical outputs, admission decisions and
 latencies.  The model, its cache, the pool's device index and the vocab
 cache live on ``device`` (the card unless the caller passes ``"cpu"``).
+
+On a mesh (``mesh=``, one engine a rank, every rank given the same
+arrivals) the pool's index is width-sharded over it, as in the
+reference, and the model runs as the caller lays it out: a global tree
+whole on every rank (the reference's engine), or a tree laid out on the
+mesh (``sharding.lay_out`` by ``layers.axes_to_specs``; the dense
+family) sharded under ``use_mesh(mesh, rules)``, its cache laid out by
+``model_zoo.cache_axes``.  Every decision (admission, preemption,
+retry, the next token) is taken on values every rank holds equally:
+the pool's answers and the greedy ids come out of collectives, so every
+rank makes the same calls in the same order, and a meshless and a mesh
+engine given the same arrivals emit the same ids, admission decisions
+and latencies.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from repro_torch.core.faults import InjectedFault
 from repro_torch.core.splay_cache import SplayVocabCache
 from repro_torch.core.splaylist import _device
 from repro_torch.models import model_zoo as zoo
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve import serve_step as ss
 from repro_torch.serve.kv_cache import PagedKVPool
 
@@ -63,15 +77,22 @@ class Engine:
                  index_width: int = None, mesh=None,
                  stream_epochs: int = 4, audit_every: int = 0,
                  fault_plan=None, max_retries: int = 8, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded engine needs the models' mesh placement "
-                "(ROADMAP queue A, A12b)")
+        shd.check_mesh(mesh)
         # "cuda" names the current card: compare with the resolved index
         self.device = torch.empty(0, device=_device(device)).device
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, "
                              f"the engine on {self.device}")
+        on = shd.tree_mesh(params)
+        if on is not None and on is not mesh:
+            raise ValueError("the params are laid out on another mesh than "
+                             "the engine's")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh computes on {mesh.device}, the "
+                             f"engine on {self.device}")
+        # the (mesh, rules) the model's steps run under
+        self._ctx = ((mesh, params.rules) if on is not None
+                     else (None, None))
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -79,7 +100,7 @@ class Engine:
         self.pool = PagedKVPool(n_pages=n_pages, page_size=page_size,
                                 device=device_index,
                                 index_width=index_width,
-                                index_batch=index_batch,
+                                index_batch=index_batch, mesh=mesh,
                                 audit_every=audit_every,
                                 fault_plan=fault_plan,
                                 torch_device=self.device)
@@ -239,16 +260,21 @@ class Engine:
             toks = toks[kept_idx]
             wave = [wave[i] for i in kept_idx]
             B = len(wave)
-        cache = zoo.init_cache(self.cfg, B, self.max_seq, self.device)
+        mesh, rules = self._ctx
+        cache = zoo.init_cache(self.cfg, B, self.max_seq, self.device,
+                               mesh=mesh, rules=rules)
         # prefill token by token through the decode path
-        cur, cache, cache_len = ss.prefill_loop(
-            self._decode, self.params, toks, cache)
+        with shd.use_mesh(*self._ctx):
+            cur, cache, cache_len = ss.prefill_loop(
+                self._decode, self.params, toks, cache)
         self.clock += L
         live = np.ones(B, bool)
         max_new = max(r.max_new for r in wave)
         for t in range(max_new):
             self._stream_observe(cur.cpu().numpy(), live)
-            cur, cache = self._decode(self.params, cur, cache, cache_len)
+            with shd.use_mesh(*self._ctx):
+                cur, cache = self._decode(self.params, cur, cache,
+                                          cache_len)
             cache_len += 1
             self.clock += 1
             arr = cur.cpu().numpy()

@@ -1,6 +1,7 @@
 """Serving steps: prefill and single-token decode with stacked caches
 (the twin of ``repro.serve.serve_step``).  Greedy throughout: ties go to
-the lower token id, as ``jnp.argmax`` breaks them."""
+the lower token id, as ``jnp.argmax`` breaks them, on a laid-out tree
+too (:func:`greedy`)."""
 
 from __future__ import annotations
 
@@ -8,13 +9,39 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model_zoo as zoo
+from repro_torch.parallel import collectives as cl
+from repro_torch.parallel import sharding as shd
+
+
+def greedy(logits, params, cfg: ModelConfig) -> torch.Tensor:
+    """The greedy ids ``[...]`` (int64) of ``logits`` ``[..., V]``.  On
+    a vocab-split head (a laid-out tree) ``logits`` is this rank's block
+    ``[..., V/S]``: each rank takes its block's largest value and its
+    lowest index, one all-gather of the (value, global id) pairs gives
+    every rank all of them, and the largest value wins, the lower global
+    id on a tie (the lower block, then the lower index in it), so every
+    rank holds the same ids.  Every rank of the mesh must call this."""
+    axes = zoo.vocab_axes(params, cfg)
+    if not axes:
+        return torch.argmax(logits, dim=-1)
+    mesh = params.mesh
+    v, i = logits.max(dim=-1)
+    i = i + shd.block_index(axes, mesh) * logits.shape[-1]
+    pair = torch.stack([v.float(), i.float()], -1)   # ids < 2**24: exact
+    for a in reversed(axes):
+        blocks = cl.all_gather(pair, mesh, axis=a)        # [S, ..., 2]
+        best = blocks[..., 0].amax(0)
+        first = (blocks[..., 0] == best).int().argmax(0)  # lowest block
+        pair = torch.gather(blocks, 0, first[None, ..., None].expand(
+            1, *first.shape, 2))[0]
+    return pair[..., 1].long()
 
 
 def make_prefill(cfg: ModelConfig):
     def prefill(params, batch):
         logits = zoo.forward(params, cfg, batch["tokens"],
                              frontend=batch.get("frontend"))
-        return torch.argmax(logits[:, -1:], dim=-1)
+        return greedy(logits[:, -1:], params, cfg)
     return prefill
 
 
@@ -22,7 +49,7 @@ def make_decode_step(cfg: ModelConfig):
     def decode_step(params, tokens, cache, cache_len):
         logits, cache = zoo.decode_step(params, cfg, tokens, cache,
                                         cache_len)
-        next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        next_tok = greedy(logits[:, -1], params, cfg)[:, None]
         return next_tok.to(torch.int32), cache
     return decode_step
 
@@ -37,7 +64,7 @@ def prefill_loop(decode_fn, params, tokens, cache, cache_len0: int = 0):
     the same cell sequence.  The ids are checked here, on the host, so
     that no step on the device has to read its ids back."""
     dev = params["embed"].device
-    n = params["embed"].shape[0]
+    n = zoo.vocab_rows(params)
     if tokens.size and (tokens.min() < 0 or tokens.max() >= n):
         raise ValueError(f"token id out of range [0, {n})")
     cache_len = int(cache_len0)

@@ -606,6 +606,220 @@ def row_snapshot_rank(mesh, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the models on a mesh (tests/test_torch_model_mesh.py)
+# ---------------------------------------------------------------------------
+
+MODEL_ARCHS = ("minitron-8b", "qwen2-0.5b")
+ENGINE_ARCH = "qwen2-0.5b"
+ENGINE_ARGS = dict(max_batch=2, max_seq=48, n_pages=64, page_size=4,
+                   use_splay_tier=True, stream_epochs=2, device_index=True,
+                   index_batch=4)
+ENGINE_CASES = {
+    # one burst, a tight pool: stalls and preemptions
+    "burst_tight_pool": (dict(n_requests=6, rate=float("inf"), vocab=64,
+                              prompt_len=(3, 6), max_new=6, seed=4),
+                         dict(n_pages=7, max_batch=3)),
+    # Poisson arrivals: idle jumps, waves of one and two
+    "poisson": (dict(n_requests=6, rate=0.4, vocab=512, prompt_len=(2, 5),
+                     max_new=(2, 5), seed=9), {}),
+}
+DECODE_STEPS = 6
+
+
+def model_inputs(cfg_vocab: int, seed: int = 0) -> np.ndarray:
+    """The ``[2, DECODE_STEPS]`` ids the forward and the decode steps
+    take."""
+    return np.random.default_rng(seed).integers(
+        0, cfg_vocab, (2, DECODE_STEPS)).astype(np.int32)
+
+
+def engine_summary(eng, results) -> dict:
+    """What an engine emits, in plain values (both packages)."""
+    vc = eng.vocab_cache
+    return dict(results=results, latencies=dict(eng.latencies),
+                clock=eng.clock, stalls=eng.stalls,
+                preemptions=eng.preemptions, retries=eng.degraded_retries,
+                tokens_out=eng.tokens_out, chains=dict(eng.pool.chains),
+                free=sorted(eng.pool.free), util=eng.pool.utilization,
+                vc_m=vc.m, vc_counts=np.asarray(vc.counts).tolist(),
+                vc_hot=np.asarray(vc.hot_ids).tolist())
+
+
+def submit_arrivals(eng, arr, req) -> None:
+    for i in range(len(arr.seq_ids)):
+        n = int(arr.prompt_lens[i])
+        eng.submit(req(seq_id=int(arr.seq_ids[i]),
+                       prompt=arr.prompts[i, :n].copy(),
+                       max_new=int(arr.max_new[i]),
+                       arrival=int(arr.arrival[i])))
+
+
+def _whole(x, spec, mesh):
+    """A laid-out result gathered whole (a collective)."""
+    from repro_torch.parallel import sharding as shd
+    return shd.relayout(x, spec, (), mesh).numpy()
+
+
+def model_mesh_rank(mesh, params_np: dict) -> dict:
+    """The models on a mesh, on one rank of a gloo world of CPU ranks:
+    for each of ``MODEL_ARCHS`` (smoke width, float32, the JAX
+    parameters ``params_np[arch]``) laid out by ``axes_to_specs`` on the
+    world's ``1 x S`` mesh, ``forward`` and ``DECODE_STEPS`` decode steps
+    (logits gathered whole) and the greedy ids of ``prefill_loop``; the
+    engine on the mesh with the global and the laid-out tree for each
+    of ``ENGINE_CASES``; a laid-out moe tree's refusal."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.core import workload as twl
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.serve.engine import Engine, Request
+
+    rules = shd.default_rules()
+    out = {"specs": {}, "fwd": {}, "dec": {}, "greedy": {}, "engine": {},
+           "cache_kv_heads": {}}
+    trees = {}
+    for arch in MODEL_ARCHS:
+        cfg = registry.get_smoke(arch)
+        params = convert.params_from_numpy(params_np[arch], device="cpu")
+        _, axes = zoo.param_axes(cfg)
+        specs = ly.axes_to_specs(params, axes, mesh, rules)
+        tree = shd.lay_out(params, specs, mesh)
+        trees[arch] = (params, tree)
+        out["specs"][arch] = specs
+        head = specs["embed"] if cfg.tie_embeddings else specs["unembed"]
+        vocab = ly.split_over(head, 0 if cfg.tie_embeddings else 1)
+        lspec = (None, None, vocab if vocab else None)
+        toks = torch.as_tensor(model_inputs(cfg.vocab).astype(np.int64))
+        out["fwd"][arch] = _whole(zoo.forward(tree, cfg, toks), lspec,
+                                  mesh)
+        cache = zoo.init_cache(cfg, 2, 16, "cpu", mesh=mesh)
+        steps = []
+        for t in range(DECODE_STEPS):
+            logits, cache = zoo.decode_step(tree, cfg, toks[:, t:t + 1],
+                                            cache, t)
+            steps.append(_whole(logits, lspec, mesh))
+        out["dec"][arch] = steps
+        out["cache_kv_heads"][arch] = int(cache["k"].shape[3])
+        last, _, _ = ss.prefill_loop(
+            ss.make_decode_step(cfg), tree, toks.numpy(),
+            zoo.init_cache(cfg, 2, 16, "cpu", mesh=mesh))
+        out["greedy"][arch] = last[:, 0].tolist()
+    cfg = registry.get_smoke(ENGINE_ARCH)
+    params, tree = trees[ENGINE_ARCH]
+    for case, (arr_kw, kw) in ENGINE_CASES.items():
+        for kind, p in (("global", params), ("laid_out", tree)):
+            eng = Engine(cfg, p, mesh=mesh, device="cpu",
+                         **dict(ENGINE_ARGS, **kw))
+            submit_arrivals(eng, twl.poisson_zipf_arrivals(**arr_kw),
+                            Request)
+            out["engine"][case, kind] = engine_summary(eng, eng.run())
+    moe = registry.get_smoke("phi3.5-moe-42b-a6.6b")
+    p, axes = zoo.build_params(moe, device="cpu", with_axes=True)
+    laid = shd.lay_out(p, ly.axes_to_specs(p, axes, mesh, rules), mesh)
+    try:
+        zoo.decode_step(laid, moe, torch.zeros((1, 1), dtype=torch.long),
+                        zoo.init_cache(moe, 1, 4, "cpu"), 0)
+        out["moe"] = None
+    except NotImplementedError as e:
+        out["moe"] = str(e)
+    return out
+
+
+def relay_rank(mesh, flat: dict, specs22: dict, specs12: dict) -> dict:
+    """``elastic.reshard`` across a change of mesh shape, on a rank of a
+    4-rank world: the flat host tree ``flat`` laid out on the ``2 x 2``
+    ``(data, model)`` mesh by ``specs22`` (fsdp over data), then on the
+    ``1 x 2`` mesh of ranks 0 and 1 by ``specs12``; each rank's blocks
+    and coordinates, and on the 2 x 2 mesh each weight's fsdp
+    dimension gathered (``gather_param``)."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import elastic
+    out = {}
+    m22 = elastic.remesh(model_parallel=2, device="cpu")
+    out["coords22"] = dict(m22.coords)
+    b22 = elastic.reshard(flat, specs22, m22)
+    out["b22"] = {k: v.numpy() for k, v in b22.items()}
+    with shd.use_mesh(m22, shd.default_rules()):
+        out["gathered"] = {
+            k: shd.gather_param(b22[k], *names, spec=specs22[k]).numpy()
+            for k, names in (("wq", ("layers", "fsdp", "heads")),
+                             ("wo", ("layers", "heads", "fsdp")),
+                             ("w_down", ("layers", "mlp", "fsdp")))}
+    m12 = elastic.remesh([0, 1], model_parallel=2, device="cpu")
+    out["coords12"] = None if m12 is None else dict(m12.coords)
+    if m12 is not None:
+        out["b12"] = {k: v.numpy() for k, v in
+                      elastic.reshard(flat, specs12, m12).items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GPipe and ppermute (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+PIPE_L, PIPE_D, PIPE_B = 8, 16, 8
+
+
+def pipe_inputs(seed: int = 0):
+    """The reference test's stack: ``w`` ``[L, D, D]`` and ``x``
+    ``[B, D]``, float32."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(PIPE_L, PIPE_D, PIPE_D)).astype(np.float32) * 0.3
+    x = rng.normal(size=(PIPE_B, PIPE_D)).astype(np.float32)
+    return w, x
+
+
+def pipe_stage(params_i, h):
+    """One stage: its layers ``tanh(h @ w_i)`` in order."""
+    import torch
+    for wi in params_i.unbind(0):
+        h = torch.tanh(h @ wi)
+    return h
+
+
+def pipeline_rank(mesh, cases) -> dict:
+    """``pipeline_forward`` on the ``pod`` mesh of a gloo world, for each
+    ``(n_microbatches, layout)`` of ``cases`` (``layout``: ``"block"``
+    hands the rank its ``[1, ...]`` stage block, ``"stack"`` the whole
+    ``[S, ...]`` stack); then ``ppermute`` by a ring, its reverse, a
+    partial permutation and on a bfloat16 tensor."""
+    import torch
+
+    from repro_torch.parallel import collectives as cl
+    from repro_torch.parallel import pipeline as pl
+    from repro_torch.parallel import sharding as shd
+    pod = shd.world_mesh(device="cpu", axis="pod")
+    S = pod.shape["pod"]
+    w, x = pipe_inputs()
+    stages = pl.split_stages(torch.as_tensor(w), S)
+    out = {"pipe": {}}
+    for M, layout in cases:
+        sp = (stages if layout == "stack"
+              else shd.shard_tensor(stages, ("pod",), pod))
+        out["pipe"][M, layout] = pl.pipeline_forward(
+            torch.as_tensor(x), sp, pipe_stage, pod, M).numpy()
+    me = pod.coords["pod"]
+    v = torch.full((3,), float(me + 1))
+    ring = [(i, (i + 1) % S) for i in range(S)]
+    out["ring"] = cl.ppermute(v, pod, "pod", ring).tolist()
+    out["back"] = cl.ppermute(v, pod, "pod",
+                              [(d, s) for s, d in ring]).tolist()
+    out["partial"] = cl.ppermute(v, pod, "pod", [(0, S - 1)]).tolist()
+    out["bf16"] = cl.ppermute((v + 0.5).bfloat16(), pod, "pod",
+                              ring).float().tolist()
+    try:
+        cl.ppermute(v, pod, "pod", [(0, 1), (1, 1)])
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
 def jax_main(suite: str, S: int, part: str, out_path: str) -> None:
     """One part of the JAX side at one shard count, in a process of its
     own: the suite on a mesh of ``S`` of the host's 4 forced devices

@@ -1119,3 +1119,87 @@ def test_state_walk_drops_bad_speculative_links(engine):
     _equal(mod.find_batch(st, q), plain(st, q))
     with pytest.raises(RuntimeError, match="slot index outside"):
         mod.find_batch(st, [35])
+
+
+def _model_mesh_rank(mesh, params_np, toks):
+    """One rank of a 2-rank gloo group on the card: ``ppermute`` by a
+    ring, a partial permutation and on bfloat16; then the minitron-8b
+    smoke model (float32, at trained scale) laid out over the two ranks
+    (whole heads, a split cache): ``forward`` and three decode steps,
+    the logits gathered whole, and the greedy ids."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.models import layers as tly
+    from repro_torch.models import model_zoo as tzoo
+    from repro_torch.parallel import collectives as tcl
+    from repro_torch.parallel import sharding as tshd
+    from repro_torch.serve import serve_step as tss
+    dev = mesh.device
+    me = mesh.coords["model"]
+    v = torch.full((5,), float(me + 1), device=dev)
+    out = {"device": str(dev),
+           "ring": tcl.ppermute(v, mesh, "model", [(0, 1), (1, 0)]).tolist(),
+           "partial": tcl.ppermute(v, mesh, "model", [(0, 1)]).tolist(),
+           "bf16": tcl.ppermute((v + 0.5).bfloat16(), mesh, "model",
+                                [(0, 1), (1, 0)]).float().tolist()}
+    cfg = registry.get_smoke("minitron-8b")
+    params = convert.params_from_numpy(params_np, device=dev)
+    _, axes = tzoo.param_axes(cfg)
+    specs = tly.axes_to_specs(params, axes, mesh, tshd.default_rules())
+    tree = tshd.lay_out(params, specs, mesh)
+    whole = (None, None, "model")
+    t = torch.as_tensor(toks, device=dev)
+    out["fwd"] = tshd.relayout(tzoo.forward(tree, cfg, t), whole, (),
+                               mesh).cpu().numpy()
+    cache = tzoo.init_cache(cfg, t.shape[0], 8, dev, mesh=mesh)
+    out["cache_kv_heads"] = int(cache["k"].shape[3])
+    out["dec"] = []
+    for i in range(3):
+        logits, cache = tzoo.decode_step(tree, cfg, t[:, i:i + 1], cache, i)
+        out["dec"].append(tshd.relayout(logits, whole, (), mesh).cpu()
+                          .numpy())
+    last, _, _ = tss.prefill_loop(
+        tss.make_decode_step(cfg), tree, toks[:, :3],
+        tzoo.init_cache(cfg, t.shape[0], 8, dev, mesh=mesh))
+    out["greedy"] = last[:, 0].tolist()
+    return out
+
+
+def test_sharded_model_and_ppermute_on_two_card_ranks():
+    """Two gloo ranks on the one card: ``ppermute`` moves CUDA tensors
+    (an all-to-all with split sizes, never a point-to-point call), and
+    the minitron-8b smoke model laid out over the ranks gives the
+    forward's and three decode steps' logits and the greedy ids of its
+    CPU run (meshless, the same parameters at trained scale; rtol 1e-4,
+    atol 1e-5)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.launch import spmd
+    from repro_torch.models import model_zoo as tzoo
+    from repro_torch.serve import serve_step as tss
+    cc = _card_checks()
+    cfg = registry.get_smoke("minitron-8b")
+    p_cpu = cc.trained_scale(tzoo.build_params(cfg, seed=5, device="cpu"))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 6))
+    out = spmd.spawn(_model_mesh_rank, 2, convert.params_to_numpy(p_cpu),
+                     toks, backend="gloo", device="cuda", timeout=600)
+    t = torch.as_tensor(toks)
+    fwd = tzoo.forward(p_cpu, cfg, t).numpy()
+    cache = tzoo.init_cache(cfg, 2, 8, "cpu")
+    dec = []
+    for i in range(3):
+        logits, cache = tzoo.decode_step(p_cpu, cfg, t[:, i:i + 1], cache, i)
+        dec.append(logits.numpy())
+    last, _, _ = tss.prefill_loop(tss.make_decode_step(cfg), p_cpu,
+                                  toks[:, :3], tzoo.init_cache(cfg, 2, 8,
+                                                               "cpu"))
+    for r, o in enumerate(out):
+        assert o["device"].startswith("cuda")
+        assert o["ring"] == [float(2 - r)] * 5
+        assert o["partial"] == [float(r)] * 5      # rank 1 gets rank 0's 1
+        assert o["bf16"] == [2.5 - r] * 5
+        assert o["cache_kv_heads"] == 1
+        np.testing.assert_allclose(o["fwd"], fwd, rtol=1e-4, atol=1e-5)
+        for got, want in zip(o["dec"], dec):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        assert o["greedy"] == last[:, 0].tolist()

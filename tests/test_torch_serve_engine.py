@@ -271,7 +271,7 @@ def test_persistent_faults_surface_after_max_retries(smoke):
 
 def test_engine_refuses_a_mesh_and_foreign_params(smoke):
     _, _, tcfg, tp = smoke
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         TEngine(tcfg, tp, device="cpu", mesh=object())
     meta = {k: v.to("meta") for k, v in tp.items()}
     with pytest.raises(ValueError, match="params lie on"):
