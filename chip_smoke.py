@@ -203,7 +203,29 @@ Phases:
    (``elastic.remesh`` to the 1 x 2 mesh of ranks 0 and 1, the host tree
    re-laid, one decode step under the witness); GPipe over the ``pod``
    axis of the 4 ranks (32 blocks in 4 stages, a bf16 8 x 128 batch in
-   4 microbatches) against the meshless layers under the witness.
+   4 microbatches) against the meshless layers under the witness;
+14. the other model families on a mesh (:func:`family_phase`, run right
+   after phase 13; ``--phase14`` alone, ``--backend nccl`` a card a
+   rank): phi3.5-moe at full width with its depth cut to 8 of 32 layers
+   (bf16 from seed 0, 21.07 GB), its meshless engine on 8 requests over
+   its vocab and a left-padded batch of 4's meshless bf16 decode step
+   and float32 witness, the weights written as a host flat tree under
+   ``build/mesh14`` (removed after); on 4 gloo ranks of the card, phi
+   laid out 1 x 4 by ``elastic.reshard`` (4 experts a rank, about 5.27
+   GB), every block's SHA-256 equal to the global slice, one sharded
+   decode step under the witness (its collectives from a trace, the
+   tokens routed to other experts than the witness's counted),
+   ``Engine(mesh=...)`` on the 8 requests (latencies, stalls,
+   preemptions, retries, tokens out and chains equal the meshless
+   engine's, each differing sequence witnessed at its first differing
+   id; B1/B2, F and W launched on every rank, path ``model_mesh_moe``;
+   tokens/s and ms a step), one decode step on the 2 x 2 (data, model)
+   mesh with fsdp over data and each rank's rows; then zamba2-7b,
+   whisper-large-v3 and paligemma-3b at full width and depth (bf16,
+   built on the card one rank at a time and laid out 1 x 4), each a
+   prefill of a 2 x 4 prompt (whisper's frames and paligemma's patches
+   a seeded stub) and a decode step under the witness, the step's
+   collectives from a trace.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
@@ -224,8 +246,8 @@ composition; S: phase 10's race; W: phase 3 for the splay-list and
 phase 10's race for the skip-list); ``launches_by_path`` adds every
 other path, the engine's, ``snapshot`` and ``train`` (which launches none of them)
 among them, and the ranks of phase 9 (``sharded``), of phase 12's
-sharded demos (``examples_sharded``) and of phase 13's engine
-(``model_mesh``).  Prints that JSON line, the
+sharded demos (``examples_sharded``), of phase 13's engine
+(``model_mesh``) and of phase 14's (``model_mesh_moe``).  Prints that JSON line, the
 card's ``name, power.limit``,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, with no result line, on any failed check or without a CUDA
@@ -2211,21 +2233,24 @@ def mesh_rank(mesh, job) -> dict:
     return out
 
 
-def engine_witness(torch, dev, job, cases) -> list:
+def engine_witness(torch, dev, job, cases, cfg16=None,
+                   phase="phase 13") -> list:
     """The float32 witness of each sequence whose ids on the mesh differ
-    from phase 5e's (``cases``, from :func:`mesh_rank`): the weights
-    loaded whole onto the card from the host tree, the history's logits
-    meshless in bf16 and, the witness, in float32 on the same weights;
-    the mesh's bf16 logits must lie at most twice as far from the
-    witness as the meshless bf16 ones (``Agreement``'s rule).  Returns
-    ``(sequence, position, mesh id, phase 5e's id, mesh distance,
-    meshless distance)`` for each."""
+    from the meshless engine's (``cases``, from :func:`mesh_rank` or
+    :func:`family_rank`): the weights of ``cfg16`` (phase 13's bf16
+    minitron-8b when omitted) loaded whole onto the card from the host
+    tree, the history's logits meshless in bf16 and, the witness, in
+    float32 on the same weights; the mesh's bf16 logits must lie at most
+    twice as far from the witness as the meshless bf16 ones
+    (``Agreement``'s rule).  Returns ``(sequence, position, mesh id, the
+    meshless id, mesh distance, meshless distance)`` for each."""
     import dataclasses
 
     from repro_torch.configs.minitron_8b import CONFIG as minitron
     if not cases:
         return []
-    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    if cfg16 is None:
+        cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
     cfg32w = dataclasses.replace(cfg16, dtype="float32")
     params = {k: torch.load(f, mmap=True, weights_only=True).to(dev)
               for k, f in job["files"].items()}
@@ -2236,9 +2261,9 @@ def engine_witness(torch, dev, job, cases) -> list:
             l32 = _history_logits(torch, params, cfg32w, w["hist"])
             e_mesh = float((torch.as_tensor(w["logits"]) - l32).abs().max())
             e_one = float((l16 - l32).abs().max())
-            check(e_mesh <= 2 * e_one, f"phase 13: sequence {w['seq']} id "
+            check(e_mesh <= 2 * e_one, f"{phase}: sequence {w['seq']} id "
                   f"{w['pos']}: {w['mesh_id']} on the mesh, {w['ref_id']} "
-                  f"in phase 5e; the mesh's logits lie {e_mesh:.4e} from "
+                  f"meshless; the mesh's logits lie {e_mesh:.4e} from "
                   f"the float32 witness, more than twice the meshless "
                   f"bf16's {e_one:.4e}")
             out.append((w["seq"], w["pos"], w["mesh_id"], w["ref_id"],
@@ -2375,6 +2400,580 @@ def mesh_phase(torch, dev, job, backend: str) -> dict:
           f"|out - float32 layers| {r0['e_pipe']:.6f} (meshless bf16 "
           f"{job['e_pipe']:.6f}); peak {r0['pipe_peak']} B ({card})",
           flush=True)
+    return {k: {f"rank{r['rank']}": r["launches"][k] for r in ranks}
+            for k in r0["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the other model families on a mesh
+# ---------------------------------------------------------------------------
+
+FAMILY_DIR = "mesh14"         # phase 14: phi's host weights, under build/
+PHI_LAYERS = 8                # phase 14: phi3.5-moe's depth (of 32)
+FAMILY_ARCHS = ("zamba2-7b", "whisper-large-v3", "paligemma-3b")
+FAMILY_PROMPT = (2, 4)        # phase 14: their prefill's batch x prompt
+
+
+def family_configs():
+    """Phase 14's models, bf16 parameters from seed 0: phi3.5-moe at
+    full width with its depth cut to ``PHI_LAYERS``, and zamba2-7b,
+    whisper-large-v3 and paligemma-3b at full width and depth."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    phi = dataclasses.replace(registry.get("phi3.5-moe-42b-a6.6b"),
+                              n_layers=PHI_LAYERS, param_dtype="bfloat16")
+    return phi, {a: dataclasses.replace(registry.get(a),
+                                        param_dtype="bfloat16")
+                 for a in FAMILY_ARCHS}
+
+
+def family_frontend(cfg, batch: int):
+    """The seeded stub frontend of whisper (frames) or paligemma
+    (patches), at the embedding's scale, or ``None``."""
+    n = {"encdec": cfg.enc_positions, "vlm": cfg.img_tokens}.get(cfg.family)
+    if n is None:
+        return None
+    return (0.02 * np.random.default_rng(1).standard_normal(
+        (batch, n, cfg.d_model))).astype(np.float32)
+
+
+class Routes:
+    """Within it, the top-k experts of every MoE layer a pass computes
+    (``moe.route``), in order, on the host: ``self.top_e``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.route, self.top_e = moe_mod, moe_mod.route, []
+
+        def rec(*a, **kw):
+            plan = self.route(*a, **kw)
+            self.top_e.append(plan.top_e.cpu())
+            return plan
+        moe_mod.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+
+def expert_sets_differ(a, b) -> int:
+    """Tokens (layer x row x position) whose set of experts differs
+    between two runs' :class:`Routes`."""
+    import torch
+    x = torch.stack(a).sort(-1).values
+    y = torch.stack(b).sort(-1).values
+    return int((x != y).any(-1).sum())
+
+
+def _decode_last(torch, params, cfg, toks, dev, mesh=None, rules=None,
+                 rows=slice(None)):
+    """Prefill ``toks[:, :-1]`` through the decode cell, then one decode
+    step on the last ids, on this rank's ``rows``: ``(logits, cache, last
+    ids)``, the step's routes recorded."""
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import serve_step as ss
+    B, L = toks.shape
+    cache = zoo.init_cache(cfg, B, 16, dev, mesh=mesh, rules=rules)
+    _, c, _ = ss.prefill_loop(ss.make_decode_step(cfg), params,
+                              toks[rows, :-1], cache)
+    last = torch.as_tensor(toks[rows, -1:], device=dev)
+    with Routes() as r:
+        logits, _ = zoo.decode_step(params, cfg, last, c, L - 1)
+    return logits, c, last, r.top_e
+
+
+def family_job(torch, dev, phi, others, card) -> dict:
+    """Phase 14's inputs.  phi3.5-moe: the bf16 weights built on the
+    card from seed 0, its meshless engine on 8 requests (the mesh
+    engine's reference), a left-padded batch of 4's meshless bf16
+    decode step and its float32 witness (with each step's experts), and
+    the weights written as a host flat tree under ``build/mesh14`` with
+    each rank's block digests on the 1 x 4 mesh.  Each of ``others``:
+    a short prompt's prefill (``forward``) and decode step, meshless in
+    bf16 and in float32 on the same weights."""
+    import dataclasses
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import workload as wl
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve.engine import Engine, Request
+    torch.set_grad_enabled(False)
+    t = time.perf_counter()
+    params = zoo.build_params(phi, seed=0, device=dev)
+    arr = wl.poisson_zipf_arrivals(8, float("inf"), phi.vocab,
+                                   prompt_len=(2, 7), max_new=8, seed=0)
+    eng = Engine(phi, params, max_batch=4, max_seq=128, device_index=True,
+                 index_width=1024, device=dev)
+    for i in range(len(arr.seq_ids)):
+        n_i = int(arr.prompt_lens[i])
+        eng.submit(Request(seq_id=int(arr.seq_ids[i]),
+                           prompt=arr.prompts[i, :n_i].copy(),
+                           max_new=int(arr.max_new[i]),
+                           arrival=int(arr.arrival[i])))
+    torch.cuda.synchronize(dev)
+    t_eng = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize(dev)
+    eng_s = time.perf_counter() - t_eng
+    toks = left_pad(arr.prompts[:4], arr.prompt_lens[:4])
+    phi32 = dataclasses.replace(phi, dtype="float32")
+    l16, _, _, r16 = _decode_last(torch, params, phi, toks, dev)
+    l32, _, _, r32 = _decode_last(torch, params, phi32, toks, dev)
+    l16, l32 = l16[:, 0].float().cpu(), l32[:, 0].float().cpu()
+    job = dict(card=card, phi=phi, others=others, toks=toks,
+               l16=l16.numpy(), l32=l32.numpy(),
+               e_step=float((l16 - l32).abs().max()), routes32=r32,
+               routes_differ=expert_sets_differ(r16, r32),
+               engine=dict(ids=res, latencies=dict(eng.latencies),
+                           stalls=eng.stalls, preemptions=eng.preemptions,
+                           retries=eng.degraded_retries,
+                           tokens_out=eng.tokens_out,
+                           chains=dict(eng.pool.chains)),
+               engine_tok_s=eng.tokens_out / eng_s)
+    del eng
+    # the host flat tree and each rank's block digests on 1 x 4
+    d = HERE / "build" / FAMILY_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    need = sum(v.numel() * v.element_size() for v in params.values())
+    free_disk = shutil.disk_usage(d).free
+    check(free_disk > need + 2**30, f"phase 14 needs {need} B of disk under "
+          f"build/ for phi's host weights, {free_disk} B are free")
+    _, axes = zoo.param_axes(phi)
+    sizes = {"data": 1, "model": MESH_RANKS}
+    specs = ly.axes_to_specs(params, axes, shd.AbstractMesh(sizes),
+                             shd.default_rules())
+    files, digests = {}, {r: {} for r in range(MESH_RANKS)}
+    t_w = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        for name, v in params.items():
+            host = v.cpu()
+            files[name] = str(d / f"{name}.pt")
+            torch.save(host, files[name])
+            futs = {r: ex.submit(_digest, host[_slice_for(
+                host.shape, specs[name], {"data": 0, "model": r}, sizes)])
+                for r in range(MESH_RANKS)}
+            for r, f in futs.items():
+                digests[r][name] = f.result()
+            del host
+    job.update(files=files, digests=digests, nbytes=need,
+               write_s=time.perf_counter() - t_w)
+    del params
+    torch.cuda.empty_cache()
+    # the other families: meshless bf16 and the float32 witness
+    job["ref"] = {}
+    for arch, cfg in others.items():
+        p = zoo.build_params(cfg, seed=0, device=dev)
+        ptoks = np.random.default_rng(2).integers(
+            0, cfg.vocab, FAMILY_PROMPT).astype(np.int32)
+        fr = family_frontend(cfg, FAMILY_PROMPT[0])
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        ref = {"toks": ptoks, "nbytes": sum(
+            v.numel() * v.element_size() for v in _leaves(p))}
+        for tag, c in (("16", cfg), ("32", cfg32)):
+            f = None if fr is None else torch.as_tensor(fr, device=dev)
+            ref["f" + tag] = zoo.forward(
+                p, c, torch.as_tensor(ptoks, device=dev),
+                frontend=f)[:, -1].float().cpu()
+            ref["d" + tag] = _decode_last(torch, p, c, ptoks, dev)[0][
+                :, 0].float().cpu()
+        ref["e_fwd"] = float((ref["f16"] - ref["f32"]).abs().max())
+        ref["e_step"] = float((ref["d16"] - ref["d32"]).abs().max())
+        job["ref"][arch] = ref
+        del p
+        torch.cuda.empty_cache()
+    print(f"[14] phi3.5-moe ({PHI_LAYERS} of 32 layers, full width, bf16): "
+          f"meshless engine {job['engine_tok_s']:.2f} tokens/s; host "
+          f"weights written in {job['write_s']:.1f} s ({need} B, "
+          f"{len(files)} files under build/{FAMILY_DIR}); meshless bf16 "
+          f"step vs the float32 witness: max |logit diff| "
+          f"{job['e_step']:.4e}, {job['routes_differ']} tokens x layers "
+          f"routed to other experts; "
+          + "; ".join(f"{a} prefill {r['e_fwd']:.4e}, step "
+                      f"{r['e_step']:.4e}" for a, r in job["ref"].items())
+          + f"; {time.perf_counter() - t:.1f} s ({card})", flush=True)
+    return job
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _whole_rows(torch, block, tree, cfg, mesh, rules, batch_size):
+    """A laid-out tree's logits block ``[B_rank, V/S]`` of a batch of
+    ``batch_size`` gathered whole over the batch and vocab axes (a
+    collective)."""
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    batch = shd.resolve_spec((batch_size,), ("batch",), mesh, rules)
+    spec = ((batch[0] if batch else None),) + (None,) * (block.dim() - 2) \
+        + (zoo.vocab_axes(tree, cfg) or None,)
+    return shd.relayout(block, spec, (), mesh)
+
+
+def family_rank(mesh, job) -> dict:
+    """Phase 14 on one rank: phi3.5-moe laid out over the 1 x 4 mesh
+    (``elastic.reshard`` of the host tree), its blocks' digests, one
+    sharded decode step under the float32 witness (its collectives from
+    a trace, its experts against the witness's), ``Engine(mesh=...)`` on
+    the 8 requests (launches on path ``model_mesh_moe``); phi on the
+    2 x 2 (data, model) mesh, fsdp over data and this rank's 2 rows, one
+    decode step; then each other family built on the card in turn
+    (one rank at a time), laid out, a prefill and a decode step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import collectives as cl
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.core import workload as wl
+    from repro_torch.train import elastic
+    from torch.profiler import ProfilerActivity, profile
+    torch.set_grad_enabled(False)
+    dev = mesh.device
+    me = mesh.index
+    phi = job["phi"]
+    rules = shd.default_rules()
+    host = {k: torch.load(f, mmap=True, weights_only=True)
+            for k, f in job["files"].items()}
+    _, axes = zoo.param_axes(phi)
+    out = {"rank": me, "device": str(dev)}
+    l32 = torch.as_tensor(job["l32"])
+    toks = job["toks"]
+
+    def lay(m):
+        specs = ly.axes_to_specs(host, axes, m, rules)
+        return shd.LaidOutTree(elastic.reshard(host, specs, m), specs, m,
+                               rules)
+
+    def sync_ms(t0):
+        torch.cuda.synchronize(dev)
+        return 1e3 * (time.perf_counter() - t0)
+
+    # -- 1. phi over 1 x 4 ---------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tree = lay(mesh)
+    out["lay_ms"] = sync_ms(t0)
+    out["param_bytes"] = sum(v.numel() * v.element_size()
+                             for v in tree.values())
+    out["digests_equal"] = sum(
+        _digest(v.cpu()) == job["digests"][me][k] for k, v in tree.items())
+    out["n_tensors"] = len(tree)
+    out["w_gate_spec"] = tree.specs["w_gate"]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cache = zoo.init_cache(phi, toks.shape[0], 16, dev, mesh=mesh,
+                           rules=rules)
+    _, c, _ = ss.prefill_loop(ss.make_decode_step(phi), tree, toks[:, :-1],
+                              cache)
+    last = torch.as_tensor(toks[:, -1:], device=dev)
+    e0.record()
+    with Routes() as r:
+        logits, _ = zoo.decode_step(tree, phi, last, c, toks.shape[1] - 1)
+    e1.record()
+    whole = _whole_logits(torch, logits[:, 0], tree, phi).float().cpu()
+    tok = ss.greedy(logits[:, 0], tree, phi)
+    torch.cuda.synchronize(dev)
+    out["step_ms"] = e0.elapsed_time(e1)
+    out["e_step"] = float((whole - l32).abs().max())
+    out["routes_differ"] = expert_sets_differ(r.top_e, job["routes32"])
+    out["greedy"] = tok.tolist()
+    out["greedy_equal_on_ranks"] = bool((cl.all_gather(tok, mesh)
+                                         == tok).all())
+    t0 = time.perf_counter()
+    zoo.decode_step(tree, phi, last, c, toks.shape[1] - 1)
+    wall = sync_ms(t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        zoo.decode_step(tree, phi, last, c, toks.shape[1] - 1)
+        traced = sync_ms(t0)
+    out["step_split"] = dict(collective_split(prof, mesh.backend, 1, traced),
+                             wall_ms=wall, traced_wall_ms=traced)
+    del c, cache
+    out["peak_after_lay"] = torch.cuda.max_memory_allocated(dev)
+
+    # -- 2. Engine(mesh=...) on the 8 requests -------------------------------
+    arr = wl.poisson_zipf_arrivals(8, float("inf"), phi.vocab,
+                                   prompt_len=(2, 7), max_new=8, seed=0)
+    eng = Engine(phi, tree, max_batch=4, max_seq=128, device_index=True,
+                 index_width=1024, mesh=mesh, device=dev)
+    events, padded = [], {}
+    decode, pad = eng._decode, eng._pad_prompts
+
+    def recorded_pad(reqs):
+        rows = pad(reqs)
+        padded.update({q.seq_id: row for q, row in zip(reqs, rows)})
+        return rows
+
+    def timed_decode(*a):
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0.record()
+        res = decode(*a)
+        s1.record()
+        events.append((s0, s1))
+        return res
+    eng._decode, eng._pad_prompts = timed_decode, recorded_pad
+    for i in range(len(arr.seq_ids)):
+        n_i = int(arr.prompt_lens[i])
+        eng.submit(Request(seq_id=int(arr.seq_ids[i]),
+                           prompt=arr.prompts[i, :n_i].copy(),
+                           max_new=int(arr.max_new[i]),
+                           arrival=int(arr.arrival[i])))
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize(dev)
+    out["engine_wall_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out["engine_step_ms"] = [a.elapsed_time(b) for a, b in events]
+    out["engine"] = dict(ids=res, latencies=dict(eng.latencies),
+                         stalls=eng.stalls, preemptions=eng.preemptions,
+                         retries=eng.degraded_retries,
+                         tokens_out=eng.tokens_out,
+                         chains=dict(eng.pool.chains))
+    out["peak_after_engine"] = torch.cuda.max_memory_allocated(dev)
+    witnessed = []
+    for s, ids in sorted(res.items()):
+        ref = job["engine"]["ids"][s]
+        if ids == ref:
+            continue
+        p = next(j for j in range(len(ids)) if ids[j] != ref[j])
+        hist = np.concatenate([padded[s], np.asarray(ref[:p], np.int32)])
+        witnessed.append(dict(seq=s, pos=p, mesh_id=ids[p], ref_id=ref[p],
+                              hist=hist, logits=_history_logits(
+                                  torch, tree, phi, hist).numpy()))
+    out["witnessed"] = witnessed
+    del eng, tree, pad, decode, recorded_pad, timed_decode
+    torch.cuda.empty_cache()
+
+    # -- 3. phi on 2 x 2: fsdp over data, the batch's rows over it -----------
+    torch.cuda.reset_peak_memory_stats(dev)
+    m22 = elastic.remesh(model_parallel=2, device=dev)
+    t0 = time.perf_counter()
+    tree = lay(m22)
+    lay_ms = sync_ms(t0)
+    rows = shd.block_slices((toks.shape[0],), shd.resolve_spec(
+        (toks.shape[0],), ("batch",), m22, rules), m22)[0]
+    logits, c, last, _ = _decode_last(torch, tree, phi, toks, dev, m22,
+                                      rules, rows)
+    whole = _whole_rows(torch, logits[:, 0], tree, phi, m22, rules,
+                        toks.shape[0]).float().cpu()
+    e0.record()
+    zoo.decode_step(tree, phi, last, c, toks.shape[1] - 1)
+    e1.record()
+    torch.cuda.synchronize(dev)
+    out["mesh22"] = dict(
+        shape=dict(m22.shape), coords=dict(m22.coords), rows=(rows.start,
+                                                              rows.stop),
+        lay_ms=lay_ms, param_bytes=sum(v.numel() * v.element_size()
+                                       for v in tree.values()),
+        e_step=float((whole - l32).abs().max()), step_ms=e0.elapsed_time(e1),
+        peak=torch.cuda.max_memory_allocated(dev))
+    del tree, host, c
+    torch.cuda.empty_cache()
+
+    # -- 4. the other families on 1 x 4 -------------------------------------
+    out["others"] = {}
+    for arch, cfg in job["others"].items():
+        ref = job["ref"][arch]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _, ax = zoo.param_axes(cfg)
+        for turn in range(mesh.size):      # one global copy at a time
+            if turn == me:
+                g = zoo.build_params(cfg, seed=0, device=dev)
+                specs = ly.axes_to_specs(g, ax, mesh, rules)
+                tree = shd.lay_out(g, specs, mesh, rules)
+                del g
+                torch.cuda.empty_cache()
+            dist.barrier()
+        lay_ms = sync_ms(t0)
+        ptoks = ref["toks"]
+        fr = family_frontend(cfg, FAMILY_PROMPT[0])
+        t0 = time.perf_counter()
+        f = zoo.forward(tree, cfg, torch.as_tensor(ptoks, device=dev),
+                        frontend=None if fr is None else torch.as_tensor(
+                            fr, device=dev))[:, -1]
+        fwd_ms = sync_ms(t0)
+        f = _whole_logits(torch, f, tree, cfg).float().cpu()
+        logits, c, last, _ = _decode_last(torch, tree, cfg, ptoks, dev,
+                                          mesh, rules)
+        d = _whole_logits(torch, logits[:, 0], tree, cfg).float().cpu()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            zoo.decode_step(tree, cfg, last, c, ptoks.shape[1] - 1)
+            traced = sync_ms(t0)
+        out["others"][arch] = dict(
+            lay_ms=lay_ms, fwd_ms=fwd_ms,
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in _leaves(tree)),
+            e_fwd=float((f - ref["f32"]).abs().max()),
+            e_step=float((d - ref["d32"]).abs().max()),
+            step_split=collective_split(prof, mesh.backend, 1, traced),
+            step_ms=traced, peak=torch.cuda.max_memory_allocated(dev),
+            cache_shapes={k: tuple(v.shape) for k, v in c.items()})
+        del tree, c
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(torch, dev, job, backend: str) -> dict:
+    """Phase 14: :func:`family_rank` on ``MESH_RANKS`` ranks (gloo: every
+    rank on ``cuda:0``; nccl: one card a rank), then the float32 witness
+    of each engine sequence that differs from the meshless engine's.
+    Checks and prints each rank's readings beside the card's name and
+    power limit; removes the host weights; returns each kernel's
+    launches by rank on path ``model_mesh_moe``."""
+    import gc
+    import shutil
+
+    from repro_torch.launch import spmd
+    card = job["card"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[14] starting {MESH_RANKS} {backend} ranks; this process: "
+          f"{host_memory()}; card free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB ({card})", flush=True)
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(family_rank, MESH_RANKS, job, backend=backend,
+                           device="cuda", timeout=1200)
+        wall = time.perf_counter() - t
+        witness = engine_witness(torch, dev, job, ranks[0]["witnessed"],
+                                 job["phi"], "phase 14")
+    except RuntimeError as e:
+        fail(f"phase 14: {e}")
+    finally:
+        shutil.rmtree(HERE / "build" / FAMILY_DIR, ignore_errors=True)
+    e_ref, eng_ref = job["e_step"], job["engine"]
+    for r in ranks:
+        me = f"phase 14 rank {r['rank']}"
+        check(r["digests_equal"] == r["n_tensors"],
+              f"{me}: {r['n_tensors'] - r['digests_equal']} phi blocks "
+              f"differ from the global tensors' slices")
+        check(r["e_step"] <= 2 * e_ref, f"{me}: phi's sharded step lies "
+              f"{r['e_step']:.4e} from the float32 witness, more than twice "
+              f"the meshless bf16 step's {e_ref:.4e}")
+        check(r["mesh22"]["e_step"] <= 2 * e_ref, f"{me}: phi's 2 x 2 "
+              f"step lies {r['mesh22']['e_step']:.4e} from the witness, "
+              f"more than twice {e_ref:.4e}")
+        check(r["greedy_equal_on_ranks"], f"{me}: greedy ids differ "
+              f"between the ranks")
+        for k in ("latencies", "stalls", "preemptions", "retries",
+                  "tokens_out", "chains"):
+            check(r["engine"][k] == eng_ref[k], f"{me}: the mesh engine's "
+                  f"{k} differ from the meshless engine's: "
+                  f"{r['engine'][k]} != {eng_ref[k]}")
+        check(r["engine"]["ids"] == ranks[0]["engine"]["ids"],
+              f"{me}: generated ids differ from rank 0's")
+        n = r["launches"]
+        check(n["splay_search_tiered"] + n["splay_search_pipelined"] > 0
+              and n["splay_fold"] > 0 and n["splay_walk"] > 0,
+              f"{me}: a kernel of the model_mesh_moe path never launched: "
+              f"{n}")
+        for arch, o in r["others"].items():
+            ref = job["ref"][arch]
+            check(o["e_fwd"] <= 2 * ref["e_fwd"], f"{me}: {arch}'s sharded "
+                  f"prefill lies {o['e_fwd']:.4e} from the float32 witness,"
+                  f" more than twice the meshless bf16's {ref['e_fwd']:.4e}")
+            check(o["e_step"] <= 2 * ref["e_step"], f"{me}: {arch}'s "
+                  f"sharded step lies {o['e_step']:.4e} from the float32 "
+                  f"witness, more than twice the meshless bf16's "
+                  f"{ref['e_step']:.4e}")
+    r0 = ranks[0]
+    phi = job["phi"]
+    ids_equal = sum(r0["engine"]["ids"][s] == eng_ref["ids"][s]
+                    for s in eng_ref["ids"])
+    steps = np.concatenate([r["engine_step_ms"] for r in ranks])
+    sp = r0["step_split"]
+    print(f"[14] phi3.5-moe ({phi.n_layers} layers, d {phi.d_model}, "
+          f"{phi.n_experts} experts top-{phi.top_k}, bf16) on a 1 x "
+          f"{MESH_RANKS} mesh ({backend}, {r0['device']}): w_gate "
+          f"{r0['w_gate_spec']}; "
+          + "; ".join(f"rank {r['rank']} {r['param_bytes']} B (laid out in "
+                      f"{r['lay_ms']:.1f} ms, {r['digests_equal']}/"
+                      f"{r['n_tensors']} digests equal), peak "
+                      f"{r['peak_after_lay']} B" for r in ranks)
+          + f" ({card})", flush=True)
+    print(f"[14] one sharded decode step of a left-padded batch "
+          f"{job['toks'].shape}: |logit - float32 witness| by rank "
+          f"{[round(r['e_step'], 6) for r in ranks]} (meshless bf16 "
+          f"{e_ref:.6f}; limit twice it); tokens x layers routed to other "
+          f"experts than the witness's: mesh {r0['routes_differ']}, "
+          f"meshless bf16 {job['routes_differ']}; greedy ids "
+          f"{r0['greedy']} on every rank; ms a step (events) "
+          f"{[round(r['step_ms'], 4) for r in ranks]}; rank 0 traced: "
+          f"wall {sp['wall_ms']:.4f} untraced, {sp['traced_wall_ms']:.4f} "
+          f"traced = collectives with the device idle "
+          f"{sp['collective_idle_ms']} + device busy {sp['device_busy_ms']}"
+          f" + host {sp['host_ms']}; collectives {sp['collectives']} calls,"
+          f" {sp['collective_bytes']} B, {sp['collective_ms']} ms on the "
+          f"host; idle share {sp['idle_share']} ({card})", flush=True)
+    print(f"[14] Engine(mesh=...) on 8 requests over phi's vocab, every "
+          f"rank: latencies, stalls {r0['engine']['stalls']}, preemptions "
+          f"{r0['engine']['preemptions']}, retries {r0['engine']['retries']}"
+          f", tokens out {r0['engine']['tokens_out']} and the pool's chains "
+          f"equal the meshless engine's; ids equal on every rank; "
+          f"{ids_equal}/8 sequences equal the meshless engine's, the rest "
+          f"witnessed at their first differing id (sequence, position, "
+          f"mesh id, meshless id, |mesh - float32|, |meshless bf16 - "
+          f"float32|) {witness}; "
+          f"{r0['engine']['tokens_out'] / r0['engine_wall_s']:.2f} tokens/s "
+          f"({r0['engine_wall_s']:.3f} s; meshless "
+          f"{job['engine_tok_s']:.2f}); ms a decode step (events, "
+          f"{len(steps)} over the ranks) mean {np.mean(steps):.4f}, median "
+          f"{np.median(steps):.4f}, min {np.min(steps):.4f}; launches on "
+          f"path model_mesh_moe by rank (B1, B2, F, W): "
+          + "; ".join(f"{r['rank']} "
+                      f"{[r['launches'][k] for k in SHARDED_KERNELS]}"
+                      for r in ranks) + f" ({card})", flush=True)
+    print(f"[14] phi on the 2 x 2 (data, model) mesh, fsdp over data: "
+          + "; ".join(f"rank {r['rank']} {r['mesh22']['coords']} rows "
+                      f"{r['mesh22']['rows']} {r['mesh22']['param_bytes']} B"
+                      f" in {r['mesh22']['lay_ms']:.1f} ms, peak "
+                      f"{r['mesh22']['peak']} B, a step "
+                      f"{r['mesh22']['step_ms']:.2f} ms, |logit - witness| "
+                      f"{r['mesh22']['e_step']:.6f}" for r in ranks)
+          + f" ({card})", flush=True)
+    for arch in job["others"]:
+        ref = job["ref"][arch]
+        o0 = r0["others"][arch]
+        osp = o0["step_split"]
+        print(f"[14] {arch} (bf16, 1 x {MESH_RANKS}): "
+              + "; ".join(f"rank {r['rank']} {r['others'][arch]['param_bytes']}"
+                          f" B (built and laid out in "
+                          f"{r['others'][arch]['lay_ms']:.1f} ms, peak "
+                          f"{r['others'][arch]['peak']} B), |prefill - "
+                          f"witness| {r['others'][arch]['e_fwd']:.6f}, "
+                          f"|step - witness| "
+                          f"{r['others'][arch]['e_step']:.6f}"
+                          for r in ranks)
+              + f" (meshless bf16: prefill {ref['e_fwd']:.6f}, step "
+              f"{ref['e_step']:.6f}; limit twice); prefill of "
+              f"{FAMILY_PROMPT} {o0['fwd_ms']:.2f} ms; a traced decode "
+              f"step {o0['step_ms']:.2f} ms, {osp['collectives']} "
+              f"collectives ({osp['collective_bytes']} B, "
+              f"{osp['collective_ms']} ms on the host), idle share "
+              f"{osp['idle_share']}; cache blocks {o0['cache_shapes']} "
+              f"({card})", flush=True)
+    print(f"[14] phase 14: {wall:.1f} s for the ranks ({card})", flush=True)
     return {k: {f"rank{r['rank']}": r["launches"][k] for r in ranks}
             for k in r0["launches"]}
 
@@ -3258,6 +3857,12 @@ def main() -> None:
     mesh_by_rank = mesh_phase(torch, dev, job13, "gloo")
     del job13
 
+    # ---- phase 14: the other model families on a mesh -------------------
+    phi14, others14 = family_configs()
+    moe_by_rank = family_phase(
+        torch, dev, family_job(torch, dev, phi14, others14, card),
+        "gloo")
+
     # ---- phase 5f: training ---------------------------------------------
     train_phase(torch, dev, read_launches, card)
 
@@ -3759,6 +4364,8 @@ def main() -> None:
         k["launches_by_path"]["sharded"] = by_rank.get(k["name"], {})
         k["launches_by_path"]["examples_sharded"] = ex_by_rank.get(
             k["name"], {})
+        k["launches_by_path"]["model_mesh_moe"] = moe_by_rank.get(
+            k["name"], {})
         k["launches_by_path"]["model_mesh"] = mesh_by_rank.get(
             k["name"], {})
 
@@ -3837,6 +4444,34 @@ def phase13_only(backend: str) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def phase14_only(backend: str) -> None:
+    """Phase 14 alone (``--phase14``): with ``--backend nccl`` one rank
+    a card, so the machine needs four."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import build
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} device(s)", flush=True)
+    if backend == "nccl" and torch.cuda.device_count() < MESH_RANKS:
+        fail(f"--backend nccl needs {MESH_RANKS} cards")
+    build.build()
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    phi, others = family_configs()
+    by_rank = family_phase(torch, dev,
+                           family_job(torch, dev, phi, others, card),
+                           backend)
+    print(f"[14] phase 14 alone: {time.perf_counter() - t:.1f} s ({card})",
+          flush=True)
+    print(json.dumps({"model_mesh_moe_launches": by_rank}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
@@ -3844,16 +4479,21 @@ if __name__ == "__main__":
                     help="run only phase 9, the width-sharded index")
     ap.add_argument("--phase13", action="store_true",
                     help="run only phase 13, the models on a mesh")
+    ap.add_argument("--phase14", action="store_true",
+                    help="run only phase 14, the other model families on "
+                         "a mesh")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
-                    help="the process-group backend of --phase9 and "
-                         "--phase13: gloo (every rank on the one card) or "
-                         "nccl (one rank a card)")
+                    help="the process-group backend of --phase9, --phase13 "
+                         "and --phase14: gloo (every rank on the one card) "
+                         "or nccl (one rank a card)")
     cli = ap.parse_args()
     try:
         if cli.phase9:
             phase9_only(cli.backend)
         elif cli.phase13:
             phase13_only(cli.backend)
+        elif cli.phase14:
+            phase14_only(cli.backend)
         else:
             main()
     except CheckFailed as e:      # a failed check of scripts/card_checks.py

@@ -11,7 +11,8 @@ packages from the JAX parameters, converted array by array
 axes from the parameters and :func:`axes_to_specs` resolves them on a
 mesh (``parallel.sharding``).  On a laid-out tree the layers compute
 from this rank's blocks (:func:`swiglu`: column-parallel gate and up,
-row-parallel down, whose partial sums meet in one sum).
+row-parallel down, whose partial sums meet in one sum:
+:func:`row_parallel`).
 """
 
 from __future__ import annotations
@@ -114,16 +115,44 @@ def split_over(spec, dim: int) -> Tuple[str, ...]:
     return shd.entry_axes(spec[dim]) if dim < len(spec) else ()
 
 
+def compute_axes(w, spec, names, dim: int) -> Tuple[str, ...]:
+    """The mesh axes dimension ``dim`` of the block ``w`` (stored by
+    ``spec``) stays split over once :func:`~repro_torch.parallel.
+    sharding.gather_param` has gathered its ``fsdp`` dimension:
+    ``names`` are its logical axes with ``fsdp`` left out (``None``)."""
+    mesh = shd.active_mesh()
+    shape = shd.global_shape(w.shape, spec, mesh)
+    return split_over(shd.resolve_spec(shape, names), dim)
+
+
+def gather_last(x, axes, mesh=None):
+    """The columns of ``x`` split over ``axes`` (of the active mesh when
+    ``mesh`` is omitted) gathered whole: one all-gather an axis."""
+    mesh = mesh if mesh is not None else shd.active_mesh()
+    for a in reversed(axes):
+        x = torch.cat(list(cl.all_gather(x, mesh, axis=a)), -1)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------
 
-def rms_norm(x, gamma, eps: float):
+def rms_norm(x, gamma, eps: float, axes: Tuple[str, ...] = (),
+             width: int = 0):
     """float32 statistics; the output in ``x``'s dtype, scaled by
-    ``gamma`` cast to it."""
+    ``gamma`` cast to it.  With ``axes``, ``x`` is this rank's block of
+    columns of a row ``width`` wide, split over those axes of the
+    active mesh (and ``gamma`` the same block): the sum of squares is
+    summed over them, in float32, before the mean."""
     dt = x.dtype
     x32 = x.float()
-    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    if axes:
+        ss = psum_axes((x32 * x32).sum(dim=-1, keepdim=True), axes)
+        ms = ss / width
+    else:
+        ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(ms + eps)
     return y.to(dt) * gamma.to(dt)
 
 
@@ -154,18 +183,27 @@ def swiglu(x, w_gate, w_up, w_down, compute_dtype, specs=None):
     "embed")``."""
     if specs is not None:
         sg, su, sd = specs
-        rows = split_over(shd.resolve_spec(
-            shd.global_shape(w_down.shape, sd, shd.active_mesh()),
-            ("mlp", None)), 0)
+        rows = compute_axes(w_down, sd, ("mlp", None), 0)
         w_gate = shd.gather_param(w_gate, "fsdp", "mlp", spec=sg)
         w_up = shd.gather_param(w_up, "fsdp", "mlp", spec=su)
         w_down = shd.gather_param(w_down, "mlp", "fsdp", spec=sd)
     h = x @ w_gate.to(compute_dtype)
     u = x @ w_up.to(compute_dtype)
-    out = (F.silu(h) * u) @ w_down.to(compute_dtype)
-    if specs is not None and rows:
-        out = psum_axes(out, rows)
-    return out
+    return row_parallel(F.silu(h) * u, w_down, compute_dtype,
+                        rows if specs is not None else ())
+
+
+def row_parallel(x, w, compute_dtype, axes=()):
+    """``x @ w`` where ``w`` is this rank's block of rows (and ``x`` its
+    columns) split over the mesh ``axes``: the partial products summed
+    over them.  A 16-bit product is taken in float32 and rounded once,
+    after the sum, as the whole product rounds once after its float32
+    accumulation; without ``axes``, ``x @ w`` in ``compute_dtype``."""
+    if not axes:
+        return x @ w.to(compute_dtype)
+    if compute_dtype in (torch.bfloat16, torch.float16):
+        return psum_axes(x.float() @ w.float(), axes).to(compute_dtype)
+    return psum_axes(x @ w.to(compute_dtype), axes)
 
 
 def psum_axes(x, axes, mesh=None):

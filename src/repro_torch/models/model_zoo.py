@@ -16,14 +16,19 @@ precomputed frame or patch embeddings.
 
 On a mesh the parameters are laid out by their logical axes
 (``build_params(..., with_axes=True)``, ``layers.axes_to_specs``,
-``sharding.lay_out``) and the cache by :func:`cache_axes`.  The dense
+``sharding.lay_out``) and the cache by :func:`cache_axes`.  Every
 family computes on such a tree with explicit collectives, the function
 of the global tree (the reference's constraints are layouts, never
 values): the embedding over a vocab-split table, whole heads of
-attention (:class:`_Heads`), the column- and row-parallel MLP, and
-this rank's block of the logits.  The other families raise for a
-laid-out tree (ROADMAP queue A, A12c); their global trees run on a mesh
-as everywhere.
+attention (:class:`_Heads`; zamba2's shared block, whisper's encoder
+and cross-attention and paligemma's prefix included), the column- and
+row-parallel MLP, the experts over the ``expert`` axes
+(``moe.moe_block``), the Mamba2 heads over ``ssm_heads``
+(``ssm._Split``), weights gathered over ``fsdp``, and this rank's rows
+of the batch (its block over the ``batch`` axes) and block of the
+logits.  Rules that split the sequence (``seq``, ``kvseq``,
+``cp_seq``, ``cp_q`` over more than one rank) are refused: they are
+ROADMAP queue A item 3.
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.parallel import collectives as cl
 from repro_torch.parallel import sharding as shd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -326,9 +330,9 @@ class _Heads:
 
     def __call__(self, q, k, v):
         if not self.local:
-            q = _gather_last(q, self.q_axes, self.mesh)
-            k = _gather_last(k, self.kv_axes, self.mesh)
-            v = _gather_last(v, self.kv_axes, self.mesh)
+            q = ly.gather_last(q, self.q_axes, self.mesh)
+            k = ly.gather_last(k, self.kv_axes, self.mesh)
+            v = ly.gather_last(v, self.kv_axes, self.mesh)
         return q, k, v, self.nh, self.nkv
 
     def out(self, o):
@@ -340,15 +344,7 @@ class _Heads:
             size = o.shape[-1] // k
             o = o.narrow(-1, shd.block_index(self.o_axes, self.mesh) * size,
                          size)
-        out = o @ self.wo.to(self.cdt)
-        return ly.psum_axes(out, self.o_axes) if self.o_axes else out
-
-
-def _gather_last(x, axes, mesh):
-    """The columns of ``x`` split over ``axes`` gathered whole."""
-    for a in reversed(axes):
-        x = torch.cat(list(cl.all_gather(x, mesh, axis=a)), -1)
-    return x
+        return ly.row_parallel(o, self.wo, self.cdt, self.o_axes)
 
 
 def _sharded_heads(p, cfg, cdt):
@@ -412,9 +408,45 @@ def _layer(params, keys, i):
     return lp
 
 
+_CROSS = {"wq": "x_wq", "wk": "x_wk", "wv": "x_wv", "wo": "x_wo",
+          "ln_attn": "x_ln"}
+
+
 def _cross(lp):
-    return {"wq": lp["x_wq"], "wk": lp["x_wk"], "wv": lp["x_wv"],
-            "wo": lp["x_wo"], "ln_attn": lp["x_ln"]}
+    """The cross-attention's weights under the names ``_attn_block``
+    reads (their specs kept on a laid-out layer)."""
+    cp = {k: lp[v] for k, v in _CROSS.items()}
+    specs = getattr(lp, "specs", None)
+    return cp if specs is None else ly.Blocks(
+        cp, {k: specs[v] for k, v in _CROSS.items()})
+
+
+def _cross_decode(x, lp, cfg, cdt, xk, xv):
+    """The decode step's cross-attention to the encoder's cached
+    ``xk``/``xv`` (no rope), through the sharded heads on a laid-out
+    layer."""
+    b = x.shape[0]
+    cp = _cross(lp)
+    hq = ly.rms_norm(x, cp["ln_attn"], cfg.norm_eps)
+    nh = cfg.n_heads
+    if getattr(cp, "specs", None) is None:
+        q = hq @ cp["wq"].to(cdt)
+    else:
+        w, heads = _sharded_heads(cp, cfg, cdt)
+        q = hq @ w["wq"].to(cdt)
+        if not heads.local:
+            q = ly.gather_last(q, heads.q_axes)
+        nh = heads.nh
+        if xk.shape[2] != heads.nkv:
+            raise ValueError(f"the cross cache holds {xk.shape[2]} kv "
+                             f"heads, the layer computes {heads.nkv}: lay "
+                             f"the cache out as the params (init_cache(..., "
+                             f"mesh=))")
+    o = attn.decode_attention(q.reshape(b, 1, nh, cfg.head_dim), xk, xv,
+                              cfg.enc_positions).reshape(b, 1, -1)
+    if getattr(cp, "specs", None) is None:
+        return o @ cp["wo"].to(cdt)
+    return heads.out(o)
 
 
 def _decoder_block(x, lp, cfg, cdt, mask_mode="causal", prefix_len=0,
@@ -453,6 +485,15 @@ def _remat(cfg, fn, *args):
     return fn(*args)
 
 
+def _shared_params(params):
+    """zamba2's shared block: its weights, with their specs on a
+    laid-out tree (the block has no layer axis)."""
+    shared = params.get("shared_attn")
+    if shared is None or not isinstance(params, shd.LaidOutTree):
+        return shared
+    return ly.Blocks(shared, params.specs["shared_attn"])
+
+
 def _shared_block(x, shared, cfg, cdt, mask_mode, prefix_len):
     """zamba2's shared attention + MLP block."""
     a, _ = _attn_block(x, shared, cfg, mask_mode, prefix_len, cdt)
@@ -477,7 +518,7 @@ def _unstack(params, keys):
 def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
                 enc_out=None, tap=_no_tap):
     layers = _unstack(params, _layer_keys(params, cfg))
-    shared = params.get("shared_attn")
+    shared = _shared_params(params)
     for i in range(cfg.n_layers):
         x = tap(f"layer{i}", _remat(
             cfg, _decoder_block, x, layers[i], cfg, cdt,
@@ -492,21 +533,33 @@ def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
 # public forward passes
 # ---------------------------------------------------------------------------
 
+# the logical axes of the sequence- and context-parallel layouts, which
+# only the dry-run turns on (ROADMAP queue A item 3)
+SEQ_AXES = ("seq", "kvseq", "cp_seq", "cp_q")
+
+
+def refuse_seq_layouts(mesh, rules) -> None:
+    """Raise ``NotImplementedError`` for ``rules`` that split the
+    sequence over more than one rank of ``mesh`` (``seq``, ``kvseq``,
+    ``cp_seq`` or ``cp_q`` resolving to mesh axes of more than one rank):
+    the port computes with the sequence whole on every rank."""
+    for name in SEQ_AXES:
+        axes = tuple(a for a in (rules.get(name) or ()) if a in mesh.shape)
+        if axes and shd.axes_size(mesh, axes) > 1:
+            raise NotImplementedError(
+                f"rules that split {name!r} over {axes} ({mesh.shape}) lay "
+                f"the sequence out over ranks: that is ROADMAP queue A "
+                f"item 3 (the dry-run tooling), not implemented here")
+
+
 def _laid_out(params, cfg) -> bool:
-    """Whether ``params`` is a laid-out tree this port can compute on;
-    raises for one it cannot (no fallback gathers it to one rank)."""
+    """Whether ``params`` is a laid-out tree; raises for one whose rules
+    split the sequence (:func:`refuse_seq_layouts`; no fallback gathers
+    it to one rank)."""
     mesh = shd.tree_mesh(params)
     if mesh is None:
         return False
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the sharded forward of the {cfg.family} family is ROADMAP "
-            f"queue A, A12c: pass the global tree")
-    big = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
-    if big:
-        raise NotImplementedError(
-            f"a model step on a mesh with {big} (fsdp or batch over a data "
-            f"axis of more than one rank) is ROADMAP queue A, A12c")
+    refuse_seq_layouts(mesh, params.rules)
     return True
 
 
@@ -572,7 +625,12 @@ def _encode(params, cfg, frames, cdt, tap=_no_tap):
     x = frames.to(cdt) + params["enc_pos"].to(cdt)[None]
     names = ("wq", "wk", "wv", "wo", "ln_attn", "w_gate", "w_up",
              "w_down", "ln_mlp")
-    layers = _unstack({k: params["enc_" + k] for k in names}, names)
+    enc = {k: params["enc_" + k] for k in names}
+    if isinstance(params, shd.LaidOutTree):
+        enc = shd.LaidOutTree(enc, {k: params.specs["enc_" + k]
+                                    for k in names}, params.mesh,
+                              params.rules)
+    layers = _unstack(enc, names)
     for i in range(cfg.n_enc_layers):
         x = tap(f"enc{i}", _remat(cfg, _enc_block, x, layers[i], cfg, cdt))
     return x
@@ -600,9 +658,12 @@ def forward(params, cfg: ModelConfig, tokens, frontend=None, tap=None):
     hidden state after each stage (``embed``, ``enc{i}``, ``layer{i}``,
     ``shared{i}``) and returns the one the pass continues from: a parity
     check compares each stage and carries one input into both sides.
-    On a laid-out tree (``sharding.lay_out``; the dense family) every
-    rank of its mesh must call this; each gets its block of the logits
-    (``[B, S, vocab_padded / S]`` on a vocab-split head)."""
+    On a laid-out tree (``sharding.lay_out``) every rank of its mesh
+    must call this, with its rows of the batch (and of ``frontend``):
+    the block of ``[B, ...]`` that ``("batch", ...)`` resolves to, all
+    of it where the batch is not split.  Each gets its rows' block of
+    the logits (``[B_rank, S, vocab_padded / S]`` on a vocab-split
+    head)."""
     with _on_tree(params, cfg):
         return _forward(params, cfg, tokens, frontend, tap)
 
@@ -637,12 +698,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
     buffer (+ the shared block's K/V for hybrid).  With ``mesh``, this
     rank's block of each tensor in the layout :func:`cache_axes`
     resolves to under ``rules`` (``default_rules()`` when omitted): the
-    cache of a tree laid out on that mesh."""
+    cache of a tree laid out on that mesh (``batch`` is then the global
+    batch).  Rules that split the sequence raise
+    (:func:`refuse_seq_layouts`)."""
     dev = _device(device)
     cdt = _dt(cfg)
     nkv, hd = cfg.n_kv, cfg.head_dim
     axes = cache_axes(cfg)
     rules = rules if rules is not None else shd.default_rules()
+    if mesh is not None:
+        refuse_seq_layouts(mesh, rules)
 
     def mk(shape, dtype, name):
         if mesh is not None:
@@ -684,16 +749,15 @@ def decode_step(params, cfg: ModelConfig, tokens, cache,
     new cache).  ``cache_len``: the filled length before this step.
     The cache passed in is left as it was: each stacked tensor the step
     writes is copied once, and the layers write into the copy.  On a
-    laid-out tree (the dense family) every rank of its mesh must call
-    this with the cache ``init_cache(..., mesh=)`` lays out; each gets
-    its block of the logits, as :func:`forward`."""
+    laid-out tree every rank of its mesh must call this with its rows of
+    ``tokens`` and the cache ``init_cache(..., mesh=)`` lays out; each
+    gets its rows' block of the logits, as :func:`forward`."""
     with _on_tree(params, cfg):
         return _decode_step(params, cfg, tokens, cache, cache_len)
 
 
 def _decode_step(params, cfg, tokens, cache, cache_len):
     cdt = _dt(cfg)
-    b = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens, cdt)
     keys = _layer_keys(params, cfg)
     fam = cfg.family
@@ -713,16 +777,12 @@ def _decode_step(params, cfg, tokens, cache, cache_len):
                 cache_len=cache_len)
             x = x + a
             if fam == "encdec":
-                hq = ly.rms_norm(x, lp["x_ln"], cfg.norm_eps) @ \
-                    lp["x_wq"].to(cdt)
-                xa = attn.decode_attention(
-                    hq.reshape(b, 1, cfg.n_heads, cfg.head_dim),
-                    cache["xk"][i], cache["xv"][i], cfg.enc_positions)
-                x = x + xa.reshape(b, 1, -1) @ lp["x_wo"].to(cdt)
+                x = x + _cross_decode(x, lp, cfg, cdt, cache["xk"][i],
+                                      cache["xv"][i])
             x = x + (_moe_block(x, lp, cfg, cdt) if fam == "moe"
                      else _mlp_block(x, lp, cfg, cdt))
     else:  # ssm / hybrid
-        shared = params.get("shared_attn")
+        shared = _shared_params(params)
         j = 0
         for i in range(cfg.n_layers):
             lp = _layer(params, keys, i)

@@ -31,10 +31,14 @@ cache live on ``device`` (the card unless the caller passes ``"cpu"``).
 On a mesh (``mesh=``, one engine a rank, every rank given the same
 arrivals) the pool's index is width-sharded over it, as in the
 reference, and the model runs as the caller lays it out: a global tree
-whole on every rank (the reference's engine), or a tree laid out on the
-mesh (``sharding.lay_out`` by ``layers.axes_to_specs``; the dense
-family) sharded under ``use_mesh(mesh, rules)``, its cache laid out by
-``model_zoo.cache_axes``.  Every decision (admission, preemption,
+whole on every rank (the reference's engine), or a tree of any family
+laid out on the mesh (``sharding.lay_out`` by ``layers.axes_to_specs``:
+heads, experts, Mamba2 heads and the vocab over ``model``) sharded
+under ``use_mesh(mesh, rules)``, its cache laid out by
+``model_zoo.cache_axes``.  Every rank serves the whole wave, so a
+laid-out tree whose rules split the batch over more than one rank is
+refused (``forward``/``decode_step`` take a rank's rows; the engine
+does not).  Every decision (admission, preemption,
 retry, the next token) is taken on values every rank holds equally:
 the pool's answers and the greedy ids come out of collectives, so every
 rank makes the same calls in the same order, and a meshless and a mesh
@@ -90,6 +94,14 @@ class Engine:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh computes on {mesh.device}, the "
                              f"engine on {self.device}")
+        if on is not None:
+            batch = tuple(a for a in (params.rules.get("batch") or ())
+                          if a in on.shape)
+            if batch and shd.axes_size(on, batch) > 1:
+                raise NotImplementedError(
+                    f"the engine serves every row of a wave on every rank: "
+                    f"its tree's rules split the batch over {batch} "
+                    f"({on.shape})")
         # the (mesh, rules) the model's steps run under
         self._ctx = ((mesh, params.rules) if on is not None
                      else (None, None))

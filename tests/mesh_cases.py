@@ -668,7 +668,7 @@ def model_mesh_rank(mesh, params_np: dict) -> dict:
     world's ``1 x S`` mesh, ``forward`` and ``DECODE_STEPS`` decode steps
     (logits gathered whole) and the greedy ids of ``prefill_loop``; the
     engine on the mesh with the global and the laid-out tree for each
-    of ``ENGINE_CASES``; a laid-out moe tree's refusal."""
+    of ``ENGINE_CASES``."""
     import torch
 
     from repro_torch.configs import registry
@@ -719,15 +719,208 @@ def model_mesh_rank(mesh, params_np: dict) -> dict:
             submit_arrivals(eng, twl.poisson_zipf_arrivals(**arr_kw),
                             Request)
             out["engine"][case, kind] = engine_summary(eng, eng.run())
-    moe = registry.get_smoke("phi3.5-moe-42b-a6.6b")
-    p, axes = zoo.build_params(moe, device="cpu", with_axes=True)
-    laid = shd.lay_out(p, ly.axes_to_specs(p, axes, mesh, rules), mesh)
-    try:
-        zoo.decode_step(laid, moe, torch.zeros((1, 1), dtype=torch.long),
-                        zoo.init_cache(moe, 1, 4, "cpu"), 0)
-        out["moe"] = None
-    except NotImplementedError as e:
-        out["moe"] = str(e)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the other model families on a mesh (tests/test_torch_model_mesh_families.py)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "arctic-480b", "mamba2-1.3b",
+                "zamba2-7b", "whisper-large-v3", "paligemma-3b")
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE6 = "phi3.5-moe-6"             # the smoke phi with 6 experts
+DENSE_ARCH = "minitron-8b"
+FAMILY_SHAPE = (2, 8)             # the forward's batch x sequence
+FAMILY_STEPS = 3                  # decode steps from an empty cache
+# the models of each world: 1 x S for S in (2, 4), and the 2 x 2 mesh of
+# the 4 ranks
+FAMILY_MODELS = {2: FAMILY_ARCHS, 4: FAMILY_ARCHS + (MOE6,),
+                 "2x2": (DENSE_ARCH, MOE_ARCH)}
+MOE_BLOCK_CASES = ("phi", "arctic", "drops", "experts6")
+
+
+def family_cfg(registry, name: str):
+    """The smoke config of ``name`` from either package's registry."""
+    import dataclasses
+    if name == MOE6:
+        return dataclasses.replace(registry.get_smoke(MOE_ARCH),
+                                   n_experts=6)
+    return registry.get_smoke(name)
+
+
+def family_inputs(cfg, seed: int = 0):
+    """The forward's ids ``[2, 8]`` and the stub frontend (whisper's
+    frames, paligemma's patches, at the embedding's scale) or ``None``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, FAMILY_SHAPE).astype(np.int32)
+    n = {"encdec": cfg.enc_positions, "vlm": cfg.img_tokens}.get(
+        cfg.family)
+    fr = None if n is None else (0.02 * rng.standard_normal(
+        (FAMILY_SHAPE[0], n, cfg.d_model))).astype(np.float32)
+    return toks, fr
+
+
+def moe_block_case(registry, case: str):
+    """One MoE layer's weights at 1/sqrt(fan_in) and its input ``[2, 12,
+    d]`` for ``case``: ``phi``, ``arctic`` (the dense residual),
+    ``drops`` (the router sends every token to expert 0 first, so the
+    capacity drops most of them) and ``experts6`` (6 experts, which 4
+    ranks do not divide).  Returns ``(cfg name, weights, x)``."""
+    name = {"phi": MOE_ARCH, "arctic": "arctic-480b", "drops": MOE_ARCH,
+            "experts6": MOE6}[case]
+    cfg = family_cfg(registry, name)
+    d, ff, e, rf = cfg.d_model, cfg.d_ff, cfg.n_experts, \
+        cfg.dense_residual_ff
+    shapes = {"router": (d, e), "w_gate": (e, d, ff), "w_up": (e, d, ff),
+              "w_down": (e, ff, d)}
+    if rf:
+        shapes.update(res_gate=(d, rf), res_up=(d, rf), res_down=(rf, d))
+    rng = np.random.default_rng(3)
+    p = {n: (rng.standard_normal(s) / np.sqrt(s[-2])).astype(np.float32)
+         for n, s in shapes.items()}
+    x = rng.standard_normal((2, 12, d)).astype(np.float32)
+    if case == "drops":
+        u = np.full(d, 1 / np.sqrt(d), np.float32)
+        x = (x + 3 * u).astype(np.float32)
+        p["router"][:, 0] = 5 * u
+    return name, p, x
+
+
+def _rows(mesh, rules, n: int):
+    """This rank's rows of a batch of ``n`` (its block over ``batch``)."""
+    from repro_torch.parallel import sharding as shd
+    spec = shd.resolve_spec((n,), ("batch",), mesh, rules)
+    return shd.block_slices((n,), spec, mesh)[0], spec
+
+
+def _family_model(mesh, cfg, params_np, stages, caches, rules) -> dict:
+    """One model laid out on ``mesh``: the forward stage by stage (each
+    stage from the JAX state ``stages``, read back as this rank's
+    state), the untapped forward's logits, ``FAMILY_STEPS`` decode steps
+    each from the JAX cache before it (``caches[t]``, cut to this
+    rank's blocks) and the same steps from the rank's own cache, all
+    gathered whole; the cache's block shapes."""
+    import torch
+
+    from repro_torch.core import convert
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    params = convert.params_from_numpy(params_np, device="cpu")
+    _, axes = zoo.param_axes(cfg)
+    specs = ly.axes_to_specs(params, axes, mesh, rules)
+    tree = shd.lay_out(params, specs, mesh, rules)
+    toks, fr = family_inputs(cfg)
+    rows, bspec = _rows(mesh, rules, toks.shape[0])
+    t = torch.as_tensor(toks[rows].astype(np.int64))
+    f = None if fr is None else torch.as_tensor(fr[rows])
+    lspec = (bspec[0] if bspec else None, None,
+             zoo.vocab_axes(tree, cfg) or None)
+    out = {"specs": specs, "stages": {}}
+
+    def tap(name, x):
+        out["stages"][name] = _whole(x, lspec[:1], mesh)
+        return torch.as_tensor(stages[name][rows])
+    out["tapped"] = _whole(zoo.forward(tree, cfg, t, frontend=f, tap=tap),
+                           lspec, mesh)
+    out["fwd"] = _whole(zoo.forward(tree, cfg, t, frontend=f), lspec, mesh)
+    cache = zoo.init_cache(cfg, toks.shape[0], 16, "cpu", mesh=mesh,
+                           rules=rules)
+    out["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()}
+    cax = zoo.cache_axes(cfg)
+    out["dec"], out["free"] = [], []
+    for i in range(FAMILY_STEPS):
+        ref = {k: shd.shard_tensor(v, shd.resolve_spec(
+            v.shape, cax[k], mesh, rules), mesh)
+            for k, v in caches[i].items()}
+        logits, _ = zoo.decode_step(tree, cfg, t[:, i:i + 1], ref, i)
+        out["dec"].append(_whole(logits, lspec, mesh))
+        logits, cache = zoo.decode_step(tree, cfg, t[:, i:i + 1], cache, i)
+        out["free"].append(_whole(logits, lspec, mesh).argmax(-1))
+    return out
+
+
+def _moe_block_on(mesh, registry, case, rules) -> dict:
+    """:func:`moe_block_case` ``case`` laid out on ``mesh`` (the layer's
+    axes without the layer axis): the block's output, this rank's
+    routing (``top_e``, ``keep``) and its expert weights' spec."""
+    import torch
+
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import sharding as shd
+    name, p, x = moe_block_case(registry, case)
+    cfg = family_cfg(registry, name)
+    _, axes = zoo.param_axes(cfg)
+    w = {k: torch.as_tensor(v) for k, v in p.items()}
+    specs = {k: shd.resolve_spec(v.shape, axes[k][1:], mesh, rules)
+             for k, v in w.items()}
+    lp = ly.Blocks({k: shd.shard_tensor(v, specs[k], mesh)
+                    for k, v in w.items()}, specs)
+    rows, _ = _rows(mesh, rules, x.shape[0])
+    xt = torch.as_tensor(x[rows])
+    with shd.use_mesh(mesh, rules):
+        y = moe_mod.moe_block(xt, lp, cfg, torch.float32)
+        plan = moe_mod.route(xt, lp, cfg, torch.float32)
+    return {"y": y.numpy(), "top_e": plan.top_e.numpy(),
+            "keep": plan.keep.numpy(), "rows": rows,
+            "w_gate": specs["w_gate"]}
+
+
+def family_mesh_rank(mesh, job) -> dict:
+    """The other families on a mesh, on one rank of a gloo world of CPU
+    ranks of ``S`` = 2 or 4: each model of ``FAMILY_MODELS[S]`` laid out
+    on the ``1 x S`` mesh (:func:`_family_model`, from the JAX
+    parameters ``job["params"]`` and stages ``job["stages"]``), the MoE
+    block cases, and ``Engine(mesh=...)`` on the laid-out moe smoke tree
+    for each of ``ENGINE_CASES``; with 4 ranks also the 2 x 2 (data,
+    model) mesh's models and MoE blocks, batch rows over ``data`` and
+    fsdp over it, and the engine's refusal of that mesh's tree."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.core import workload as twl
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train import elastic
+    import torch
+    torch.set_grad_enabled(False)
+    rules = shd.default_rules()
+    S = mesh.shape["model"]
+    meshes = {S: mesh}
+    if S == 4:
+        meshes["2x2"] = elastic.remesh(model_parallel=2, device="cpu")
+    out = {"models": {}, "moe": {}, "engine": {},
+           "coords": {k: dict(m.coords) for k, m in meshes.items()}}
+    for key, m in meshes.items():
+        for name in FAMILY_MODELS[key]:
+            cfg = family_cfg(registry, name)
+            out["models"][key, name] = _family_model(
+                m, cfg, job["params"][name], job["stages"][name],
+                job["caches"][name], rules)
+        for case in MOE_BLOCK_CASES:
+            out["moe"][key, case] = _moe_block_on(m, registry, case, rules)
+    cfg = family_cfg(registry, MOE_ARCH)
+    params = convert.params_from_numpy(job["params"][MOE_ARCH], device="cpu")
+    _, axes = zoo.param_axes(cfg)
+    if "2x2" in meshes:                 # the batch over data: refused
+        m = meshes["2x2"]
+        try:
+            Engine(cfg, shd.lay_out(params, ly.axes_to_specs(
+                params, axes, m, rules), m, rules), mesh=m, device="cpu")
+            out["engine_2x2"] = None
+        except NotImplementedError as e:
+            out["engine_2x2"] = str(e)
+    tree = shd.lay_out(params, ly.axes_to_specs(params, axes, mesh, rules),
+                       mesh, rules)
+    for case, (arr_kw, kw) in ENGINE_CASES.items():
+        eng = Engine(cfg, tree, mesh=mesh, device="cpu",
+                     **dict(ENGINE_ARGS, **kw))
+        submit_arrivals(eng, twl.poisson_zipf_arrivals(**arr_kw), Request)
+        out["engine"][case] = engine_summary(eng, eng.run())
     return out
 
 

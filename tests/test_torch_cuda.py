@@ -1203,3 +1203,110 @@ def test_sharded_model_and_ppermute_on_two_card_ranks():
         for got, want in zip(o["dec"], dec):
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
         assert o["greedy"] == last[:, 0].tolist()
+
+
+def _moe_mesh_rank(mesh, params_np, toks, x):
+    """One rank of a 2-rank gloo group on the card: the phi3.5-moe smoke
+    model (float32, trained scale) laid out over the two ranks (2
+    experts a rank): its first MoE layer alone on ``x`` with its
+    routing, ``forward`` and three decode steps, the logits gathered
+    whole."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.models import layers as tly
+    from repro_torch.models import model_zoo as tzoo
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel import sharding as tshd
+    dev = mesh.device
+    cfg = registry.get_smoke("phi3.5-moe-42b-a6.6b")
+    params = convert.params_from_numpy(params_np, device=dev)
+    _, axes = tzoo.param_axes(cfg)
+    rules = tshd.default_rules()
+    tree = tshd.lay_out(params, tly.axes_to_specs(params, axes, mesh,
+                                                  rules), mesh, rules)
+    lp = tzoo._layer(tree, tzoo._layer_keys(tree, cfg), 0)
+    xt = torch.as_tensor(x, device=dev)
+    with tshd.use_mesh(mesh, rules):
+        y = tmoe.moe_block(xt, lp, cfg, torch.float32)
+        plan = tmoe.route(xt, lp, cfg, torch.float32)
+    out = {"device": str(dev), "experts": int(lp["w_gate"].shape[0]),
+           "y": y.cpu().numpy(), "top_e": plan.top_e.cpu().numpy(),
+           "keep": plan.keep.cpu().numpy()}
+    whole = (None, None, "model")
+    t = torch.as_tensor(toks, device=dev)
+    out["fwd"] = tshd.relayout(tzoo.forward(tree, cfg, t), whole, (),
+                               mesh).cpu().numpy()
+    cache = tzoo.init_cache(cfg, t.shape[0], 8, dev, mesh=mesh)
+    out["dec"] = []
+    for i in range(3):
+        logits, cache = tzoo.decode_step(tree, cfg, t[:, i:i + 1], cache, i)
+        out["dec"].append(tshd.relayout(logits, whole, (), mesh).cpu()
+                          .numpy())
+    return out
+
+
+def test_laid_out_moe_on_two_card_ranks():
+    """Two gloo ranks on the one card: the phi3.5-moe smoke model laid
+    out with 2 experts a rank.  Its first MoE layer alone routes and
+    keeps exactly as its CPU run (meshless, the same parameters at
+    trained scale) and gives its output; ``forward`` and three decode
+    steps give the CPU run's logits (rtol 1e-4, atol 1e-5)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.launch import spmd
+    from repro_torch.models import model_zoo as tzoo
+    from repro_torch.models import moe as tmoe
+    cc = _card_checks()
+    cfg = registry.get_smoke("phi3.5-moe-42b-a6.6b")
+    p_cpu = cc.trained_scale(tzoo.build_params(cfg, seed=5, device="cpu"))
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (2, 6))
+    x = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    out = spmd.spawn(_moe_mesh_rank, 2, convert.params_to_numpy(p_cpu),
+                     toks, x, backend="gloo", device="cuda", timeout=600)
+    lp = tzoo._layer(p_cpu, tzoo._layer_keys(p_cpu, cfg), 0)
+    xt = torch.as_tensor(x)
+    y = tmoe.moe_block(xt, lp, cfg, torch.float32).numpy()
+    plan = tmoe.route(xt, lp, cfg, torch.float32)
+    t = torch.as_tensor(toks)
+    fwd = tzoo.forward(p_cpu, cfg, t).numpy()
+    cache = tzoo.init_cache(cfg, 2, 8, "cpu")
+    dec = []
+    for i in range(3):
+        logits, cache = tzoo.decode_step(p_cpu, cfg, t[:, i:i + 1], cache, i)
+        dec.append(logits.numpy())
+    for o in out:
+        assert o["device"].startswith("cuda") and o["experts"] == 2
+        np.testing.assert_array_equal(o["top_e"], plan.top_e.numpy())
+        np.testing.assert_array_equal(o["keep"], plan.keep.numpy())
+        np.testing.assert_allclose(o["y"], y, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(o["fwd"], fwd, rtol=1e-4, atol=1e-5)
+        for got, want in zip(o["dec"], dec):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_phase14_at_smoke_size():
+    """``chip_smoke.py``'s phase 14 with the smoke variants of its four
+    models in bf16 (phi3.5-moe, zamba2-7b, whisper-large-v3,
+    paligemma-3b) on 4 gloo ranks of the card: phi's host tree and
+    digests, its sharded step under the float32 witness on 1 x 4 and
+    2 x 2, ``Engine(mesh=...)`` equal to the meshless engine with B2, F
+    and W launched on every rank, and the other families' prefill and
+    decode step under the witness (a failed check exits nonzero)."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import registry
+    bf = dict(dtype="bfloat16", param_dtype="bfloat16")
+    phi = dataclasses.replace(registry.get_smoke("phi3.5-moe-42b-a6.6b"),
+                              **bf)
+    others = {a: dataclasses.replace(registry.get_smoke(a), **bf)
+              for a in chip_smoke.FAMILY_ARCHS}
+    dev = torch.device("cuda")
+    job = chip_smoke.family_job(torch, dev, phi, others, "test")
+    by_rank = chip_smoke.family_phase(torch, dev, job, "gloo")
+    assert all(n > 0 for n in by_rank["splay_fold"].values())
+    assert not (Path(chip_smoke.HERE) / "build" /
+                chip_smoke.FAMILY_DIR).exists()

@@ -266,12 +266,6 @@ def test_engine_on_mesh_matches_jax(port, reference, case, kind, S):
         assert want["stalls"] + want["preemptions"] > 0
 
 
-@pytest.mark.parametrize("S", (2, 4))
-def test_laid_out_moe_tree_raises_a12c(port, S):
-    for out in port[S]:
-        assert out["moe"] is not None and "A12c" in out["moe"]
-
-
 # ---------------------------------------------------------------------------
 # (f) the elastic re-lay
 # ---------------------------------------------------------------------------
