@@ -225,7 +225,21 @@ Phases:
    built on the card one rank at a time and laid out 1 x 4), each a
    prefill of a 2 x 4 prompt (whisper's frames and paligemma's patches
    a seeded stub) and a decode step under the witness, the step's
-   collectives from a trace.
+   collectives from a trace;
+15. the benchmark twins (:func:`drivers_phase`, after phase 12;
+   ``--phase15`` alone, ``--backend nccl`` a card a rank):
+   ``kernels_bench.run(quick=False)`` on the card (B1 == B5 on three
+   Zipf alphas, B2 == B1 with its byte counter, the aggregation, host
+   refresh == device refresh == ``from_state``), its six mesh cases
+   (the sharded refresh, search and ``range_scan`` races, the drift
+   controller, the serving sweep of the smoke qwen2-0.5b, the chaos
+   battery with its four gates) on 4 gloo ranks of the card, each rank's
+   launches read; the sharded search at the reference's defaults and
+   the serving sweep of qwen2-0.5b at its published widths (bf16, seed
+   0) through ``Engine(mesh=...)`` on 1 x 4, parity true; then
+   ``kernels_bench.run(quick=True)`` on the card, its deterministic
+   columns equal to the same run with ``--device cpu`` in a child
+   process; the timing columns beside the card's name and power limit.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
@@ -247,7 +261,11 @@ phase 10's race for the skip-list); ``launches_by_path`` adds every
 other path, the engine's, ``snapshot`` and ``train`` (which launches none of them)
 among them, and the ranks of phase 9 (``sharded``), of phase 12's
 sharded demos (``examples_sharded``), of phase 13's engine
-(``model_mesh``) and of phase 14's (``model_mesh_moe``).  Prints that JSON line, the
+(``model_mesh``), of phase 14's (``model_mesh_moe``) and of phase 15's
+(``drivers_kernels`` in this process; ``drivers_refresh``,
+``drivers_search``, ``drivers_ordered``, ``drivers_drift``,
+``drivers_serving``, ``drivers_chaos``, ``drivers_search_default`` and
+``drivers_serving_full`` by rank).  Prints that JSON line, the
 card's ``name, power.limit``,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, with no result line, on any failed check or without a CUDA
@@ -1869,6 +1887,282 @@ def examples_phase(torch, dev, read_launches) -> dict:
                       for i, r in enumerate(ranks)), flush=True)
     return {k: {f"rank{i}": r["launches"][k] for i, r in enumerate(ranks)}
             for k in ranks[0]["launches"]}
+
+
+DRIVER_RANKS = 4          # phase 15: the probes' mesh (kernels_bench.N_DEV)
+SERVE_FULL_ARCH = "qwen2-0.5b"   # phase 15's serving sweep at published widths
+# phase 15: the jobs of its one 4-rank world, in order: ``(path, probe
+# twin module, rank function, arguments, kernels every rank must
+# launch)``.  The first nine are the mesh cases of kernels_bench's full
+# then quick profile with the arguments its ``run`` passes (the chaos
+# battery's snapshot directory comes from the phase); the last two are
+# the phase's own: the sharded search at the reference's defaults, and
+# the serving sweep at the published widths.  A path of the quick
+# profile only is suffixed ``_quick``.
+B2, F, W = "splay_search_pipelined", "splay_fold", "splay_walk"
+DRIVER_JOBS = (
+    ("drivers_refresh", "sharded_refresh_probe", "run_bench", (4096,), ()),
+    ("drivers_search", "sharded_search_probe", "run_bench",
+     (4096, 8192, 4, True), (B2,)),
+    ("drivers_ordered", "ordered_search_probe", "run_bench", (2048, 2048),
+     (B2, F)),
+    ("drivers_drift", "drift_probe", "_rank", (False, True, 4096, 8192, 10),
+     (B2, F, W)),
+    ("drivers_serving", "serving_probe", "_rank", (False, True, 16),
+     (B2, F, W)),
+    ("drivers_chaos", "chaos_probe", "run_battery", None, (B2, F, W)),
+    ("drivers_refresh_quick", "sharded_refresh_probe", "run_bench",
+     (1024,), ()),
+    ("drivers_ordered_quick", "ordered_search_probe", "run_bench",
+     (1024, 1024), (B2, F)),
+    ("drivers_serving_quick", "serving_probe", "_rank", (False, True, 8),
+     (B2, F, W)),
+    ("drivers_search_default", "sharded_search_probe", "run_bench", (),
+     (B2,)),
+    ("drivers_serving_full", "chip_smoke", "serve_full", (SERVE_FULL_ARCH,),
+     (B2, F, W)),
+)
+
+
+def serve_full(mesh, arch: str) -> dict:
+    """``serving_probe.run_bench`` through ``Engine(mesh=...)`` with
+    ``arch`` at its published widths, bf16 weights from seed 0 built on
+    this rank's card."""
+    import dataclasses
+
+    from repro_torch.benchmarks import serving_probe as svp
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get(arch), param_dtype="bfloat16")
+    return svp.run_bench(mesh, cfg=cfg)
+
+
+def drivers_rank(mesh, snap_dir: str) -> dict:
+    """Phase 15's rank body: every job of ``DRIVER_JOBS`` in order, each
+    with the kernels' launches it made on this rank (zeroed just before,
+    read just after) and its seconds; the peak card memory of the
+    published-width sweep."""
+    import importlib
+
+    import torch
+
+    from repro_torch.kernels import ops
+    out = {"device": str(mesh.device)}
+    for path, module, name, args, _ in DRIVER_JOBS:
+        mod = (sys.modules[__name__] if module == "chip_smoke" else
+               importlib.import_module(f"repro_torch.benchmarks.{module}"))
+        if args is None:
+            args = (snap_dir,)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        res = getattr(mod, name)(mesh, *args)
+        torch.cuda.synchronize()
+        out[path] = (res, ops.launch_counts(), time.perf_counter() - t,
+                     torch.cuda.max_memory_allocated())
+    return out
+
+
+def drivers_phase(torch, dev, read_launches, card: str,
+                  backend: str = "gloo") -> dict:
+    """Phase 15: the benchmark twins on the card.
+
+    One world of ``DRIVER_RANKS`` ranks (gloo on the card; nccl a card a
+    rank) runs :func:`drivers_rank`: the six mesh cases of
+    ``kernels_bench.run(quick=False)``, the three of the quick profile
+    whose shapes differ, the sharded search at the reference's defaults
+    and the serving sweep at ``SERVE_FULL_ARCH``'s published widths
+    (parity true), each rank's launches read job by job.  Then, in this
+    process, ``kernels_bench.run(quick=False)`` (B1 against B5, B2
+    against B1, the refresh paths, the aggregation, each race's outputs
+    asserted equal inline) and ``kernels_bench.run(quick=True)``, whose
+    ``_on_mesh`` hands each mesh case the world's rank-0 result for the
+    same rank function and arguments (one spawn instead of ten: a
+    launch of four ranks costs about 10 s on the card's machine).  The
+    quick run's deterministic columns equal the same twin's quick run
+    with ``--device cpu``, which a child process runs meanwhile.  Prints
+    the timing columns beside the card's name and power limit; returns
+    the launches of every path, by rank for the world's paths."""
+    import os
+    import shutil
+
+    from repro_torch.benchmarks import kernels_bench as kb
+    from repro_torch.kernels import ops
+    from repro_torch.launch import spmd
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    cpu = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.benchmarks.kernels_bench",
+         "--device", "cpu"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    (HERE / "build").mkdir(exist_ok=True)
+    snap_dir = tempfile.mkdtemp(prefix="chaos15-", dir=HERE / "build")
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(drivers_rank, DRIVER_RANKS, snap_dir,
+                           backend=backend, device="cuda", timeout=1200)
+    except RuntimeError as e:
+        cpu.kill()
+        fail(f"phase 15: {e}")
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    world_s = time.perf_counter() - t
+    by_path, results = {}, {}
+    for path, module, name, args, need in DRIVER_JOBS:
+        for r, rank in enumerate(ranks):
+            check(rank["device"].startswith("cuda"), f"phase 15 rank {r} "
+                  f"on {rank['device']}")
+            for k in need:
+                check(rank[path][1][k] > 0, f"phase 15 {path} rank {r} "
+                      f"never launched {k}")
+        by_path[path] = [rank[path][1] for rank in ranks]
+        results[(module, name, args)] = ranks[0][path][0]
+    spawn_on_mesh = kb._on_mesh
+
+    def on_mesh(fn, *args, device="cuda", backend="gloo"):
+        module = fn.__module__.rsplit(".", 1)[-1]
+        key = (module, fn.__name__,
+               None if module == "chaos_probe" else args)
+        if key not in results:
+            fail(f"phase 15: kernels_bench asked for {key}, which the "
+                 "world did not run (DRIVER_JOBS)")
+        return results[key]
+
+    kb._on_mesh = on_mesh
+    try:
+        t = time.perf_counter()
+        ops.reset_launch_counts()
+        full = kb.run(quick=False, backend=backend)
+        # this process's counts: the kernel races
+        read_launches("drivers_kernels", (
+            "splay_search_tiered", "splay_search_full",
+            "splay_search_pipelined", "splay_fold", "splay_walk"))
+        full_s = time.perf_counter() - t
+        t = time.perf_counter()
+        quick = kb.run(quick=True, backend=backend)
+        quick_s = time.perf_counter() - t
+    finally:
+        kb._on_mesh = spawn_on_mesh
+    try:
+        cpu_out, cpu_err = cpu.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        cpu.kill()
+        cpu.communicate()
+        fail("phase 15: the CPU run of kernels_bench did not end in 900 s")
+    check(cpu.returncode == 0, f"phase 15: kernels_bench --device cpu "
+          f"failed:\n{cpu_err[-3000:]}")
+    cpu_payload = json.loads(cpu_out.strip().splitlines()[-1])
+
+    # the races and the chaos gates are asserted inline; the serving
+    # sweeps' parity flags and the ranks' agreement here
+    serve_full_out = ranks[0]["drivers_serving_full"][0]
+    for name, out in (("smoke", full["serving_engine"]),
+                      (SERVE_FULL_ARCH, serve_full_out)):
+        check(out["parity_bit_identical"], f"phase 15 serving ({name}): "
+              "host and device engines differ")
+    check(serve_full_out["arch"] == SERVE_FULL_ARCH and all(
+        row["served"] == serve_full_out["n_requests"]
+        for row in serve_full_out["rates"].values()),
+        f"phase 15: the published-width sweep lost requests: "
+        f"{serve_full_out}")
+    for path, *_ in DRIVER_JOBS:
+        want = kb.deterministic(ranks[0][path][0])
+        for r, rank in enumerate(ranks[1:], 1):
+            check(kb.deterministic(rank[path][0]) == want, f"phase 15 "
+                  f"{path}: rank {r}'s columns differ from rank 0's")
+    card_det = kb.deterministic(quick)
+    cpu_det = kb.deterministic(cpu_payload)
+    diff = sorted(k for k in set(card_det) | set(cpu_det)
+                  if card_det.get(k) != cpu_det.get(k))
+    check(json.loads(json.dumps(card_det)) == cpu_det, f"phase 15: the "
+          f"quick run's deterministic columns differ card against CPU in "
+          f"{diff}")
+
+    # the readings, beside the card
+    z = {r["alpha"]: r for r in full["zipf_search"]}
+    print(f"[15] kernels_bench.run(quick=False)'s races on the card: "
+          f"{full_s:.1f} s ({card}); B1 us/query " + ", ".join(
+              f"a{a} {r['us_per_query_tiered']:.4f} (B5 "
+              f"{r['us_per_query_seed']:.4f}, mean level "
+              f"{r['mean_level_found']})" for a, r in z.items()),
+          flush=True)
+    p = full["search_pipelined"]
+    print(f"[15] B2 against B1 at alpha 1.4, W {p['width']}, q {p['nq']}: "
+          f"{p['us_per_query_pipelined']:.4f} / {p['us_per_query_tiered']:.4f}"
+          f" us/query; streamed bytes "
+          f"{p['streamed_bytes_per_batch_pipelined']} against the whole-row "
+          f"model's {p['streamed_bytes_per_batch_tiered_model']}", flush=True)
+    a = full["aggregation"]
+    print(f"[15] aggregation: {a['us_per_op_serialized']:.3f} -> "
+          f"{a['us_per_op_aggregated']:.3f} us/op, folds "
+          f"{a['folds_serialized']} -> {a['folds_aggregated']}", flush=True)
+    for r in full["refresh_path"]:
+        print(f"[15] refresh {r['mode']} W {r['width']}: host "
+              f"{r['us_per_epoch_host']:.1f} us/epoch, device "
+              f"{r['us_per_epoch_device']:.1f} ({card})", flush=True)
+    rs, ss, os_ = (full["refresh_sharded"], full["search_sharded"],
+                   full["search_ordered"])
+    print(f"[15] sharded refresh W {rs['width']} on {rs['shards']} "
+          f"{backend} ranks: {rs['us_per_epoch_sharded']:.1f} us/epoch, "
+          f"replicated {rs['us_per_epoch_replicated']:.1f}", flush=True)
+    print(f"[15] sharded search W {ss['width']} q {ss['nq']}: routed mass "
+          f"{ss['us_per_query_sharded']:.4f} us/query, lanes "
+          f"{ss['us_per_query_routed_lane_split']:.4f}, masked "
+          f"{ss['us_per_query_masked']:.4f}, replicated "
+          f"{ss['us_per_query_replicated']:.4f}, gather "
+          f"{ss['us_per_query_gather_dispatch']:.4f}; spill "
+          f"{ss['spill_count']} -> {ss['spill_count_mass']} (mass), "
+          f"assembled {ss['assembled_resident']}/{ss['assembled_forced']}"
+          f"; {ss['us_per_query_sharded'] * ss['nq'] / 1e3:.3f} ms a "
+          f"routed batch", flush=True)
+    sd = ranks[0]["drivers_search_default"][0]
+    print(f"[15] sharded search at the reference's defaults (W "
+          f"{sd['width']}, q {sd['nq']}): routed mass "
+          f"{sd['us_per_query_sharded']:.4f} us/query, replicated "
+          f"{sd['us_per_query_replicated']:.4f}", flush=True)
+    print(f"[15] range_scan W {os_['width']} q {os_['nq']}: sharded "
+          f"{os_['us_per_scan_sharded']:.4f} us/scan, replicated "
+          f"{os_['us_per_scan_replicated']:.4f}; bytes ratio "
+          f"{os_['bytes_ratio_ours_over_naive']}, truncated "
+          f"{os_['scans_truncated']}", flush=True)
+    for name, row in full["routing_controller"]["scenarios"].items():
+        c = row["controller"]
+        print(f"[15] drift {name}: ttr controller {c['time_to_recover']}, "
+              f"static lanes {row['static_lanes']['time_to_recover']}; "
+              f"wall s controller {c['wall_s']}, static lanes "
+              f"{row['static_lanes']['wall_s']}, static mass "
+              f"{row['static_mass']['wall_s']}", flush=True)
+    ch = full["chaos_recovery"]
+    print(f"[15] chaos: {ch['detected']}/{ch['injected']} detected, "
+          f"{ch['wrong_verdicts']} wrong, recovery <= "
+          f"{ch['recovery_epochs_max']} of {ch['recovery_bound_epochs']} "
+          f"epochs, restores {ch['restores']}, wall {ch['wall_s']} s",
+          flush=True)
+    for name, sv in (("smoke", full["serving_engine"]),
+                     (f"{SERVE_FULL_ARCH} published widths, bf16",
+                      serve_full_out)):
+        print(f"[15] serving sweep ({name}, {sv['n_requests']} requests, "
+              f"{sv['shards']} {backend} ranks): " + "; ".join(
+                  f"rate {k}: p50 {v['p50_latency_steps']} p99 "
+                  f"{v['p99_latency_steps']} steps, "
+                  f"{v['tokens_per_sec']} tokens/s, wall {v['wall_s']} s"
+                  for k, v in sv["rates"].items())
+              + f"; parity {sv['parity_bit_identical']}", flush=True)
+    _, _, sf_s, sf_peak = ranks[0]["drivers_serving_full"]
+    print(f"[15] the published-width sweep: {sf_s:.1f} s, peak {sf_peak} B "
+          f"on rank 0; the world's jobs " + ", ".join(
+              f"{path} {ranks[0][path][2]:.1f} s" for path, *_ in DRIVER_JOBS),
+          flush=True)
+    print(f"[15] quick run on the card ({quick_s:.1f} s) equals the CPU "
+          f"run's deterministic columns ({len(card_det)} entries); the "
+          f"world {world_s:.1f} s, the full run in this process "
+          f"{full_s:.1f} s; phase 15 {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+    for path, counts in sorted(by_path.items()):
+        print(f"    launches on path {path} by rank: "
+              + "; ".join(str({k: v for k, v in c.items() if v})
+                          for c in counts), flush=True)
+    return by_path
 
 
 MESH_RANKS = 4            # phase 13: ranks of the model's mesh
@@ -4312,6 +4606,9 @@ def main() -> None:
     # ---- phase 12: the example entry points ------------------------------
     ex_by_rank = examples_phase(torch, dev, read_launches)
 
+    # ---- phase 15: the benchmark twins ---------------------------------
+    drivers_by_path = drivers_phase(torch, dev, read_launches, card)
+
     pop, mix = sc10["populate"], sc10["mixed"]
     for k in kernels:
         for path in ("paper_scaling", "examples_quickstart",
@@ -4368,6 +4665,11 @@ def main() -> None:
             k["name"], {})
         k["launches_by_path"]["model_mesh"] = mesh_by_rank.get(
             k["name"], {})
+        k["launches_by_path"]["drivers_kernels"] = path_launches[
+            "drivers_kernels"][k["name"]]
+        for path, ranks in drivers_by_path.items():
+            k["launches_by_path"][path] = {
+                f"rank{i}": c[k["name"]] for i, c in enumerate(ranks)}
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -4472,6 +4774,41 @@ def phase14_only(backend: str) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def phase15_only(backend: str) -> None:
+    """Phase 15 alone (``--phase15``): with ``--backend nccl`` one rank
+    a card, so the machine needs four."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} device(s)", flush=True)
+    if backend == "nccl" and torch.cuda.device_count() < DRIVER_RANKS:
+        fail(f"--backend nccl needs {DRIVER_RANKS} cards")
+    build.build()
+    path_launches = {}
+
+    def read_launches(path, kernels):
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        path_launches[path] = counts
+        print(f"    launches on path {path}: {counts}", flush=True)
+        for name in kernels:
+            check(counts[name] > 0, f"kernel {name} never launched on "
+                  f"path {path}")
+
+    by_path = drivers_phase(torch, torch.device("cuda"), read_launches,
+                            card, backend)
+    print(json.dumps({"drivers_launches": dict(
+        by_path, drivers_kernels=path_launches["drivers_kernels"])}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
@@ -4482,10 +4819,12 @@ if __name__ == "__main__":
     ap.add_argument("--phase14", action="store_true",
                     help="run only phase 14, the other model families on "
                          "a mesh")
+    ap.add_argument("--phase15", action="store_true",
+                    help="run only phase 15, the benchmark twins")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
-                    help="the process-group backend of --phase9, --phase13 "
-                         "and --phase14: gloo (every rank on the one card) "
-                         "or nccl (one rank a card)")
+                    help="the process-group backend of --phase9, --phase13, "
+                         "--phase14 and --phase15: gloo (every rank on the "
+                         "one card) or nccl (one rank a card)")
     cli = ap.parse_args()
     try:
         if cli.phase9:
@@ -4494,6 +4833,8 @@ if __name__ == "__main__":
             phase13_only(cli.backend)
         elif cli.phase14:
             phase14_only(cli.backend)
+        elif cli.phase15:
+            phase15_only(cli.backend)
         else:
             main()
     except CheckFailed as e:      # a failed check of scripts/card_checks.py

@@ -20,7 +20,10 @@ import time
 from pathlib import Path
 
 MODULES = ("seq_tables", "concurrent_scaling", "uniform_zipf",
-           "general_workloads", "long_run", "height_correlation")
+           "general_workloads", "long_run", "height_correlation",
+           "kernels_bench")
+# the modules that run on ``--device``; the others run on the host CPU
+ON_DEVICE = ("concurrent_scaling", "kernels_bench")
 
 
 def _plain(x):
@@ -44,7 +47,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--only", default=None,
                     help="comma-separated module subset")
     ap.add_argument("--device", default="cuda",
-                    help="concurrent_scaling's device (cuda or cpu)")
+                    help="the device of concurrent_scaling and "
+                         "kernels_bench (cuda or cpu)")
     ap.add_argument("--out", default=None,
                     help="directory for one JSON file per module")
     args = ap.parse_args(argv)
@@ -61,7 +65,7 @@ def main(argv=None) -> dict:
         if name not in only:
             continue
         mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
-        kw = {"device": args.device} if name == "concurrent_scaling" else {}
+        kw = {"device": args.device} if name in ON_DEVICE else {}
         t0 = time.time()
         print(f"# --- {name} ---", flush=True)
         payloads[name] = mod.run(quick=quick, **kw)

@@ -1013,6 +1013,65 @@ def pipeline_rank(mesh, cases) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the benchmark twins (tests/test_torch_probes.py, test_torch_chaos_probe.py,
+# test_torch_serving_probe.py)
+# ---------------------------------------------------------------------------
+
+def auto_axes_make_mesh() -> None:
+    """Make ``jax.make_mesh`` build ``jax.sharding.Mesh`` host meshes,
+    whose axes are Auto, in this process only: the reference probes
+    build their meshes with ``jax.make_mesh``, which gives Explicit
+    axes under jax 0.9 that the JAX package's sharded code refuses."""
+    import math
+
+    import jax
+
+    def make_mesh(shape, names, **_):
+        n = math.prod(shape)
+        return jax.sharding.Mesh(
+            np.array(jax.devices()[:n]).reshape(tuple(shape)), tuple(names))
+    jax.make_mesh = make_mesh
+
+
+def write_pickle(path: str, value) -> None:
+    """Publish ``value`` at ``path`` whole (another process may poll)."""
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(value, f)
+    os.replace(path + ".tmp", path)
+
+
+def wait_pickle(path: str, timeout: float = 900.0):
+    """The value another process publishes at ``path``."""
+    import time
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def probe_bench_rank(mesh, shapes: dict) -> dict:
+    """The ``run_bench`` of each of the three sharded probes' twins on
+    one rank, ``{probe: result}`` for ``shapes`` ``{probe: kwargs}``."""
+    import importlib
+    return {name: importlib.import_module(
+        f"repro_torch.benchmarks.{name}").run_bench(mesh, **kw)
+        for name, kw in shapes.items()}
+
+
+def serving_probe_rank(mesh, params_np: dict, bench_kw: dict) -> dict:
+    """``serving_probe.run_parity`` and ``run_bench(**bench_kw)`` on one
+    rank, with the JAX package's smoke weights ``params_np``."""
+    from repro_torch.benchmarks import serving_probe as sp
+    from repro_torch.core import convert
+    params = convert.params_from_numpy(params_np, device=mesh.device)
+    return {"parity": sp.run_parity(mesh, params=params),
+            "bench": sp.run_bench(mesh, params=params, **bench_kw)}
+
+
 def jax_main(suite: str, S: int, part: str, out_path: str) -> None:
     """One part of the JAX side at one shard count, in a process of its
     own: the suite on a mesh of ``S`` of the host's 4 forced devices

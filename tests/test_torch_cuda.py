@@ -1310,3 +1310,55 @@ def test_phase14_at_smoke_size():
     assert all(n > 0 for n in by_rank["splay_fold"].values())
     assert not (Path(chip_smoke.HERE) / "build" /
                 chip_smoke.FAMILY_DIR).exists()
+
+
+TWIN_MAINS = {
+    "sharded_refresh_probe": ["--bench", "--width", "512"],
+    "sharded_search_probe": ["--bench", "--routed", "--width", "1024",
+                             "--nq", "1024"],
+    "ordered_search_probe": ["--bench", "--width", "1024", "--nq", "1024"],
+    "chaos_probe": ["--bench"],
+    "serving_probe": ["--bench", "--requests", "4"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWIN_MAINS))
+def test_benchmark_twin_main_on_card_matches_cpu(name):
+    """Each probe twin's ``main`` at small shapes on 4 gloo ranks of the
+    card: every column but the timing ones equals its run on 4 CPU
+    ranks (the probe's inline assertions hold on both)."""
+    import importlib
+
+    from repro_torch.benchmarks.kernels_bench import deterministic
+    mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    card = mod.main(TWIN_MAINS[name])
+    cpu = mod.main(TWIN_MAINS[name] + ["--device", "cpu"])
+    if name == "serving_probe":
+        card, cpu = card["bench"], cpu["bench"]
+        assert card["parity_bit_identical"] is True
+    assert card.get("exec_mode", "cuda-kernels") == "cuda-kernels"
+    assert deterministic(card) == deterministic(cpu)
+
+
+def test_kernels_bench_races_on_card_match_cpu():
+    """The kernel races of ``kernels_bench`` (B1 against B5, B2 against
+    B1 with its byte counter, the aggregation, the refresh paths) at
+    the quick profile's widths, on the card against the CPU: each race
+    asserts its outputs equal inline, and their deterministic columns
+    agree."""
+    from repro_torch.benchmarks import kernels_bench as kb
+    for dev in ("cuda", "cpu"):
+        tops.reset_launch_counts()
+        rows, L = kb._zipf_races(4096, 1024, 256, 1, dev)
+        got = {"zipf": rows, "bytes": kb._bytes_model(L, 256, 1024),
+               "agg": kb._aggregation_case(True, device=dev),
+               "refresh": [kb._refresh_case(4096, c, 4, 1, device=dev)
+                           for c in (64, 0)],
+               "pipe": kb._pipelined_case(4096, 1024, 256, 1, device=dev)}
+        counts = tops.launch_counts()
+        if dev == "cuda":
+            card = got
+            for k in ("splay_search_tiered", "splay_search_full",
+                      "splay_search_pipelined", "splay_fold", "splay_walk"):
+                assert counts[k] > 0, k
+    assert kb.deterministic(card) == kb.deterministic(got)

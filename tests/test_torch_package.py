@@ -64,7 +64,11 @@ def test_every_module_imports_without_jax_or_repro():
               "benchmarks.concurrent_scaling", "benchmarks.run",
               "benchmarks.drift_probe", "kernels.state_walk",
               "examples.quickstart", "examples.splay_workloads",
-              "examples.train_adaptive_lm", "examples.serve_adaptive"):
+              "examples.train_adaptive_lm", "examples.serve_adaptive",
+              "benchmarks.kernels_bench", "benchmarks.chaos_probe",
+              "benchmarks.serving_probe", "benchmarks.sharded_refresh_probe",
+              "benchmarks.sharded_search_probe",
+              "benchmarks.ordered_search_probe"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -142,6 +146,27 @@ def test_examples_refuse_cpu_fallback_without_a_card(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
     assert not any(tmp_path.iterdir())
+
+
+def test_benchmark_twins_refuse_cpu_fallback_without_a_card():
+    """The benchmark twins default to the card: ``kernels_bench`` raises
+    before any race, and each probe's ranks fail their launch, which
+    raises in ``main``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs none")
+    from repro_torch.benchmarks import (chaos_probe, kernels_bench,
+                                        ordered_search_probe, serving_probe,
+                                        sharded_refresh_probe,
+                                        sharded_search_probe)
+    for main, argv in ((kernels_bench.main, []),
+                       (kernels_bench.main, ["--full"]),
+                       (sharded_refresh_probe.main, ["--bench"]),
+                       (sharded_search_probe.main, ["--bench", "--routed"]),
+                       (ordered_search_probe.main, ["--bench"]),
+                       (chaos_probe.main, ["--parity"]),
+                       (serving_probe.main, ["--bench"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
 
 
 def test_train_and_snapshot_entry_points_refuse_cpu_fallback(tmp_path):

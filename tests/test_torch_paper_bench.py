@@ -169,7 +169,7 @@ def test_run_cli_writes_json_only_where_asked(tmp_path, monkeypatch,
     trun.main(["--only", "concurrent_scaling", "--device", "cpu"])
     assert sorted(p.name for p in tmp_path.iterdir()) == ["o"]
     with pytest.raises(SystemExit):
-        trun.main(["--only", "kernels_bench"])
+        trun.main(["--only", "roofline_table"])
 
 
 # ---------------------------------------------------------------------------
