@@ -239,7 +239,24 @@ Phases:
    0) through ``Engine(mesh=...)`` on 1 x 4, parity true; then
    ``kernels_bench.run(quick=True)`` on the card, its deterministic
    columns equal to the same run with ``--device cpu`` in a child
-   process; the timing columns beside the card's name and power limit.
+   process; the timing columns beside the card's name and power limit;
+16. the sequence layouts and the dry-run (:func:`seq_phase`, after
+   phase 15; ``--phase16`` alone): qwen2-0.5b at published widths (bf16
+   from seed 0) on 4 gloo ranks of the card under the dry-run's rules
+   for a 1 x 4 mesh, a [2, 4096] prefill under ``cp_seq`` + ``cp_q``
+   (Megatron-SP, context-parallel q, blockwise attention) and three
+   ``kvseq`` decode steps (flash-decoding) from a cache of 8192 that the
+   meshless model filled to 4095, the second step writing rank 2's first
+   position; zamba2-7b at full width and depth on the 2 x 2 (data,
+   model) mesh with batch 1 (``seq``/``kvseq`` over data, its shared
+   cache of 32768 split over data), two decode steps; each within twice
+   the meshless bf16 distance from the float32 witness, greedy ids
+   equal on every rank, bytes a rank; then the dry-run (meta device, H100
+   constants) of qwen2-0.5b ``prefill_32k``/``decode_32k`` and zamba2-7b
+   ``long_500k`` with their roofline lines.  ``--phase16 --backend
+   nccl`` on 4 cards measures NCCL's all-reduce and all-gather bus
+   bandwidth at 256 MiB (``launch/mesh.py``'s ``LINK_BW``).  The path
+   launches none of the hand kernels.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
@@ -3272,6 +3289,487 @@ def family_phase(torch, dev, job, backend: str) -> dict:
             for k in r0["launches"]}
 
 
+SEQ_RANKS = 4             # phase 16: ranks of the sequence layouts' meshes
+SEQ_BW_BYTES = 256 * 2**20     # phase 16 (nccl): a collective's buffer
+
+
+SEQ_ARCH = "qwen2-0.5b"       # phase 16: 1 x 4, cp_seq + cp_q, then kvseq
+SEQ_PREFILL = (2, 4096)       # phase 16: its prefill's batch x positions
+SEQ_CACHE, SEQ_FILL = 8192, 4095   # its cache; positions the meshless fills
+SEQ_HYBRID = "zamba2-7b"      # phase 16: 2 x 2, seq/kvseq over data
+SEQ_HCACHE, SEQ_HFILL = 32768, 16383
+SEQ_DRY = (("qwen2-0.5b", "prefill_32k"), ("qwen2-0.5b", "decode_32k"),
+           ("zamba2-7b", "long_500k"))
+
+
+def seq_configs():
+    """Phase 16's models at published widths and depth, bf16 weights
+    (and compute) from seed 0."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return {a: dataclasses.replace(registry.get(a), param_dtype="bfloat16")
+            for a in (SEQ_ARCH, SEQ_HYBRID)}
+
+
+def fill_cache(torch, params, cfg, toks, cache):
+    """The decode cache of ``toks`` ``[B, L]`` written in bulk: the
+    meshless prefill's roped k and v of every layer at positions
+    ``0 .. L`` (the port's own ``_attn_block``, as ``forward`` runs
+    it)."""
+    from repro_torch.models import model_zoo as zoo
+    cdt = zoo._dt(cfg)
+    n = toks.shape[1]
+    x = zoo.embed_tokens(params, cfg, toks, cdt)
+    layers = zoo._unstack(params, zoo._layer_keys(params, cfg))
+    for i, lp in enumerate(layers):
+        a, (k, v) = zoo._attn_block(x, lp, cfg, "causal", 0, cdt)
+        cache["k"][i, :, :n] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :n] = v.to(cache["v"].dtype)
+        x = x + a
+        x = x + zoo._mlp_block(x, lp, cfg, cdt)
+    return cache
+
+
+def hybrid_cache(torch, cfg, dev):
+    """zamba2's decode cache for phase 16 in ``cfg``'s dtype: zeros, the
+    shared block's k/v seeded N(0, 1) rounded to bf16 at positions
+    ``0 .. SEQ_HFILL`` (a stand-in history that fills the first block
+    of the positions' split), on ``dev``."""
+    from repro_torch.models import model_zoo as zoo
+    cache = zoo.init_cache(cfg, 1, SEQ_HCACHE, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for k in ("k", "v"):
+        shape = cache[k][:, :, :SEQ_HFILL].shape
+        cache[k][:, :, :SEQ_HFILL] = torch.randn(
+            shape, generator=g, device=dev).to(torch.bfloat16)
+    return cache
+
+
+def _decode_chain(torch, params, cfg, toks, cache, start, n_steps):
+    """``n_steps`` meshless decode steps from ``cache`` filled to
+    ``start``: each step's logits (float, on the host) and greedy ids."""
+    from repro_torch.models import model_zoo as zoo
+    logits, ids = [], []
+    for j in range(n_steps):
+        out, cache = zoo.decode_step(params, cfg, toks[:, j:j + 1], cache,
+                                     start + j)
+        logits.append(out[:, 0].float().cpu())
+        ids.append(out[:, 0].argmax(-1).cpu())
+        del out
+    return logits, ids
+
+
+def seq_job(torch, dev, card) -> dict:
+    """Phase 16's inputs, meshless on the card.  qwen2-0.5b: its
+    ``SEQ_PREFILL`` prompt's last-position logits in bf16 and the
+    float32 witness (the same bf16 weights computed in float32), its
+    cache of ``SEQ_CACHE`` filled to ``SEQ_FILL`` in bulk, and three
+    decode steps from it in bf16 and in float32.  zamba2-7b: two decode
+    steps of one sequence from :func:`hybrid_cache`, in bf16 and in
+    float32.  Returns the references and the bf16 cache (on the
+    host)."""
+    import dataclasses
+
+    from repro_torch.models import model_zoo as zoo
+    torch.set_grad_enabled(False)
+    t = time.perf_counter()
+    cfgs = seq_configs()
+    job = {"card": card, "cfgs": cfgs}
+    cfg = cfgs[SEQ_ARCH]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = zoo.build_params(cfg, seed=0, device=dev)
+    job["param_sum"] = _bits_sum(p["embed"])
+    rng = np.random.default_rng(16)
+    toks = rng.integers(0, cfg.vocab, SEQ_PREFILL).astype(np.int64)
+    dtoks = rng.integers(0, cfg.vocab, (SEQ_PREFILL[0], SEQ_FILL + 3)
+                         ).astype(np.int64)
+    job.update(toks=toks, dtoks=dtoks)
+    tt = torch.as_tensor(toks, device=dev)
+    ref = {}
+    for tag, c in (("16", cfg), ("32", cfg32)):
+        ref["f" + tag] = zoo.forward(p, c, tt)[:, -1].float().cpu()
+    ref["e_fwd"] = float((ref["f16"] - ref["f32"]).abs().max())
+    ref["ids_fwd"] = ref["f16"].argmax(-1)
+    dt = torch.as_tensor(dtoks, device=dev)
+    for tag, c in (("16", cfg), ("32", cfg32)):
+        cache = fill_cache(torch, p, c, dt[:, :SEQ_FILL], zoo.init_cache(
+            c, SEQ_PREFILL[0], SEQ_CACHE, dev))
+        if tag == "16":
+            job["cache"] = {k: v.cpu() for k, v in cache.items()}
+        ref["d" + tag], ref["ids" + tag] = _decode_chain(
+            torch, p, c, dt[:, SEQ_FILL:], cache, SEQ_FILL, 3)
+        del cache
+    ref["e_dec"] = [float((a - b).abs().max())
+                    for a, b in zip(ref["d16"], ref["d32"])]
+    job["ref"] = ref
+    del p
+    torch.cuda.empty_cache()
+    # zamba2-7b, batch 1
+    hcfg = cfgs[SEQ_HYBRID]
+    h32 = dataclasses.replace(hcfg, dtype="float32")
+    p = zoo.build_params(hcfg, seed=0, device=dev)
+    job["h_param_sum"] = _bits_sum(p["embed"])
+    htoks = rng.integers(0, hcfg.vocab, (1, 2)).astype(np.int64)
+    job["htoks"] = htoks
+    ht = torch.as_tensor(htoks, device=dev)
+    href = {}
+    for tag, c in (("16", hcfg), ("32", h32)):
+        href["d" + tag], href["ids" + tag] = _decode_chain(
+            torch, p, c, ht, hybrid_cache(torch, c, dev), SEQ_HFILL, 2)
+        torch.cuda.empty_cache()
+    href["e_dec"] = [float((a - b).abs().max())
+                     for a, b in zip(href["d16"], href["d32"])]
+    job["href"] = href
+    del p
+    torch.cuda.empty_cache()
+    print(f"[16] meshless references: {SEQ_ARCH} prefill {SEQ_PREFILL} "
+          f"|bf16 - float32| {ref['e_fwd']:.4e}, decode steps from a cache "
+          f"of {SEQ_CACHE} filled to {SEQ_FILL} "
+          f"{[round(e, 6) for e in ref['e_dec']]}; {SEQ_HYBRID} two steps "
+          f"from a shared cache of {SEQ_HCACHE} filled to {SEQ_HFILL} "
+          f"{[round(e, 6) for e in href['e_dec']]}; "
+          f"{time.perf_counter() - t:.1f} s ({card})", flush=True)
+    return job
+
+
+def _bits_sum(t) -> int:
+    """The sum of a 16-bit tensor's bit patterns, exact in any order: a
+    cheap check that two processes drew the same weights."""
+    import torch
+    return int(t.view(torch.int16).to(torch.int64).sum())
+
+
+def _one_at_a_time(torch, fn):
+    """``fn()`` on each rank in turn (a barrier between): the ranks that
+    build a whole model on the one card do not hold it at once."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def seq_rank(mesh, job) -> dict:
+    """Phase 16 on one rank of 4 (gloo, every rank on the card).
+    qwen2-0.5b on the 1 x 4 world mesh under ``cell_rules`` of a
+    prefill of ``SEQ_PREFILL`` (``cp_seq`` + ``cp_q``): the prefill's
+    last-position logits and greedy ids (``make_prefill``), its
+    collectives recorded; then under the decode rules (``kvseq`` over
+    ``model``) three steps from the meshless cache laid out, the second
+    writing rank 2's first position.  zamba2-7b on the 2 x 2 mesh under
+    ``seq``/``kvseq`` over ``data`` (batch 1): two steps from its
+    shared cache laid out, built one rank at a time.  Returns the
+    rank's readings."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import collectives as cl
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import serve_step as ss
+    from repro_torch.train import elastic
+    torch.set_grad_enabled(False)
+    ops.reset_launch_counts()
+    dev, me = mesh.device, mesh.index
+    out = {"rank": me, "device": str(dev)}
+    cfgs = job["cfgs"]
+    cfg = cfgs[SEQ_ARCH]
+    am = shd.AbstractMesh(dict(mesh.shape))
+
+    def nbytes(tree):
+        return sum(v.numel() * v.element_size() for v in _leaves(tree))
+
+    def sync_ms(t0):
+        torch.cuda.synchronize(dev)
+        return 1e3 * (time.perf_counter() - t0)
+
+    # -- qwen2-0.5b prefill on 1 x 4 -------------------------------------
+    pre = dryrun.cell_rules(cfg, ShapeConfig("p16", SEQ_PREFILL[1],
+                                             SEQ_PREFILL[0], "prefill"),
+                            am, False)
+    p = zoo.build_params(cfg, seed=0, device=dev)
+    out["param_sum_equal"] = _bits_sum(p["embed"]) == job["param_sum"]
+    _, axes = zoo.param_axes(cfg)
+    specs = ly.axes_to_specs(p, axes, mesh, pre)
+    tree = shd.lay_out(p, specs, mesh, pre)
+    del p
+    torch.cuda.empty_cache()
+    out["rules_prefill"] = {k: pre[k] for k in dryrun.SEQ_NAMES if pre[k]}
+    out["param_bytes"] = nbytes(tree)
+    toks = torch.as_tensor(job["toks"], device=dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    with cl.recording() as rec:
+        logits = zoo.forward(tree, cfg, toks)
+        last = ss.last_logits(logits, tree, cfg, toks.shape[1])
+        ids = ss.greedy(last, tree, cfg)
+    out["prefill_ms"] = sync_ms(t0)
+    out["prefill_colls"] = rf.tally(rec)
+    whole = ly.gather_last(last[:, 0], zoo.vocab_axes(tree, cfg), mesh)
+    out["e_fwd"] = float((whole.float().cpu() - job["ref"]["f32"]).abs().max())
+    out["ids_fwd"] = ids[:, 0].cpu().tolist()
+    del logits, last, whole
+    # -- qwen2-0.5b decode, kvseq over model -------------------------------
+    dec = dryrun.cell_rules(cfg, ShapeConfig("d16", SEQ_CACHE,
+                                             SEQ_PREFILL[0], "decode"),
+                            am, False)
+    out["rules_decode"] = {k: dec[k] for k in dryrun.SEQ_NAMES if dec[k]}
+    tree = shd.LaidOutTree(dict(tree), tree.specs, mesh, dec)
+    cax = zoo.cache_axes(cfg)
+    cache = shd.lay_out(job["cache"], {
+        k: shd.resolve_spec(v.shape, cax[k], mesh, dec)
+        for k, v in job["cache"].items()}, mesh, dec)
+    out["cache_bytes"] = nbytes(cache)
+    out["cache_block"] = tuple(cache["k"].shape)
+    dt = torch.as_tensor(job["dtoks"][:, SEQ_FILL:], device=dev)
+    out["e_dec"], out["ids_dec"], out["step_ms"] = [], [], []
+    for j in range(3):
+        t0 = time.perf_counter()
+        logits, cache = zoo.decode_step(tree, cfg, dt[:, j:j + 1], cache,
+                                        SEQ_FILL + j)
+        ids = ss.greedy(logits[:, -1], tree, cfg)
+        out["step_ms"].append(sync_ms(t0))
+        whole = ly.gather_last(logits[:, 0], zoo.vocab_axes(tree, cfg), mesh)
+        out["e_dec"].append(float((whole.float().cpu()
+                                   - job["ref"]["d32"][j]).abs().max()))
+        out["ids_dec"].append(ids.cpu().tolist())
+    blk = cache["k"].shape[2]
+    out["written_here"] = [SEQ_FILL + j for j in range(3)
+                           if me * blk <= SEQ_FILL + j < (me + 1) * blk]
+    del tree, cache
+    torch.cuda.empty_cache()
+    # -- zamba2-7b decode on 2 x 2, seq/kvseq over data ----------------------
+    hcfg = cfgs[SEQ_HYBRID]
+    m22 = elastic.remesh(model_parallel=2, device=dev.type)
+    h_rules = dryrun.cell_rules(hcfg, ShapeConfig("h16", SEQ_HCACHE, 1,
+                                                  "decode"),
+                                shd.AbstractMesh(dict(m22.shape)), False)
+    out["rules_hybrid"] = {k: h_rules[k] for k in dryrun.SEQ_NAMES
+                           if h_rules[k]}
+    _, haxes = zoo.param_axes(hcfg)
+    hcax = zoo.cache_axes(hcfg)
+
+    def build():
+        p = zoo.build_params(hcfg, seed=0, device=dev)
+        ok = _bits_sum(p["embed"]) == job["h_param_sum"]
+        t = shd.lay_out(p, ly.axes_to_specs(p, haxes, m22, h_rules), m22,
+                        h_rules)
+        del p
+        c = hybrid_cache(torch, hcfg, dev)
+        c = shd.lay_out(c, {k: shd.resolve_spec(v.shape, hcax[k], m22,
+                                                h_rules)
+                            for k, v in c.items()}, m22, h_rules)
+        return ok, t, c
+    t0 = time.perf_counter()
+    ok, htree, hcache = _one_at_a_time(torch, build)
+    out["h_build_ms"] = sync_ms(t0)
+    out["h_param_sum_equal"] = ok
+    out["h_param_bytes"] = nbytes(htree)
+    out["h_cache_bytes"] = nbytes(hcache)
+    out["h_coords"] = dict(m22.coords)
+    out["h_cache_block"] = tuple(hcache["k"].shape)
+    ht = torch.as_tensor(job["htoks"], device=dev)
+    out["h_e_dec"], out["h_ids"], out["h_step_ms"] = [], [], []
+    for j in range(2):
+        t0 = time.perf_counter()
+        with cl.recording() as rec:
+            logits, hcache = zoo.decode_step(htree, hcfg, ht[:, j:j + 1],
+                                             hcache, SEQ_HFILL + j)
+            ids = ss.greedy(logits[:, -1], htree, hcfg)
+        out["h_step_ms"].append(sync_ms(t0))
+        whole = ly.gather_last(logits[:, 0], zoo.vocab_axes(htree, hcfg), m22)
+        out["h_e_dec"].append(float((whole.float().cpu()
+                                     - job["href"]["d32"][j]).abs().max()))
+        out["h_ids"].append(ids.cpu().tolist())
+    out["h_colls"] = len(rec)
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def seq_phase(torch, dev, card) -> list:
+    """Phase 16: :func:`seq_job` here, :func:`seq_rank` on ``SEQ_RANKS``
+    gloo ranks of the card, each rank's readings checked against the
+    witness (within twice the meshless bf16 distance from the float32
+    run, greedy ids equal on every rank), then the dry-run of
+    ``SEQ_DRY`` on the meta device with its roofline lines.  Returns the
+    ranks' readings."""
+    import gc
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import LINK_BW
+    t_all = time.perf_counter()
+    job = seq_job(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(seq_rank, SEQ_RANKS, job, backend="gloo",
+                           device="cuda", timeout=900)
+    except RuntimeError as e:
+        fail(f"phase 16: {e}")
+    wall = time.perf_counter() - t
+    ref, href = job["ref"], job["href"]
+    for r in ranks:
+        me = f"phase 16 rank {r['rank']}"
+        check(r["param_sum_equal"] and r["h_param_sum_equal"],
+              f"{me}: the rank's weights differ from the parent's")
+        check(r["rules_prefill"] == {"cp_seq": ("model",),
+                                     "cp_q": ("model",)}
+              and r["rules_decode"] == {"kvseq": ("model",)}
+              and r["rules_hybrid"] == {"seq": ("data",),
+                                        "kvseq": ("data",)},
+              f"{me}: unexpected rules {r['rules_prefill']}, "
+              f"{r['rules_decode']}, {r['rules_hybrid']}")
+        check(r["e_fwd"] <= 2 * ref["e_fwd"], f"{me}: the sharded prefill "
+              f"lies {r['e_fwd']:.4e} from the float32 witness, more than "
+              f"twice the meshless bf16's {ref['e_fwd']:.4e}")
+        for j, (e, e_ref) in enumerate(zip(r["e_dec"], ref["e_dec"])):
+            check(e <= 2 * e_ref, f"{me}: kvseq step {j} lies {e:.4e} from "
+                  f"the float32 witness, more than twice {e_ref:.4e}")
+        for j, (e, e_ref) in enumerate(zip(r["h_e_dec"], href["e_dec"])):
+            check(e <= 2 * e_ref, f"{me}: {SEQ_HYBRID} step {j} lies "
+                  f"{e:.4e} from the float32 witness, more than twice "
+                  f"{e_ref:.4e}")
+        for k in ("ids_fwd", "ids_dec", "h_ids"):
+            check(r[k] == ranks[0][k], f"{me}: {k} differ from rank 0's")
+    check(ranks[1]["written_here"] == [SEQ_FILL]
+          and ranks[2]["written_here"][:1] == [SEQ_FILL + 1]
+          and ranks[2]["cache_block"][2] * 2 == SEQ_FILL + 1,
+          "phase 16: the second step's position is not rank 2's first")
+    r0 = ranks[0]
+    print(f"[16] {SEQ_ARCH} (bf16, published widths) on 1 x {SEQ_RANKS} "
+          f"gloo ranks of the card, prefill rules {r0['rules_prefill']}: "
+          f"{r0['param_bytes']} B of weights a rank; prefill of "
+          f"{SEQ_PREFILL} (blockwise attention) ms by rank "
+          f"{[round(r['prefill_ms'], 2) for r in ranks]}, collectives "
+          f"{r0['prefill_colls']}; |last logits - float32 witness| by rank "
+          f"{[round(r['e_fwd'], 6) for r in ranks]} (meshless bf16 "
+          f"{ref['e_fwd']:.6f}; limit twice it); greedy ids "
+          f"{r0['ids_fwd']} on every rank (meshless bf16 "
+          f"{ref['ids_fwd'].tolist()}) ({card})", flush=True)
+    print(f"[16] {SEQ_ARCH} decode, rules {r0['rules_decode']} "
+          f"(flash-decoding): cache block {r0['cache_block']} "
+          f"({r0['cache_bytes']} B a rank) of {SEQ_CACHE} positions filled "
+          f"to {SEQ_FILL}; three steps writing positions "
+          f"{[SEQ_FILL + j for j in range(3)]} (ranks "
+          f"{[[r['rank'] for r in ranks if SEQ_FILL + j in r['written_here']] for j in range(3)]}): "
+          f"|logits - witness| by step, rank 0 "
+          f"{[round(e, 6) for e in r0['e_dec']]} (all ranks within "
+          f"twice the meshless bf16 {[round(e, 6) for e in ref['e_dec']]});"
+          f" greedy ids {r0['ids_dec']} on every rank (meshless bf16 "
+          f"{[i.tolist() for i in ref['ids16']]}); ms a step by rank "
+          f"{[[round(x, 2) for x in r['step_ms']] for r in ranks]} "
+          f"({card})", flush=True)
+    print(f"[16] {SEQ_HYBRID} (bf16, published widths and depth) on 2 x 2 "
+          f"(data, model), rules {r0['rules_hybrid']}, batch 1: "
+          + "; ".join(f"rank {r['rank']} {r['h_coords']} {r['h_param_bytes']}"
+                      f" B of weights + {r['h_cache_bytes']} B of cache "
+                      f"(shared k block {r['h_cache_block']})"
+                      for r in ranks)
+          + f"; built one rank at a time in {r0['h_build_ms']:.0f} ms; two "
+          f"steps writing {SEQ_HFILL} and {SEQ_HFILL + 1}: |logits - "
+          f"witness| rank 0 {[round(e, 6) for e in r0['h_e_dec']]} (limit "
+          f"twice {[round(e, 6) for e in href['e_dec']]}), greedy ids "
+          f"{r0['h_ids']} on every rank (meshless bf16 "
+          f"{[i.tolist() for i in href['ids16']]}); ms a step "
+          f"{[round(x, 1) for x in r0['h_step_ms']]}, {r0['h_colls']} "
+          f"collectives a step ({card})", flush=True)
+    print(f"[16] launches on the ranks (the sequence layouts run none of the "
+          f"hand kernels): {[r['launches'] for r in ranks]}", flush=True)
+    t = time.perf_counter()
+    for arch, shape in SEQ_DRY:
+        meta = dryrun.run_cell(arch, shape, False, None)
+        print(f"[16] dry-run {arch} {shape} (single 16 x 16, rank 0, meta "
+              f"device; H100 constants, LINK_BW {LINK_BW:.4e} B/s): flops "
+              f"{meta['flops_per_device']:.4e}, bytes "
+              f"{meta['bytes_per_device']:.4e}, wire "
+              f"{meta['wire_bytes_per_device']:.4e} a rank; roofline "
+              f"{meta['roofline']}; rules {meta['rules']}", flush=True)
+    print(f"[16] phase 16: {time.perf_counter() - t_all:.1f} s ({wall:.1f} s "
+          f"for the ranks, {time.perf_counter() - t:.1f} s for the dry-run)"
+          f" ({card})", flush=True)
+    return ranks
+
+
+def link_bw_rank(mesh, nbytes: int) -> dict:
+    """Phase 16 over NCCL on one rank (a card a rank): the bus bandwidth
+    of ``dist.all_reduce`` and ``dist.all_gather_into_tensor`` on
+    ``nbytes`` of bf16 (the all-gather's result), nccl-tests' rule:
+    algbw = bytes / time, busbw = algbw x 2(n-1)/n for the all-reduce and
+    x (n-1)/n for the all-gather; 5 warm-up calls, then the mean of 20
+    by CUDA events."""
+    import torch
+    import torch.distributed as dist
+    dev, n = mesh.device, mesh.size
+    x = torch.ones(nbytes // 2, dtype=torch.bfloat16, device=dev)
+    part = torch.ones(nbytes // 2 // n, dtype=torch.bfloat16, device=dev)
+    whole = torch.empty(nbytes // 2, dtype=torch.bfloat16, device=dev)
+
+    def timed(fn, reps=20):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize(dev)
+        return a.elapsed_time(b) / reps
+    out = {"rank": mesh.index, "device": str(dev),
+           "name": torch.cuda.get_device_name(dev)}
+    for kind, fn, factor in (
+            ("all_reduce", lambda: dist.all_reduce(x), 2 * (n - 1) / n),
+            ("all_gather", lambda: dist.all_gather_into_tensor(whole, part),
+             (n - 1) / n)):
+        ms = timed(fn)
+        alg = nbytes / (ms * 1e-3)
+        out[kind] = {"ms": ms, "algbw": alg, "busbw": alg * factor}
+    return out
+
+
+def link_bw_phase(torch, card: str) -> dict:
+    """Phase 16 over NCCL: :func:`link_bw_rank` on ``SEQ_RANKS`` cards;
+    prints each rank's readings and the link rate ``launch/mesh.py``'s
+    ``LINK_BW`` takes (the smaller bus bandwidth) beside the card's name
+    and power limit."""
+    from repro_torch.launch import spmd
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(link_bw_rank, SEQ_RANKS, SEQ_BW_BYTES,
+                           backend="nccl", device="cuda", timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 16 (nccl): {e}")
+    for r in ranks:
+        print(f"[16] rank {r['rank']} ({r['device']}, {r['name']}): "
+              + "; ".join(f"{k} of {SEQ_BW_BYTES} B {r[k]['ms']:.4f} ms, "
+                          f"algbw {r[k]['algbw'] / 1e9:.3f} GB/s, busbw "
+                          f"{r[k]['busbw'] / 1e9:.3f} GB/s"
+                          for k in ("all_reduce", "all_gather"))
+              + f" ({card})", flush=True)
+    bus = {k: min(r[k]["busbw"] for r in ranks)
+           for k in ("all_reduce", "all_gather")}
+    link = min(bus.values())
+    check(link > 0, "phase 16: no bus bandwidth measured")
+    print(f"[16] LINK_BW (the smaller bus bandwidth over the ranks and the "
+          f"two collectives): {link:.6e} B/s; all-reduce {bus['all_reduce']:.6e},"
+          f" all-gather {bus['all_gather']:.6e}; {time.perf_counter() - t:.1f}"
+          f" s ({card})", flush=True)
+    return {"link_bw": link, "busbw": bus}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4609,6 +5107,9 @@ def main() -> None:
     # ---- phase 15: the benchmark twins ---------------------------------
     drivers_by_path = drivers_phase(torch, dev, read_launches, card)
 
+    # ---- phase 16: the sequence layouts and the dry-run ------------------
+    seq_phase(torch, dev, card)
+
     pop, mix = sc10["populate"], sc10["mixed"]
     for k in kernels:
         for path in ("paper_scaling", "examples_quickstart",
@@ -4809,6 +5310,29 @@ def phase15_only(backend: str) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def phase16_only(backend: str) -> None:
+    """Phase 16 alone (``--phase16``); with ``--backend nccl`` only the
+    link bandwidth over ``SEQ_RANKS`` cards (one rank a card)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} device(s)", flush=True)
+    if backend == "nccl":
+        if torch.cuda.device_count() < SEQ_RANKS:
+            fail(f"--backend nccl needs {SEQ_RANKS} cards")
+        print(json.dumps({"link_bw": link_bw_phase(torch, card)}))
+    else:
+        from repro_torch.kernels import build
+        build.build()
+        seq_phase(torch, torch.device("cuda"), card)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
@@ -4821,10 +5345,13 @@ if __name__ == "__main__":
                          "a mesh")
     ap.add_argument("--phase15", action="store_true",
                     help="run only phase 15, the benchmark twins")
+    ap.add_argument("--phase16", action="store_true",
+                    help="run only phase 16, the sequence layouts and the "
+                         "dry-run (--backend nccl: the link bandwidth)")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                     help="the process-group backend of --phase9, --phase13, "
-                         "--phase14 and --phase15: gloo (every rank on the "
-                         "one card) or nccl (one rank a card)")
+                         "--phase14, --phase15 and --phase16: gloo (every "
+                         "rank on the one card) or nccl (one rank a card)")
     cli = ap.parse_args()
     try:
         if cli.phase9:
@@ -4835,6 +5362,8 @@ if __name__ == "__main__":
             phase14_only(cli.backend)
         elif cli.phase15:
             phase15_only(cli.backend)
+        elif cli.phase16:
+            phase16_only(cli.backend)
         else:
             main()
     except CheckFailed as e:      # a failed check of scripts/card_checks.py

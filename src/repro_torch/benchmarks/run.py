@@ -10,7 +10,9 @@ sequential tables (``seq_tables``, ``uniform_zipf``,
 pure-Python engines on the host CPU; ``concurrent_scaling`` runs the
 state engines on ``--device`` (the card unless the caller asks for the
 CPU).  With ``--out DIR`` each module's results are also written to
-``DIR/<module>.json``; nothing is written elsewhere."""
+``DIR/<module>.json``; nothing is written elsewhere.
+``roofline_table`` reads the dry-run's JSONs under ``build/dryrun``
+(``python -m repro_torch.launch.dryrun_all``) and times nothing."""
 
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from pathlib import Path
 
 MODULES = ("seq_tables", "concurrent_scaling", "uniform_zipf",
            "general_workloads", "long_run", "height_correlation",
-           "kernels_bench")
+           "kernels_bench", "roofline_table")
 # the modules that run on ``--device``; the others run on the host CPU
 ON_DEVICE = ("concurrent_scaling", "kernels_bench")
 

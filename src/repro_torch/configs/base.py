@@ -1,6 +1,7 @@
 """Model configuration: the port's copy of ``ModelConfig`` (one record
 for any architecture of the pool: dense / GQA / MoE / SSM / hybrid /
-enc-dec / VLM) and of ``smoke_variant``, the reduced same-family config
+enc-dec / VLM), of the dry-run's cell shapes (``ShapeConfig``,
+``SHAPES``) and of ``smoke_variant``, the reduced same-family config
 the CPU tests use.  Field names, defaults and derived sizes
 (``vocab_padded``, ``head_dim``, ``n_params``) are the JAX package's.
 """
@@ -136,6 +137,30 @@ class ModelConfig:
         inactive = (self.n_layers // self.moe_every) * (
             self.n_experts - self.top_k) * per_expert
         return self.n_params() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# smoke variants (reduced shapes used by CPU tests)
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")
+SMOKE_DECODE_SHAPE = ShapeConfig("smoke_decode", 64, 2, "decode")
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

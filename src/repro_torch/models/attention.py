@@ -1,16 +1,27 @@
 """GQA/MQA/MHA attention: full, blockwise (online softmax) and decode
-(the twin of ``repro.models.attention``, meshless).
+(the twin of ``repro.models.attention``).
 
 Blockwise attention runs over KV chunks with a running (max, sum):
 O(seq) memory.  Masks: causal, prefix-LM (paligemma), full (whisper
 encoder / cross-attention).  The dispatch rule and its constants are
 the reference's: they pick the summation order, so they change the
 rounding.
+
+The sequence layouts: the full and blockwise passes take a block of
+q positions (``q_offset``, the block's first global position, for the
+mask; the reference's ``cp_q``) against the whole k/v, and the decode
+passes take this rank's block of the cache's positions (``kv``, a
+``sharding.SeqBlock``; the reference's ``kvseq``): each rank computes
+its block's running max, sum and unnormalized output, and one max and
+two sums over the block's mesh axes combine them (flash-decoding).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.parallel import collectives as cl
+from repro_torch.parallel import sharding as shd
 
 BLOCKWISE_THRESHOLD = 2048
 KV_CHUNK = 1024
@@ -35,9 +46,17 @@ def _mask_bias(mask_mode: str, q_pos, k_pos, prefix_len: int, dtype):
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
+def _positions(n: int, start: int, device):
+    """Positions ``start .. start + n`` (the offset added only where it
+    is not 0: a meshless pass runs no extra op)."""
+    pos = torch.arange(n, device=device)
+    return start + pos if start else pos
+
+
 def full_attention(q, k, v, mask_mode: str = "causal",
-                   prefix_len: int = 0):
-    """q [b,sq,h,d], k/v [b,sk,kv,d] (kv repeated to h here)."""
+                   prefix_len: int = 0, q_offset: int = 0):
+    """q [b,sq,h,d], k/v [b,sk,kv,d] (kv repeated to h here); q's
+    positions start at ``q_offset``."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
@@ -46,7 +65,7 @@ def full_attention(q, k, v, mask_mode: str = "causal",
     scale = d ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     dev = q.device
-    bias = _mask_bias(mask_mode, torch.arange(sq, device=dev),
+    bias = _mask_bias(mask_mode, _positions(sq, q_offset, dev),
                       torch.arange(sk, device=dev),
                       prefix_len, torch.float32)
     l32 = logits.float()
@@ -57,9 +76,11 @@ def full_attention(q, k, v, mask_mode: str = "causal",
 
 
 def blockwise_attention(q, k, v, mask_mode: str = "causal",
-                        prefix_len: int = 0, kv_chunk: int = KV_CHUNK):
+                        prefix_len: int = 0, kv_chunk: int = KV_CHUNK,
+                        q_offset: int = 0):
     """Online-softmax attention over KV chunks: O(sq * kv_chunk) live
-    memory instead of O(sq * sk)."""
+    memory instead of O(sq * sk); q's positions start at
+    ``q_offset``."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
@@ -70,7 +91,7 @@ def blockwise_attention(q, k, v, mask_mode: str = "causal",
     k = k.reshape(b, n_chunks, kv_chunk, h, d)
     v = v.reshape(b, n_chunks, kv_chunk, h, d)
     dev = q.device
-    q_pos = torch.arange(sq, device=dev)
+    q_pos = _positions(sq, q_offset, dev)
     m = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=dev)
     s = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
     o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
@@ -93,22 +114,65 @@ def blockwise_attention(q, k, v, mask_mode: str = "causal",
     return out.transpose(1, 2)   # [b, sq, h, d]
 
 
-def _valid(sk: int, cache_len, device):
-    return (torch.arange(sk, device=device)
+def _valid(sk: int, cache_len, device, start: int = 0):
+    return (_positions(sk, start, device)
             < cache_len)[None, None, None, None, :]
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def _masked(logits, cache_len, kv):
+    start = kv.start if kv is not None else 0
+    return torch.where(_valid(logits.shape[-1], cache_len, logits.device,
+                              start), logits, torch.full_like(logits, -1e30))
+
+
+def _split(kv) -> bool:
+    return kv is not None and bool(kv.axes)
+
+
+def _partial(logits):
+    """A block's running max ``[b,g,r,q]``, its unnormalized
+    probabilities and their sum."""
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    return m, p, p.sum(dim=-1)
+
+
+def _combine(m, s, o, kv, dtype):
+    """Every block's (max ``m``, sum ``s``, output ``o`` ``[b,q,g,r,d]``)
+    over the cache's mesh axes combined: the softmax-weighted output of
+    the whole cache.  A block wholly past ``cache_len`` has max -1e30
+    and weighs exp(-1e30 - max) = 0."""
+    mesh = shd.active_mesh()
+    big = m
+    for a in kv.axes:
+        big = cl.pmax(big, mesh, axis=a)
+    alpha = torch.exp(m - big)
+    s = s * alpha
+    o = o * alpha.permute(0, 3, 1, 2)[..., None]
+    for a in kv.axes:
+        s = cl.psum(s, mesh, axis=a)
+        o = cl.psum(o, mesh, axis=a)
+    return (o / s.permute(0, 3, 1, 2)[..., None]).to(dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, kv=None):
     """Single-position decode: q [b,1,h,d] against cache [b,sk,kv,d].
     Grouped-query einsum: the KV cache is never broadcast to h heads.
-    Positions >= cache_len are masked out."""
+    Positions >= cache_len are masked out.  With ``kv`` (a
+    ``sharding.SeqBlock``) the cache is this rank's block of positions
+    ``kv.start ..`` of a cache split over ``kv.axes`` of the active
+    mesh: the blocks' partial softmaxes are combined (float32 through
+    the value product)."""
     b, sq, h, d = q.shape
-    sk, kv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, sq, kv, h // kv, d)
+    sk, nkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, sq, nkv, h // nkv, d)
     scale = d ** -0.5
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache).float() * scale
-    logits = torch.where(_valid(sk, cache_len, q.device), logits,
-                         torch.full_like(logits, -1e30))
+    logits = _masked(logits, cache_len, kv)
+    if _split(kv):
+        m, p, s = _partial(logits)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache.float())
+        return _combine(m, s, o, kv, q.dtype).reshape(b, sq, h, d)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_cache)
     return out.reshape(b, sq, h, d)
@@ -124,29 +188,39 @@ def quantize_kv(x):
     return q.to(torch.int8), scale
 
 
-def decode_attention_q8(q, k_q, v_q, k_sc, v_sc, cache_len):
+def decode_attention_q8(q, k_q, v_q, k_sc, v_sc, cache_len, kv=None):
     """Grouped decode attention over an int8 KV cache.  The scales fold
     into the attention algebra instead of dequantizing the cache:
     logits = (q @ k_q^T) * k_sc and out = probs' @ v_q with
-    probs' = probs * v_sc."""
+    probs' = probs * v_sc.  ``kv``: this rank's block of the cache's
+    positions, its scales split with it (:func:`decode_attention`)."""
     b, sq, h, d = q.shape
-    sk, kv = k_q.shape[1], k_q.shape[2]
-    qg = q.reshape(b, sq, kv, h // kv, d)
+    nkv = k_q.shape[2]
+    qg = q.reshape(b, sq, nkv, h // nkv, d)
     scale = d ** -0.5
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
                           k_q.float() / 127.0) * scale
     logits = logits * k_sc.permute(0, 2, 1)[:, :, None, None, :]
-    logits = torch.where(_valid(sk, cache_len, q.device), logits,
-                         torch.full_like(logits, -1e30))
+    logits = _masked(logits, cache_len, kv)
+    vs = v_sc.permute(0, 2, 1)[:, :, None, None, :] / 127.0
+    if _split(kv):
+        m, p, s = _partial(logits)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p * vs, v_q.float())
+        return _combine(m, s, o, kv, q.dtype).reshape(b, sq, h, d)
     probs = torch.softmax(logits, dim=-1)
-    probs = probs * (v_sc.permute(0, 2, 1)[:, :, None, None, :] / 127.0)
+    probs = probs * vs
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(q.dtype),
                        v_q.to(q.dtype))
     return out.reshape(b, sq, h, d)
 
 
-def attention(q, k, v, mask_mode: str = "causal", prefix_len: int = 0):
-    sq, sk = q.shape[1], k.shape[1]
+def attention(q, k, v, mask_mode: str = "causal", prefix_len: int = 0,
+              q_offset: int = 0, q_len: int = None):
+    """Blockwise or full attention by the reference's rule, decided on
+    the whole q length ``q_len`` (``q``'s own when omitted; ``q`` a
+    block of it from ``q_offset`` under ``cp_q``)."""
+    sq, sk = (q.shape[1] if q_len is None else q_len), k.shape[1]
     if sq == sk and sk > BLOCKWISE_THRESHOLD and sk % KV_CHUNK == 0:
-        return blockwise_attention(q, k, v, mask_mode, prefix_len)
-    return full_attention(q, k, v, mask_mode, prefix_len)
+        return blockwise_attention(q, k, v, mask_mode, prefix_len,
+                                   q_offset=q_offset)
+    return full_attention(q, k, v, mask_mode, prefix_len, q_offset)

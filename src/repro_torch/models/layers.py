@@ -128,10 +128,7 @@ def compute_axes(w, spec, names, dim: int) -> Tuple[str, ...]:
 def gather_last(x, axes, mesh=None):
     """The columns of ``x`` split over ``axes`` (of the active mesh when
     ``mesh`` is omitted) gathered whole: one all-gather an axis."""
-    mesh = mesh if mesh is not None else shd.active_mesh()
-    for a in reversed(axes):
-        x = torch.cat(list(cl.all_gather(x, mesh, axis=a)), -1)
-    return x
+    return shd.gather_dim(x, axes, -1, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -173,37 +170,79 @@ def rope(q, positions, theta: float):
     return out.to(q.dtype)
 
 
-def swiglu(x, w_gate, w_up, w_down, compute_dtype, specs=None):
+def swiglu(x, w_gate, w_up, w_down, compute_dtype, specs=None, seq=None):
     """The gated MLP.  With ``specs`` (the three weights' specs: this
     rank's blocks of a laid-out tree) the ``fsdp`` dimensions are
-    gathered first (``gather_param``), ``w_gate``/``w_up`` are
+    gathered first (``gather_param``, in ``compute_dtype``, as the
+    reference casts before its gather), ``w_gate``/``w_up`` are
     column-parallel over ``mlp`` and ``w_down`` row-parallel, and the
     row blocks' partial sums meet in one sum over the mesh, where the
     reference constrains the output to ``("batch", "cp_seq",
-    "embed")``."""
+    "embed")``.  With ``seq`` (``x`` the whole sequence) the output is
+    this rank's block ``seq`` of it (:func:`row_parallel`)."""
     if specs is not None:
         sg, su, sd = specs
         rows = compute_axes(w_down, sd, ("mlp", None), 0)
-        w_gate = shd.gather_param(w_gate, "fsdp", "mlp", spec=sg)
-        w_up = shd.gather_param(w_up, "fsdp", "mlp", spec=su)
-        w_down = shd.gather_param(w_down, "mlp", "fsdp", spec=sd)
+        w_gate = shd.gather_param(w_gate.to(compute_dtype), "fsdp", "mlp",
+                                  spec=sg)
+        w_up = shd.gather_param(w_up.to(compute_dtype), "fsdp", "mlp",
+                                spec=su)
+        w_down = shd.gather_param(w_down.to(compute_dtype), "mlp", "fsdp",
+                                  spec=sd)
     h = x @ w_gate.to(compute_dtype)
     u = x @ w_up.to(compute_dtype)
     return row_parallel(F.silu(h) * u, w_down, compute_dtype,
-                        rows if specs is not None else ())
+                        rows if specs is not None else (), seq)
 
 
-def row_parallel(x, w, compute_dtype, axes=()):
+def row_parallel(x, w, compute_dtype, axes=(), seq=None):
     """``x @ w`` where ``w`` is this rank's block of rows (and ``x`` its
     columns) split over the mesh ``axes``: the partial products summed
     over them.  A 16-bit product is taken in float32 and rounded once,
     after the sum, as the whole product rounds once after its float32
-    accumulation; without ``axes``, ``x @ w`` in ``compute_dtype``."""
+    accumulation; without ``axes``, ``x @ w`` in ``compute_dtype``.
+
+    With ``seq`` (a ``sharding.SeqBlock`` of dimension 1, ``x`` the
+    whole sequence) the result is this rank's block of the sequence:
+    where ``axes`` are ``seq``'s, the sum is a reduce-scatter
+    (Megatron-SP's block exit, in place of the reference's
+    ``psum``); where they share no axis the block is taken before the
+    product; otherwise the sum is taken whole and then cut."""
+    if seq is not None and seq.axes and not set(seq.axes) & set(axes):
+        x, seq = shd.seq_take(x, seq), None
     if not axes:
         return x @ w.to(compute_dtype)
-    if compute_dtype in (torch.bfloat16, torch.float16):
-        return psum_axes(x.float() @ w.float(), axes).to(compute_dtype)
-    return psum_axes(x @ w.to(compute_dtype), axes)
+    half = compute_dtype in (torch.bfloat16, torch.float16)
+    y = x.float() @ w.float() if half else x @ w.to(compute_dtype)
+    return reduce_to_seq(y, axes, seq).to(compute_dtype)
+
+
+def reduce_to_seq(y, axes, seq=None):
+    """The partial sums ``y`` ``[B, S, ...]`` summed over the mesh
+    ``axes``, as this rank's block ``seq`` of the sequence (whole
+    without it): a reduce-scatter where ``axes`` are ``seq``'s; the
+    block first, then the sum, where they share no axis; else the sum,
+    then the block."""
+    s_axes = tuple(seq.axes) if seq is not None else ()
+    if s_axes and tuple(axes) == s_axes:
+        return scatter_axes(y, axes, dim=1)
+    if s_axes and not set(s_axes) & set(axes):
+        return psum_axes(shd.seq_take(y, seq), axes)
+    y = psum_axes(y, axes)
+    return shd.seq_take(y, seq) if s_axes else y
+
+
+def scatter_axes(x, axes, dim: int, mesh=None):
+    """The sum of the partial ``x`` over the mesh ``axes``, this rank's
+    block of it along ``dim`` (blocks numbered as ``sharding`` numbers
+    them: the last axis fastest), in float32 for a 16-bit ``x``,
+    rounded once."""
+    mesh = mesh if mesh is not None else shd.active_mesh()
+    dt = x.dtype
+    x = x.float() if dt in (torch.bfloat16, torch.float16) else x
+    for a in axes:
+        x = cl.reduce_scatter(x, mesh, axis=a, dim=dim)
+    return x.to(dt)
 
 
 def psum_axes(x, axes, mesh=None):

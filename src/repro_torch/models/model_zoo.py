@@ -16,19 +16,38 @@ precomputed frame or patch embeddings.
 
 On a mesh the parameters are laid out by their logical axes
 (``build_params(..., with_axes=True)``, ``layers.axes_to_specs``,
-``sharding.lay_out``) and the cache by :func:`cache_axes`.  Every
-family computes on such a tree with explicit collectives, the function
-of the global tree (the reference's constraints are layouts, never
-values): the embedding over a vocab-split table, whole heads of
-attention (:class:`_Heads`; zamba2's shared block, whisper's encoder
-and cross-attention and paligemma's prefix included), the column- and
-row-parallel MLP, the experts over the ``expert`` axes
-(``moe.moe_block``), the Mamba2 heads over ``ssm_heads``
-(``ssm._Split``), weights gathered over ``fsdp``, and this rank's rows
-of the batch (its block over the ``batch`` axes) and block of the
-logits.  Rules that split the sequence (``seq``, ``kvseq``,
-``cp_seq``, ``cp_q`` over more than one rank) are refused: they are
-ROADMAP queue A item 3.
+``sharding.lay_out``) and the cache by :func:`cache_axes`
+(``init_cache(..., mesh=)`` returns it as a ``sharding.LaidOutTree``
+that carries its specs).  Every family computes on such a tree with
+explicit collectives, the function of the global tree (the
+reference's constraints are layouts, never values): the embedding over
+a vocab-split table, whole heads of attention (:class:`_Heads`;
+zamba2's shared block, whisper's encoder and cross-attention and
+paligemma's prefix included), the column- and row-parallel MLP, the
+experts over the ``expert`` axes (``moe.moe_block``), the Mamba2 heads
+over ``ssm_heads`` (``ssm._Split``), weights gathered over ``fsdp``,
+and this rank's rows of the batch (its block over the ``batch`` axes)
+and block of the logits.
+
+The sequence layouts.  The residual stream between blocks is this
+rank's block of positions where ``("batch", "cp_seq", "embed")``
+(Megatron-SP), else ``("batch", "seq", "embed")``, resolves on its
+shape to mesh axes (:func:`stream_layout`).  Each block norms its
+positions, all-gathers the sequence whole at its entry and ends with a
+reduce-scatter of its float32 partial sums over those axes
+(``layers.row_parallel``; a sum and a cut where the sums run over
+other axes).  Under ``cp_q`` a rank attends with its block of q
+positions (global positions for the mask and rope) against the whole
+k/v, the projections gathered whole, and ``wo``'s rows gathered so
+that its output rows are its block.  Under ``kvseq`` a rank holds its
+block of the cache's positions, writes position ``cache_len`` where
+its block holds it (:func:`cache_write`) and attends with
+flash-decoding (``attention.decode_attention``).  The MoE routing and
+the Mamba2 scan see the whole sequence.  A sequence name shares a mesh
+axis with ``batch`` only where the batch does not split over it (the
+dry-run's ``seq_sharded`` rules: a global batch smaller than
+``data``), so a rank's rows resolve the layout as the global batch
+does.
 """
 
 from __future__ import annotations
@@ -229,34 +248,46 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
 # forward blocks
 # ---------------------------------------------------------------------------
 
-def cache_write(cache, x, start: int):
+def cache_write(cache, x, start: int, kv=None):
     """Write ``x`` into ``cache`` in place where
     ``jax.lax.dynamic_update_slice_in_dim(cache, x, start, axis=1)``
-    puts it: the start is clamped to ``[0, cache.shape[1] - x.shape[1]]``
-    so the update always fits (a write past the end overwrites the last
-    rows).  Returns ``cache``."""
+    puts it: the start is clamped to ``[0, length - x.shape[1]]`` so the
+    update always fits (a write past the end overwrites the last rows).
+    With ``kv`` (a ``sharding.SeqBlock``) ``cache`` is this rank's block
+    of positions of a cache ``kv.length`` long, and the rows of ``x``
+    that fall in it are written.  Returns ``cache``."""
     s = x.shape[1]
-    start = min(max(int(start), 0), cache.shape[1] - s)
-    cache[:, start:start + s] = x
+    length = kv.length if kv is not None else cache.shape[1]
+    lo = kv.start if kv is not None else 0
+    start = min(max(int(start), 0), length - s)
+    a, b = max(start, lo), min(start + s, lo + cache.shape[1])
+    if a < b:
+        cache[:, a - lo:b - lo] = (x if b - a == s
+                                   else x[:, a - start:b - start])
     return cache
 
 
 def _attn_block(x, p, cfg, mask_mode, prefix_len, cdt,
                 kv_override=None, q_offset=None, cache=None,
-                cache_len=None):
+                cache_len=None, stream=None, kv=None):
     """Pre-norm attention block over one layer's (unstacked) params.
     Returns (out, new_kv): on the decode path ``cache``, written in
     place at ``cache_len``, else this call's (k, v).  On one layer's
     blocks of a laid-out tree (``layers.Blocks``) it computes whole
-    heads on the active mesh (:func:`_sharded_heads`)."""
-    b, s, _ = x.shape
+    heads on the active mesh (:func:`_sharded_heads`).  ``stream``:
+    ``x``'s block of the residual stream (the output's too);
+    ``kv_override`` is whole; ``kv``: the cache's block of positions."""
+    b = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    h = ly.rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    h = _entry(ly.rms_norm(x, p["ln_attn"], cfg.norm_eps), stream)
+    s = h.shape[1]
     src = h if kv_override is None else kv_override
     specs = getattr(p, "specs", None)
     w = {n: p[n] for n in ("wq", "wk", "wv", "wo")}
+    qblk = shd.seq_block((b, s, nh, hd), ("batch", "cp_q", "heads", None))
     if specs is not None:
-        w, heads = _sharded_heads(p, cfg, cdt)
+        w, heads = _sharded_heads(p, cfg, cdt, qblk.axes + (
+            kv.axes if kv is not None else ()))
     q = h @ w["wq"].to(cdt)
     k = src @ w["wk"].to(cdt)
     v = src @ w["wv"].to(cdt)
@@ -266,17 +297,17 @@ def _attn_block(x, p, cfg, mask_mode, prefix_len, cdt,
         v = v + p["bv"].to(cdt)
     if specs is not None:
         q, k, v, nh, nkv = heads(q, k, v)
-    q = q.reshape(b, s, nh, hd)
+    q = shd.seq_take(q, qblk).reshape(b, qblk.size, nh, hd)
     k = k.reshape(b, src.shape[1], nkv, hd)
     v = v.reshape(b, src.shape[1], nkv, hd)
     if mask_mode != "full" or kv_override is None:
-        pos_q = torch.arange(s, device=x.device)
+        pos = torch.arange(s, device=x.device)
         if q_offset is not None:
-            pos_q = q_offset + pos_q
-        q = ly.rope(q, pos_q[None, :], cfg.rope_theta)
+            pos = q_offset + pos
+        q = ly.rope(q, shd.seq_take(pos, qblk, 0)[None, :], cfg.rope_theta)
         if cache is None or kv_override is None:
             pos_k = (torch.arange(k.shape[1], device=x.device)
-                     if cache is None else pos_q)
+                     if cache is None else pos)
             k = ly.rope(k, pos_k[None, :], cfg.rope_theta)
     if cache is not None:
         if cache[0].shape[2] != nkv:
@@ -288,23 +319,35 @@ def _attn_block(x, p, cfg, mask_mode, prefix_len, cdt,
             k_cache, v_cache, k_sc, v_sc = cache
             kq, ks = attn.quantize_kv(k)
             vq, vs = attn.quantize_kv(v)
-            new_cache = (cache_write(k_cache, kq, cache_len),
-                         cache_write(v_cache, vq, cache_len),
-                         cache_write(k_sc, ks, cache_len),
-                         cache_write(v_sc, vs, cache_len))
-            o = attn.decode_attention_q8(q, *new_cache, cache_len + s)
+            new_cache = (cache_write(k_cache, kq, cache_len, kv),
+                         cache_write(v_cache, vq, cache_len, kv),
+                         cache_write(k_sc, ks, cache_len, kv),
+                         cache_write(v_sc, vs, cache_len, kv))
+            o = attn.decode_attention_q8(q, *new_cache, cache_len + s, kv)
         else:
             k_cache, v_cache = cache
-            new_cache = (cache_write(k_cache, k, cache_len),
-                         cache_write(v_cache, v, cache_len))
-            o = attn.decode_attention(q, *new_cache, cache_len + s)
+            new_cache = (cache_write(k_cache, k, cache_len, kv),
+                         cache_write(v_cache, v, cache_len, kv))
+            o = attn.decode_attention(q, *new_cache, cache_len + s, kv)
     else:
-        o = attn.attention(q, k, v, mask_mode, prefix_len)
+        o = attn.attention(q, k, v, mask_mode, prefix_len,
+                           q_offset=qblk.start, q_len=s)
         new_cache = (k, v)
-    o = o.reshape(b, s, nh * hd)
-    if specs is not None:
-        return heads.out(o), new_cache
-    return o @ w["wo"].to(cdt), new_cache
+    o = o.reshape(b, qblk.size, nh * hd)
+    if specs is None:
+        return o @ w["wo"].to(cdt), new_cache
+    if qblk.axes:     # cp_q: this rank's q rows, from the whole wo
+        out = (heads.out(o) if heads.local else
+               o @ heads.wo_rows().to(cdt))
+        return shd.seq_move(out, qblk, stream or shd.whole_seq(s)), \
+            new_cache
+    return heads.out(o, stream), new_cache
+
+
+def _entry(h, stream):
+    """A block's normed input whole: the sequence all-gathered from this
+    rank's block ``stream`` (Megatron-SP's block entry)."""
+    return h if stream is None else shd.seq_gather(h, stream)
 
 
 class _Heads:
@@ -315,15 +358,18 @@ class _Heads:
     divides over the axis), so it attends alone to its block of the
     cache; otherwise each split projection is all-gathered over its
     axes before the head reshape and every rank attends to all heads
-    (with the cache replicated).  ``wo``'s rows follow the q heads'
-    split and one sum over the mesh ends the block."""
+    (with the cache replicated).  Heads are never ``local`` over an axis
+    a sequence layout of q or of the cache takes (``seq_axes``).
+    ``wo``'s rows follow the q heads' split and one sum over the mesh
+    ends the block."""
 
-    def __init__(self, cfg, cdt, q_axes, kv_axes, o_axes, wo):
+    def __init__(self, cfg, cdt, q_axes, kv_axes, o_axes, wo, seq_axes=()):
         mesh = shd.active_mesh()
         self.mesh, self.cdt, self.wo = mesh, cdt, wo
+        free = not (set(q_axes) | set(kv_axes)) & set(seq_axes)
         n_kv = shd.axes_size(mesh, kv_axes) if kv_axes else 1
         self.local = bool(kv_axes) and cfg.n_kv % n_kv == 0 \
-            and q_axes == kv_axes
+            and q_axes == kv_axes and free
         self.q_axes, self.kv_axes, self.o_axes = q_axes, kv_axes, o_axes
         n = n_kv if self.local else 1
         self.nh, self.nkv = cfg.n_heads // n, cfg.n_kv // n
@@ -335,26 +381,33 @@ class _Heads:
             v = ly.gather_last(v, self.kv_axes, self.mesh)
         return q, k, v, self.nh, self.nkv
 
-    def out(self, o):
+    def out(self, o, stream=None):
         """The block's output from this rank's attention ``o``: this
         rank's columns of ``o`` (all of them when local) times its rows
-        of ``wo``, summed over ``wo``'s row axes."""
+        of ``wo``, summed over ``wo``'s row axes (to this rank's block
+        ``stream`` of the sequence)."""
         if self.o_axes and not self.local:
             k = shd.axes_size(self.mesh, self.o_axes)
             size = o.shape[-1] // k
             o = o.narrow(-1, shd.block_index(self.o_axes, self.mesh) * size,
                          size)
-        return ly.row_parallel(o, self.wo, self.cdt, self.o_axes)
+        return ly.row_parallel(o, self.wo, self.cdt, self.o_axes, stream)
+
+    def wo_rows(self):
+        """``wo`` with its rows gathered whole (``cp_q``: a rank's
+        output rows are then its q block's, with no sum)."""
+        return shd.gather_dim(self.wo, self.o_axes, 0, self.mesh)
 
 
-def _sharded_heads(p, cfg, cdt):
-    """One layer's projections of a laid-out tree with their ``fsdp``
-    dimension gathered, and its :class:`_Heads`."""
+def _sharded_heads(p, cfg, cdt, seq_axes=()):
+    """One layer's projections of a laid-out tree in ``cdt`` with their
+    ``fsdp`` dimension gathered, and its :class:`_Heads` (``seq_axes``:
+    the mesh axes a sequence layout of q or of the cache takes)."""
     sp = p.specs
-    w = {"wq": shd.gather_param(p["wq"], "fsdp", "heads", spec=sp["wq"]),
-         "wk": shd.gather_param(p["wk"], "fsdp", "kv", spec=sp["wk"]),
-         "wv": shd.gather_param(p["wv"], "fsdp", "kv", spec=sp["wv"]),
-         "wo": shd.gather_param(p["wo"], "heads", "fsdp", spec=sp["wo"])}
+    names = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv"),
+             "wv": ("fsdp", "kv"), "wo": ("heads", "fsdp")}
+    w = {n: shd.gather_param(p[n].to(cdt), *ax, spec=sp[n])
+         for n, ax in names.items()}
     mesh = shd.active_mesh()
 
     def axes(name, names, dim):
@@ -362,21 +415,22 @@ def _sharded_heads(p, cfg, cdt):
         return ly.split_over(shd.resolve_spec(shape, names), dim)
     heads = _Heads(cfg, cdt, axes("wq", (None, "heads"), 1),
                    axes("wk", (None, "kv"), 1),
-                   axes("wo", ("heads", None), 0), w["wo"])
+                   axes("wo", ("heads", None), 0), w["wo"], seq_axes)
     return w, heads
 
 
-def _mlp_block(x, p, cfg, cdt):
-    h = ly.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+def _mlp_block(x, p, cfg, cdt, stream=None):
+    h = _entry(ly.rms_norm(x, p["ln_mlp"], cfg.norm_eps), stream)
     specs = getattr(p, "specs", None)
     if specs is not None:
         specs = tuple(specs[n] for n in ("w_gate", "w_up", "w_down"))
-    return ly.swiglu(h, p["w_gate"], p["w_up"], p["w_down"], cdt, specs)
+    return ly.swiglu(h, p["w_gate"], p["w_up"], p["w_down"], cdt, specs,
+                     stream)
 
 
-def _moe_block(x, p, cfg, cdt):
-    h = ly.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    return moe_mod.moe_block(h, p, cfg, cdt)
+def _moe_block(x, p, cfg, cdt, stream=None):
+    h = _entry(ly.rms_norm(x, p["ln_mlp"], cfg.norm_eps), stream)
+    return moe_mod.moe_block(h, p, cfg, cdt, stream)
 
 
 def _layer_keys(params, cfg):
@@ -450,21 +504,23 @@ def _cross_decode(x, lp, cfg, cdt, xk, xv):
 
 
 def _decoder_block(x, lp, cfg, cdt, mask_mode="causal", prefix_len=0,
-                   enc_out=None):
-    """One decoder layer (the training/prefill path)."""
+                   enc_out=None, stream=None):
+    """One decoder layer (the training/prefill path); ``x`` this rank's
+    block ``stream`` of the residual stream."""
     fam = cfg.family
     if fam in ("ssm", "hybrid"):
-        h = ly.rms_norm(x, lp["ln"], cfg.norm_eps)
-        return x + ssm_mod.mamba2_block(h, lp, cfg, cdt)
-    a, _ = _attn_block(x, lp, cfg, mask_mode, prefix_len, cdt)
+        h = _entry(ly.rms_norm(x, lp["ln"], cfg.norm_eps), stream)
+        return x + ssm_mod.mamba2_block(h, lp, cfg, cdt, stream)
+    a, _ = _attn_block(x, lp, cfg, mask_mode, prefix_len, cdt,
+                       stream=stream)
     x = x + a
     if fam == "encdec" and enc_out is not None:
         xa, _ = _attn_block(x, _cross(lp), cfg, "full", 0, cdt,
-                            kv_override=enc_out)
+                            kv_override=enc_out, stream=stream)
         x = x + xa
     if fam == "moe":
-        return x + _moe_block(x, lp, cfg, cdt)
-    return x + _mlp_block(x, lp, cfg, cdt)
+        return x + _moe_block(x, lp, cfg, cdt, stream)
+    return x + _mlp_block(x, lp, cfg, cdt, stream)
 
 
 def _shared_due(cfg, idx: int) -> bool:
@@ -494,11 +550,13 @@ def _shared_params(params):
     return ly.Blocks(shared, params.specs["shared_attn"])
 
 
-def _shared_block(x, shared, cfg, cdt, mask_mode, prefix_len):
+def _shared_block(x, shared, cfg, cdt, mask_mode, prefix_len,
+                  stream=None):
     """zamba2's shared attention + MLP block."""
-    a, _ = _attn_block(x, shared, cfg, mask_mode, prefix_len, cdt)
+    a, _ = _attn_block(x, shared, cfg, mask_mode, prefix_len, cdt,
+                       stream=stream)
     x = x + a
-    return x + _mlp_block(x, shared, cfg, cdt)
+    return x + _mlp_block(x, shared, cfg, cdt, stream)
 
 
 def _unstack(params, keys):
@@ -516,16 +574,17 @@ def _unstack(params, keys):
 
 
 def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
-                enc_out=None, tap=_no_tap):
+                enc_out=None, tap=_no_tap, stream=None):
     layers = _unstack(params, _layer_keys(params, cfg))
     shared = _shared_params(params)
     for i in range(cfg.n_layers):
         x = tap(f"layer{i}", _remat(
             cfg, _decoder_block, x, layers[i], cfg, cdt,
-            mask_mode, prefix_len, enc_out))
+            mask_mode, prefix_len, enc_out, stream))
         if _shared_due(cfg, i):
             x = tap(f"shared{i}", _remat(cfg, _shared_block, x, shared,
-                                         cfg, cdt, mask_mode, prefix_len))
+                                         cfg, cdt, mask_mode, prefix_len,
+                                         stream))
     return x
 
 
@@ -533,34 +592,22 @@ def _run_layers(x, params, cfg, cdt, mask_mode="causal", prefix_len=0,
 # public forward passes
 # ---------------------------------------------------------------------------
 
-# the logical axes of the sequence- and context-parallel layouts, which
-# only the dry-run turns on (ROADMAP queue A item 3)
-SEQ_AXES = ("seq", "kvseq", "cp_seq", "cp_q")
+def stream_layout(shape, mesh=None, rules=None):
+    """This rank's block of the residual stream ``[B, S, d]`` (a
+    ``sharding.SeqBlock`` of dimension 1) under ``(mesh, rules)`` (the
+    active pair when omitted): ``("batch", "cp_seq", "embed")`` where
+    it splits the sequence, else ``("batch", "seq", "embed")``."""
+    blk = shd.seq_block(shape, ("batch", "cp_seq", "embed"), 1, mesh,
+                        rules)
+    if blk.axes:
+        return blk
+    return shd.seq_block(shape, ("batch", "seq", "embed"), 1, mesh, rules)
 
 
-def refuse_seq_layouts(mesh, rules) -> None:
-    """Raise ``NotImplementedError`` for ``rules`` that split the
-    sequence over more than one rank of ``mesh`` (``seq``, ``kvseq``,
-    ``cp_seq`` or ``cp_q`` resolving to mesh axes of more than one rank):
-    the port computes with the sequence whole on every rank."""
-    for name in SEQ_AXES:
-        axes = tuple(a for a in (rules.get(name) or ()) if a in mesh.shape)
-        if axes and shd.axes_size(mesh, axes) > 1:
-            raise NotImplementedError(
-                f"rules that split {name!r} over {axes} ({mesh.shape}) lay "
-                f"the sequence out over ranks: that is ROADMAP queue A "
-                f"item 3 (the dry-run tooling), not implemented here")
-
-
-def _laid_out(params, cfg) -> bool:
-    """Whether ``params`` is a laid-out tree; raises for one whose rules
-    split the sequence (:func:`refuse_seq_layouts`; no fallback gathers
-    it to one rank)."""
-    mesh = shd.tree_mesh(params)
-    if mesh is None:
-        return False
-    refuse_seq_layouts(mesh, params.rules)
-    return True
+def logits_layout(shape, mesh=None, rules=None):
+    """The logits' block of positions: ``("batch", "seq", "vocab")``
+    on their shape ``[B, S, V]``."""
+    return shd.seq_block(shape, ("batch", "seq", "vocab"), 1, mesh, rules)
 
 
 def vocab_axes(params, cfg):
@@ -582,17 +629,22 @@ def vocab_rows(params) -> int:
     return n
 
 
-def embed_tokens(params, cfg, tokens, cdt):
+def embed_tokens(params, cfg, tokens, cdt, seq=None):
     """Rows of the embedding table.  jnp indexing clamps an id past the
     table; here an id outside ``[0, vocab_padded)`` is an error.  Ids on
     the host are checked at once (``ValueError``); ids on the card by an
     asynchronous device assert, which reads nothing back and fails the
     next synchronising call.  On a vocab-split table each rank takes
     the ids in its rows and zeros for the others, and one sum over the
-    mesh gives every rank the rows (exact: one term is nonzero)."""
+    mesh gives every rank the rows (exact: one term is nonzero).  With
+    ``seq`` (a ``sharding.SeqBlock`` of the ids' positions) the rows of
+    this rank's block: where the vocab's axes are the block's, the sum
+    is a reduce-scatter (``layers.reduce_to_seq``)."""
     n = vocab_rows(params)
     ok = ((tokens >= 0) & (tokens < n)).all()
-    if tokens.device.type == "cpu":
+    if tokens.is_meta:
+        pass
+    elif tokens.device.type == "cpu":
         if not bool(ok):
             raise ValueError(f"token id out of range [0, {n})")
     else:
@@ -600,15 +652,19 @@ def embed_tokens(params, cfg, tokens, cdt):
     axes = (ly.split_over(params.specs["embed"], 0)
             if isinstance(params, shd.LaidOutTree) else ())
     if not axes:
+        if seq is not None:
+            tokens = shd.seq_take(tokens, seq)
         return params["embed"][tokens].to(cdt)
     table = params["embed"]
     rows = table.shape[0]
+    if seq is not None and not set(seq.axes) & set(axes):
+        tokens, seq = shd.seq_take(tokens, seq), None
     local = tokens - shd.block_index(axes, params.mesh) * rows
     mine = (local >= 0) & (local < rows)
     x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
                     torch.zeros((), dtype=table.dtype,
                                 device=table.device))
-    return ly.psum_axes(x.to(cdt), axes, params.mesh)
+    return ly.reduce_to_seq(x.to(cdt), axes, seq)
 
 
 def logits_out(params, cfg, x, cdt):
@@ -621,8 +677,11 @@ def logits_out(params, cfg, x, cdt):
 
 
 def _encode(params, cfg, frames, cdt, tap=_no_tap):
-    """Whisper encoder over stub frame embeddings [B, T_enc, d]."""
-    x = frames.to(cdt) + params["enc_pos"].to(cdt)[None]
+    """Whisper encoder over stub frame embeddings [B, T_enc, d]; its
+    output whole (gathered from the encoder's stream once)."""
+    stream = stream_layout(frames.shape)
+    x = shd.seq_take(frames.to(cdt) + params["enc_pos"].to(cdt)[None],
+                     stream)
     names = ("wq", "wk", "wv", "wo", "ln_attn", "w_gate", "w_up",
              "w_down", "ln_mlp")
     enc = {k: params["enc_" + k] for k in names}
@@ -632,21 +691,22 @@ def _encode(params, cfg, frames, cdt, tap=_no_tap):
                               params.rules)
     layers = _unstack(enc, names)
     for i in range(cfg.n_enc_layers):
-        x = tap(f"enc{i}", _remat(cfg, _enc_block, x, layers[i], cfg, cdt))
-    return x
+        x = tap(f"enc{i}", _remat(cfg, _enc_block, x, layers[i], cfg, cdt,
+                                  stream))
+    return shd.seq_gather(x, stream)
 
 
-def _enc_block(x, lp, cfg, cdt):
-    a, _ = _attn_block(x, lp, cfg, "full", 0, cdt)
+def _enc_block(x, lp, cfg, cdt, stream=None):
+    a, _ = _attn_block(x, lp, cfg, "full", 0, cdt, stream=stream)
     x = x + a
-    return x + _mlp_block(x, lp, cfg, cdt)
+    return x + _mlp_block(x, lp, cfg, cdt, stream)
 
 
 def _on_tree(params, cfg):
     """The context a pass over ``params`` runs in: its mesh and rules
     active for a laid-out tree (``sharding.use_mesh``), nothing for a
     global one."""
-    if _laid_out(params, cfg):
+    if isinstance(params, shd.LaidOutTree):
         return shd.use_mesh(params.mesh, params.rules)
     return contextlib.nullcontext()
 
@@ -661,9 +721,11 @@ def forward(params, cfg: ModelConfig, tokens, frontend=None, tap=None):
     On a laid-out tree (``sharding.lay_out``) every rank of its mesh
     must call this, with its rows of the batch (and of ``frontend``):
     the block of ``[B, ...]`` that ``("batch", ...)`` resolves to, all
-    of it where the batch is not split.  Each gets its rows' block of
-    the logits (``[B_rank, S, vocab_padded / S]`` on a vocab-split
-    head)."""
+    of it where the batch is not split, and every position.  Each gets
+    its rows' block of the logits (``[B_rank, S, vocab_padded / S]`` on
+    a vocab-split head; the positions of :func:`logits_layout` where
+    ``seq`` splits them).  Under a sequence layout ``tap`` sees and
+    returns this rank's block of the stream (:func:`stream_layout`)."""
     with _on_tree(params, cfg):
         return _forward(params, cfg, tokens, frontend, tap)
 
@@ -671,18 +733,27 @@ def forward(params, cfg: ModelConfig, tokens, frontend=None, tap=None):
 def _forward(params, cfg, tokens, frontend, tap):
     tap = tap or _no_tap
     cdt = _dt(cfg)
-    x = embed_tokens(params, cfg, tokens, cdt)
+    b, s = tokens.shape
     mask_mode, prefix_len, enc_out = "causal", 0, None
-    if cfg.family == "vlm" and frontend is not None:
-        x = torch.cat([frontend.to(cdt), x], dim=1)
+    front = cfg.family == "vlm" and frontend is not None
+    n_front = cfg.img_tokens if front else 0
+    stream = stream_layout((b, n_front + s, cfg.d_model))
+    if front:
+        x = torch.cat([frontend.to(cdt),
+                       embed_tokens(params, cfg, tokens, cdt)], dim=1)
+        x = shd.seq_take(x, stream)
         mask_mode, prefix_len = "prefix", cfg.img_tokens
+    else:
+        x = embed_tokens(params, cfg, tokens, cdt, stream)
     x = tap("embed", x)
     if cfg.family == "encdec":
         enc_out = _encode(params, cfg, frontend, cdt, tap)
     x = _run_layers(x, params, cfg, cdt, mask_mode, prefix_len, enc_out,
-                    tap)
-    if cfg.family == "vlm" and frontend is not None:
-        x = x[:, cfg.img_tokens:]
+                    tap, stream)
+    out = logits_layout((b, s, cfg.vocab_padded))
+    if front or out.axes != stream.axes:
+        x = shd.seq_gather(x, stream)[:, n_front:]
+        x = shd.seq_take(x, out)
     return logits_out(params, cfg, x, cdt)
 
 
@@ -699,20 +770,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
     rank's block of each tensor in the layout :func:`cache_axes`
     resolves to under ``rules`` (``default_rules()`` when omitted): the
     cache of a tree laid out on that mesh (``batch`` is then the global
-    batch).  Rules that split the sequence raise
-    (:func:`refuse_seq_layouts`)."""
-    dev = _device(device)
+    batch), returned as a ``sharding.LaidOutTree`` that carries each
+    tensor's spec (``kvseq`` splits the positions of ``k``/``v`` and of
+    the int8 scales alike).  On ``"meta"``: shapes only."""
+    dev = (torch.device(device) if str(device) == "meta"
+           else _device(device))
     cdt = _dt(cfg)
     nkv, hd = cfg.n_kv, cfg.head_dim
     axes = cache_axes(cfg)
     rules = rules if rules is not None else shd.default_rules()
-    if mesh is not None:
-        refuse_seq_layouts(mesh, rules)
+    specs: Dict[str, Any] = {}
 
     def mk(shape, dtype, name):
         if mesh is not None:
-            shape = shd.local_shape(
-                shape, shd.resolve_spec(shape, axes[name], mesh, rules), mesh)
+            specs[name] = shd.resolve_spec(shape, axes[name], mesh, rules)
+            shape = shd.local_shape(shape, specs[name], mesh)
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=dev)
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     cache: Dict[str, Any] = {}
@@ -740,7 +814,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
             n_attn = cfg.n_layers // cfg.attn_every
             cache["k"] = mk((n_attn, batch, max_seq, nkv, hd), cdt, "k")
             cache["v"] = mk((n_attn, batch, max_seq, nkv, hd), cdt, "v")
-    return cache
+    if mesh is None:
+        return cache
+    return shd.LaidOutTree(cache, specs, mesh, rules)
+
+
+def _cache_seq(cache, params):
+    """The block of positions (dimension 2 of the stacked ``k``) this
+    rank's cache holds: from the specs a laid-out cache carries; a
+    plain dict of blocks must hold every position (its layout is not
+    known), which the tree's rules must then leave whole."""
+    if "k" not in cache or not isinstance(params, shd.LaidOutTree):
+        return None
+    mesh, k = params.mesh, cache["k"]
+    if isinstance(cache, shd.LaidOutTree):
+        axes = ly.split_over(cache.specs["k"], 2)
+        if not axes:
+            return None
+        size = k.shape[2]
+        return shd.SeqBlock(axes, size * shd.axes_size(mesh, axes),
+                            shd.block_index(axes, mesh) * size, size)
+    names = ("layers", "batch", "kvseq", "kv", None)
+    if ly.split_over(shd.resolve_spec(k.shape, names, mesh, params.rules),
+                     2):
+        raise ValueError("the tree's rules split the cache's positions "
+                         "(kvseq): pass the cache init_cache(..., mesh=) "
+                         "lays out, which carries its layout")
+    return None
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache,
@@ -750,8 +850,10 @@ def decode_step(params, cfg: ModelConfig, tokens, cache,
     The cache passed in is left as it was: each stacked tensor the step
     writes is copied once, and the layers write into the copy.  On a
     laid-out tree every rank of its mesh must call this with its rows of
-    ``tokens`` and the cache ``init_cache(..., mesh=)`` lays out; each
-    gets its rows' block of the logits, as :func:`forward`."""
+    ``tokens`` and the cache ``init_cache(..., mesh=)`` lays out (under
+    ``kvseq``, its block of positions); each gets its rows' block of the
+    logits, as :func:`forward`, and the cache in the layout it was
+    given."""
     with _on_tree(params, cfg):
         return _decode_step(params, cfg, tokens, cache, cache_len)
 
@@ -761,10 +863,13 @@ def _decode_step(params, cfg, tokens, cache, cache_len):
     x = embed_tokens(params, cfg, tokens, cdt)
     keys = _layer_keys(params, cfg)
     fam = cfg.family
+    kv = _cache_seq(cache, params)
     written = [k for k in ("k", "v", "k_sc", "v_sc", "ssm", "conv")
                if k in cache]
-    cache = {k: (v.clone() if k in written else v)
-             for k, v in cache.items()}
+    copy = {k: (v.clone() if k in written else v) for k, v in cache.items()}
+    if isinstance(cache, shd.LaidOutTree):
+        copy = shd.LaidOutTree(copy, cache.specs, cache.mesh, cache.rules)
+    cache = copy
 
     if fam in ("dense", "vlm", "encdec", "moe"):
         names = (("k", "v", "k_sc", "v_sc") if "k_sc" in cache
@@ -774,7 +879,7 @@ def _decode_step(params, cfg, tokens, cache, cache_len):
             a, _ = _attn_block(
                 x, lp, cfg, "causal", 0, cdt, q_offset=cache_len,
                 cache=tuple(cache[n][i] for n in names),
-                cache_len=cache_len)
+                cache_len=cache_len, kv=kv)
             x = x + a
             if fam == "encdec":
                 x = x + _cross_decode(x, lp, cfg, cdt, cache["xk"][i],
@@ -797,7 +902,7 @@ def _decode_step(params, cfg, tokens, cache, cache_len):
                 a, _ = _attn_block(
                     x, shared, cfg, "causal", 0, cdt, q_offset=cache_len,
                     cache=(cache["k"][j], cache["v"][j]),
-                    cache_len=cache_len)
+                    cache_len=cache_len, kv=kv)
                 j += 1
                 x = x + a
                 x = x + _mlp_block(x, shared, cfg, cdt)

@@ -99,9 +99,9 @@ def route(x, p, cfg, compute_dtype) -> Plan:
     return Plan(top_e, cap, stok, slot, keep, gate)
 
 
-def _experts(p):
+def _experts(p, cdt):
     """This rank's expert weights ``(w_gate, w_up, w_down)``, their
-    ``fsdp`` dimension gathered, and the mesh axes their expert
+    ``fsdp`` dimension gathered (in ``cdt``), and the mesh axes their expert
     dimension and their ``ff`` dimension stay split over (``()``
     meshless)."""
     names = ("w_gate", "w_up", "w_down")
@@ -111,15 +111,16 @@ def _experts(p):
     sd = specs["w_down"]
     e_axes = ly.compute_axes(p["w_down"], sd, ("expert", "mlp", None), 0)
     f_axes = ly.compute_axes(p["w_down"], sd, ("expert", "mlp", None), 1)
-    w = (shd.gather_param(p["w_gate"], "expert", "fsdp", "mlp",
+    w = (shd.gather_param(p["w_gate"].to(cdt), "expert", "fsdp", "mlp",
                           spec=specs["w_gate"]),
-         shd.gather_param(p["w_up"], "expert", "fsdp", "mlp",
+         shd.gather_param(p["w_up"].to(cdt), "expert", "fsdp", "mlp",
                           spec=specs["w_up"]),
-         shd.gather_param(p["w_down"], "expert", "mlp", "fsdp", spec=sd))
+         shd.gather_param(p["w_down"].to(cdt), "expert", "mlp", "fsdp",
+                          spec=sd))
     return w, e_axes, f_axes
 
 
-def moe_block(x, p, cfg, compute_dtype):
+def moe_block(x, p, cfg, compute_dtype, seq=None):
     """x: [B, S, d].  p: the layer's router/w_gate/w_up/w_down
     (expert-stacked) and, for arctic, res_gate/res_up/res_down.
     Returns [B, S, d].  Each batch row is a group with its own capacity,
@@ -132,13 +133,17 @@ def moe_block(x, p, cfg, compute_dtype):
     its ``ff`` block where the expert axis did not divide and ``mlp``
     took the axis), and combines its kept entries; one sum over the
     expert and ``ff`` axes ends the block.  The capacity and the drops
-    are the global function's, since the plan is."""
+    are the global function's, since the plan is.  With ``seq`` (a
+    ``sharding.SeqBlock``; ``x`` the whole sequence, as the routing
+    needs) the output is this rank's block of the sequence: the sum
+    over the expert axes a reduce-scatter where they are ``seq``'s
+    (``layers.reduce_to_seq``)."""
     b, s, d = x.shape
     cdt = compute_dtype
     dev = x.device
     plan = route(x, p, cfg, cdt)
     cap, stok, slot, keep = plan.cap, plan.stok, plan.slot, plan.keep
-    (w_gate, w_up, w_down), e_axes, f_axes = _experts(p)
+    (w_gate, w_up, w_down), e_axes, f_axes = _experts(p, cdt)
     e = w_gate.shape[0]                       # this rank's experts
     lo = (shd.block_index(e_axes, shd.active_mesh()) * e * cap
           if e_axes else 0)
@@ -175,13 +180,13 @@ def moe_block(x, p, cfg, compute_dtype):
                    (contrib * plan.gate[..., None]).reshape(
                        b * s * cfg.top_k, d).to(acc))
     y = out.reshape(b, s, d)
-    if split:
-        y = ly.psum_axes(y, split).to(cdt)
+    if split or seq is not None:
+        y = ly.reduce_to_seq(y, split, seq).to(cdt)
 
     if cfg.dense_residual_ff:
         specs = getattr(p, "specs", None)
         y = y + ly.swiglu(x, p["res_gate"], p["res_up"], p["res_down"], cdt,
                           None if specs is None else tuple(
                               specs[n] for n in ("res_gate", "res_up",
-                                                 "res_down")))
+                                                 "res_down")), seq)
     return y

@@ -88,7 +88,7 @@ class _Split:
     gathered whole where the two blocks differ, and one sum over its
     row axes ends the block."""
 
-    def __init__(self, p, cfg):
+    def __init__(self, p, cfg, cdt):
         self.cfg = cfg
         specs = getattr(p, "specs", None)
         self.in_proj, self.out_proj = p["in_proj"], p["out_proj"]
@@ -102,10 +102,10 @@ class _Split:
                                          (None, "ssm_proj"), 1)
         self.row_axes = ly.compute_axes(p["out_proj"], specs["out_proj"],
                                         ("ssm_proj", None), 0)
-        self.in_proj = shd.gather_param(p["in_proj"], "fsdp", "ssm_proj",
-                                        spec=specs["in_proj"])
-        self.out_proj = shd.gather_param(p["out_proj"], "ssm_proj", "fsdp",
-                                         spec=specs["out_proj"])
+        self.in_proj = shd.gather_param(p["in_proj"].to(cdt), "fsdp",
+                                        "ssm_proj", spec=specs["in_proj"])
+        self.out_proj = shd.gather_param(p["out_proj"].to(cdt), "ssm_proj",
+                                         "fsdp", spec=specs["out_proj"])
         self.head_axes = ly.split_over(specs["dt_bias"], 0)
         if self.head_axes:
             self.h0 = (shd.block_index(self.head_axes, mesh)
@@ -126,9 +126,10 @@ class _Split:
         hd = self.cfg.ssm_head_dim
         return slice(self.h0 * hd, (self.h0 + hl) * hd)
 
-    def gate_out(self, y, z, p, cdt):
+    def gate_out(self, y, z, p, cdt, seq=None):
         """This rank's heads' ``y`` ``[..., hl * hd]`` gated by ``z``,
-        normed over all of ``d_inner`` and through ``out_proj``."""
+        normed over all of ``d_inner`` and through ``out_proj`` (to this
+        rank's block ``seq`` of the sequence)."""
         cols = self.heads(y.shape[-1] // self.cfg.ssm_head_dim)
         y = y.to(cdt) * F.silu(z[..., cols])
         y = ly.rms_norm(y, p["norm"][cols], self.cfg.norm_eps,
@@ -137,17 +138,19 @@ class _Split:
             if self.head_axes:
                 y = ly.gather_last(y, self.head_axes)
             y = y[..., self.r0:self.r0 + self.out_proj.shape[0]]
-        return ly.row_parallel(y, self.out_proj, cdt, self.row_axes)
+        return ly.row_parallel(y, self.out_proj, cdt, self.row_axes, seq)
 
 
-def mamba2_block(x, p, cfg, compute_dtype):
+def mamba2_block(x, p, cfg, compute_dtype, seq=None):
     """Full Mamba2 block: in_proj -> conv -> SSD -> gated norm ->
     out_proj.  x [B,S,d] -> [B,S,d].  On a laid-out layer the scan runs
-    on this rank's heads (:class:`_Split`)."""
+    on this rank's heads (:class:`_Split`).  The scan needs the whole
+    sequence: with ``seq`` (a ``sharding.SeqBlock``; ``x`` whole) the
+    output is this rank's block of it (``layers.row_parallel``)."""
     b, s, d = x.shape
     di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     cdt = compute_dtype
-    sp = _Split(p, cfg)
+    sp = _Split(p, cfg, cdt)
     hl = p["dt_bias"].shape[0]
     z, xbc, dt = sp.project(x, cdt)
     xbc = F.silu(_causal_conv(xbc, p["conv_w"].to(cdt),
@@ -159,7 +162,7 @@ def mamba2_block(x, p, cfg, compute_dtype):
     xh = xs.reshape(b, s, hl, hd)
     y, _ = ssd_chunked(xh, dt, p["A"], Bm, Cm, cfg.ssm_chunk)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    return sp.gate_out(y.reshape(b, s, hl * hd), z, p, cdt)
+    return sp.gate_out(y.reshape(b, s, hl * hd), z, p, cdt, seq)
 
 
 def mamba2_decode(x, state, p, cfg, compute_dtype):
@@ -170,7 +173,7 @@ def mamba2_decode(x, state, p, cfg, compute_dtype):
     di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     cdt = compute_dtype
     f32 = torch.float32
-    sp = _Split(p, cfg)
+    sp = _Split(p, cfg, cdt)
     hl = p["dt_bias"].shape[0]
     if state["ssm"].shape[1] != hl:
         raise ValueError(f"the ssm cache holds {state['ssm'].shape[1]} "

@@ -11,6 +11,8 @@ reference                                       here
 ``jax.lax.all_gather(x, axis)``                 :func:`all_gather` (stacked)
 ``jax.lax.all_gather(x, axis, tiled=True)``     :func:`all_gather_tiled`
 ``jax.lax.psum(x, axis)``                       :func:`psum`
+``jax.lax.pmax(x, axis)``                       :func:`pmax`
+``jax.lax.psum_scatter(x, axis, dim, tiled)``   :func:`reduce_scatter`
 ``jax.lax.all_to_all(x, axis, 0, 0, tiled)``    :func:`all_to_all`
 ``jax.lax.ppermute(x, axis, perm)``             :func:`ppermute`
 ``jax.lax.axis_index(axis)``                    ``mesh.coords[axis]``
@@ -34,13 +36,58 @@ never a point-to-point call (gloo's ``send``/``recv`` take CPU tensors
 only).  Booleans travel as int32; the moving collectives carry 16-bit
 floats as their bytes, and :func:`psum` sums them in float32 and rounds
 the sum once.
+
+Inside :func:`recording` every collective over more than one rank
+appends ``(kind, bytes, group size)`` to the recorder's list (the
+kinds and byte counts of the reference's HLO collectives: an
+all-gather's result, a reduce-scatter's scattered result, the other
+kinds' operand; ``launch.roofline`` prices them).  A collective on
+``meta`` tensors calls no process group: it returns a ``meta`` result
+of the right shape, so the dry-run counts a rank's step without a world
+(``launch/dryrun.py``); a tensor on a real device over a mesh of no
+process group (``sharding.AbstractMesh``) is refused.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 _HALF = (torch.bfloat16, torch.float16)
+
+
+class _Rec(threading.local):
+    def __init__(self):
+        self.log = None
+
+
+_REC = _Rec()
+
+
+@contextlib.contextmanager
+def recording():
+    """Within it, each collective over more than one rank appends
+    ``(kind, bytes, group size)`` to the list it yields: ``kind`` the
+    reference's HLO name (``all-gather``, ``all-reduce``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute``),
+    ``bytes`` what moves as that op's sized type (an all-gather's
+    gathered result, a reduce-scatter's scattered result, the operand
+    of the others).  Reentrant; thread-local."""
+    old, _REC.log = _REC.log, []
+    try:
+        yield _REC.log
+    finally:
+        _REC.log = old
+
+
+def _record(kind: str, x: torch.Tensor, n: int, scale: float = 1) -> None:
+    """Log ``kind`` moving ``scale`` times ``x``'s bytes over ``n``
+    ranks, inside :func:`recording`."""
+    if _REC.log is not None and n > 1:
+        _REC.log.append((kind, int(x.numel() * x.element_size() * scale),
+                         n))
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -59,20 +106,32 @@ def _unbytes(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.view(like.dtype) if y.dtype != like.dtype else y
 
 
-def _axis(mesh, axis):
+def _axis(mesh, axis, x: torch.Tensor):
+    """The size of ``axis`` and its process group: none over one rank
+    or for a ``meta`` ``x`` (its collective calls nothing).  A tensor on
+    a real device over a mesh of no process group (an ``AbstractMesh``)
+    raises ``ValueError``: it has no ranks to meet."""
     axis = mesh.axis if axis is None else axis
-    return mesh.shape[axis], mesh.axis_group(axis) if mesh.shape[
-        axis] > 1 else None
+    n = mesh.shape[axis]
+    if n == 1 or x.is_meta:
+        return n, None
+    if mesh.backend == "meta":
+        raise ValueError(f"a tensor on {x.device} over {mesh!r}, which "
+                         f"has no process group: only meta tensors")
+    return n, mesh.axis_group(axis)
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     """``[S, *x.shape]``: every rank's ``x`` along ``axis``, in axis
     order."""
     import torch.distributed as dist
-    n, group = _axis(mesh, axis)
+    n, group = _axis(mesh, axis, x)
     x = _wire(x)
     if n == 1:
         return x[None]
+    _record("all-gather", x, n, n)
+    if x.is_meta:
+        return x.expand(n, *x.shape).clone()
     w = _bytes(x)
     parts = [torch.empty_like(w) for _ in range(n)]
     dist.all_gather(parts, w, group=group)
@@ -89,12 +148,60 @@ def psum(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     """The elementwise sum of every rank's ``x`` along ``axis`` (a new
     tensor; 16-bit floats summed in float32, then rounded once)."""
     import torch.distributed as dist
-    n, group = _axis(mesh, axis)
+    n, group = _axis(mesh, axis, x)
     x = _wire(x)
     out = x.float() if x.dtype in _HALF else x.clone()
     if n > 1:
-        dist.all_reduce(out, group=group)
+        _record("all-reduce", out, n)
+        if not out.is_meta:
+            dist.all_reduce(out, group=group)
     return out.to(x.dtype)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` along ``axis`` (a new
+    tensor; exact in any dtype)."""
+    import torch.distributed as dist
+    n, group = _axis(mesh, axis, x)
+    out = _wire(x).clone()
+    if n > 1:
+        _record("all-reduce", out, n)
+        if not out.is_meta:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str = None,
+                   dim: int = 0) -> torch.Tensor:
+    """The elementwise sum of every rank's ``x`` along ``axis``, cut
+    into ``S`` blocks along ``dim`` (which ``S`` must divide), this
+    rank's block: the tiled ``psum_scatter``.  16-bit floats are summed
+    in float32 and rounded once, as :func:`psum`.  NCCL and gloo on CPU
+    tensors reduce-scatter; gloo on CUDA tensors, whose reduce-scatter
+    the port does not rely on, sums whole (one all-reduce) and takes
+    the block."""
+    import torch.distributed as dist
+    n, group = _axis(mesh, axis, x)
+    x = _wire(x)
+    acc = x.float() if x.dtype in _HALF else x
+    if n == 1:
+        return acc.clone().to(x.dtype)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"divide into {n} blocks")
+    size = x.shape[dim] // n
+    me = mesh.coords[mesh.axis if axis is None else axis]
+    _record("reduce-scatter", acc, n, 1 / n)
+    if x.is_meta:
+        return acc.narrow(dim, me * size, size).to(x.dtype)
+    if mesh.backend == "gloo" and x.device.type != "cpu":
+        whole = acc.clone()
+        dist.all_reduce(whole, group=group)
+        return whole.narrow(dim, me * size, size).contiguous().to(x.dtype)
+    parts = [p.contiguous() for p in acc.movedim(dim, 0).chunk(n)]
+    res = torch.empty_like(parts[0])
+    dist.reduce_scatter(res, parts, group=group)
+    return res.movedim(0, dim).contiguous().to(x.dtype)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
@@ -102,9 +209,12 @@ def all_to_all(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     (rows ``j*k .. j*k+k``) goes to rank j, and block i of the result
     came from rank i."""
     import torch.distributed as dist
-    n, group = _axis(mesh, axis)
+    n, group = _axis(mesh, axis, x)
     x = _wire(x)
     if n == 1:
+        return x.clone()
+    _record("all-to-all", x, n)
+    if x.is_meta:
         return x.clone()
     w = _bytes(x)
     out = torch.empty_like(w)
@@ -120,7 +230,7 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
     all-to-all with split sizes: a rank sends all of ``x`` to its
     destination and nothing to the others."""
     import torch.distributed as dist
-    n, group = _axis(mesh, axis)
+    n, group = _axis(mesh, axis, x)
     axis = mesh.axis if axis is None else axis
     me = mesh.coords[axis]
     dest = dict(perm)
@@ -132,6 +242,9 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
     x = _wire(x)
     if n == 1:
         return x.clone() if dest.get(0) == 0 else torch.zeros_like(x)
+    _record("collective-permute", x, n)
+    if x.is_meta:
+        return torch.zeros_like(x)
     w = _bytes(x).reshape(-1)
     k = w.numel()
     out = w.new_empty(k if me in src else 0)

@@ -21,8 +21,13 @@ spec))``); :func:`relayout` moves a block from one spec to another
 one); :func:`constrain` is the reference's layout constraint on a
 replicated tensor (this rank's view of it), and :func:`gather_param`
 its ZeRO-3 gather of the ``fsdp`` axes.  A :class:`LaidOutTree` is a
-parameter tree of blocks that carries its mesh, spec tree and rules
-(:func:`tree_mesh`), as a laid-out plane carries its mesh.
+parameter tree (or a decode cache) of blocks that carries its mesh,
+spec tree and rules (:func:`tree_mesh`), as a laid-out plane carries
+its mesh.  A :class:`SeqBlock` is this rank's block of a sequence
+dimension, decided by :func:`resolve_spec` on the tensor's own shape
+(:func:`seq_block`: the divisibility fallback keeps a length whole
+where the axes do not divide it); :func:`seq_take`, :func:`seq_gather`
+and :func:`seq_move` cut, gather and re-lay such a block.
 
 **The index plane.**  A :class:`Mesh` is one rank's view of the mesh:
 its axis sizes (``shape``), its coordinate on each axis (``coords``),
@@ -113,13 +118,26 @@ class Mesh:
 
 
 class AbstractMesh:
-    """A mesh's axis names and sizes and nothing else, the twin of
+    """A mesh's axis names and sizes, the twin of
     ``jax.sharding.AbstractMesh``: enough to resolve specs
     (:func:`resolve_spec`, ``layers.axes_to_specs``) for a mesh no rank
-    belongs to."""
+    belongs to.  It also stands for its rank 0, on the ``meta`` device
+    and in no process group: a pass over ``meta`` blocks laid out on it
+    computes shapes only, and its collectives call nothing
+    (``collectives``; a tensor on a real device is refused there), which
+    is how the dry-run counts a rank's step."""
+
+    backend = "meta"
+    axis = "model"
 
     def __init__(self, shape: dict):
         self.shape = dict(shape)
+        self.coords = {a: 0 for a in self.shape}
+        self.device = torch.device("meta")
+
+    def axis_group(self, axis: str):
+        raise ValueError(f"{self!r} has no process group (axis {axis!r}): "
+                         f"it computes on meta tensors only")
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape})"
@@ -310,6 +328,74 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple:
     return tuple(n // (axes_size(mesh, entry_axes(spec[d]))
                        if d < len(spec) else 1)
                  for d, n in enumerate(shape))
+
+
+class SeqBlock(NamedTuple):
+    """This rank's block of a sequence of ``length`` positions (a
+    tensor's dimension) laid out over the mesh ``axes`` (``()``: whole
+    on every rank): positions ``start .. start + size``."""
+    axes: Tuple[str, ...]
+    length: int
+    start: int
+    size: int
+
+
+def whole_seq(length: int) -> SeqBlock:
+    return SeqBlock((), int(length), 0, int(length))
+
+
+def seq_block(shape: Sequence[int], names: Sequence[Optional[str]],
+              dim: int = 1, mesh=None, rules: Optional[Rules] = None
+              ) -> SeqBlock:
+    """This rank's block of dimension ``dim`` of a tensor of global
+    ``shape`` whose dimensions ``names`` name, laid out as
+    :func:`resolve_spec` resolves them on that shape under ``(mesh,
+    rules)`` (the active pair when omitted): the divisibility fallback
+    keeps a sequence whole where its length does not divide."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    n = int(shape[dim])
+    if mesh is None:
+        return whole_seq(n)
+    spec = resolve_spec(shape, names, mesh, rules)
+    axes = entry_axes(spec[dim]) if dim < len(spec) else ()
+    if not axes:
+        return whole_seq(n)
+    size = n // axes_size(mesh, axes)
+    return SeqBlock(axes, n, block_index(axes, mesh) * size, size)
+
+
+def seq_take(x: torch.Tensor, blk: SeqBlock, dim: int = 1) -> torch.Tensor:
+    """This rank's block ``blk`` of the whole sequence ``x`` (a view)."""
+    if not blk.axes:
+        return x
+    return x.narrow(dim, blk.start, blk.size)
+
+
+def gather_dim(x: torch.Tensor, axes: Sequence[str], dim: int,
+               mesh=None) -> torch.Tensor:
+    """Dimension ``dim`` of ``x``, split over ``axes`` (of the active
+    mesh when ``mesh`` is omitted), gathered whole: one all-gather an
+    axis (a collective over them)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    for a in reversed(axes):           # the last axis is the fastest
+        x = torch.cat(list(cl.all_gather(x, mesh, axis=a)), dim)
+    return x
+
+
+def seq_gather(x: torch.Tensor, blk: SeqBlock, dim: int = 1,
+               mesh=None) -> torch.Tensor:
+    """The whole sequence from every rank's block ``x`` laid out as
+    ``blk`` (:func:`gather_dim` over its axes)."""
+    return gather_dim(x, blk.axes, dim, mesh)
+
+
+def seq_move(x: torch.Tensor, src: SeqBlock, dst: SeqBlock, dim: int = 1,
+             mesh=None) -> torch.Tensor:
+    """This rank's block ``x`` of a sequence laid out as ``src``, laid
+    out as ``dst`` instead (the same sequence)."""
+    if src.axes == dst.axes:
+        return x
+    return seq_take(seq_gather(x, src, dim, mesh), dst, dim)
 
 
 def shard_tensor(x, spec: Spec, mesh) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Serving steps: prefill and single-token decode with stacked caches
 (the twin of ``repro.serve.serve_step``).  Greedy throughout: ties go to
 the lower token id, as ``jnp.argmax`` breaks them, on a laid-out tree
-too (:func:`greedy`)."""
+too (:func:`greedy`), and with the last position on one rank of a
+sequence split (:func:`last_logits`).  ``decode_input_specs`` gives the
+dry-run's inputs of a decode cell on the meta device."""
 
 from __future__ import annotations
 
@@ -37,11 +39,36 @@ def greedy(logits, params, cfg: ModelConfig) -> torch.Tensor:
     return pair[..., 1].long()
 
 
+def last_logits(logits, params, cfg: ModelConfig, seq_len: int):
+    """The last position's logits ``[B, 1, V]`` (this rank's vocab
+    block on a laid-out tree) on every rank, from ``forward``'s logits
+    of a ``seq_len``-long sequence: where ``seq`` splits the logits'
+    positions over ranks (``zoo.logits_layout``), the rank whose block
+    holds the last position gives it and the others zeros, and one sum
+    over those axes gives every rank the row (exact: one term is
+    nonzero).  Every rank of the mesh must call this."""
+    mesh = shd.tree_mesh(params)
+    if mesh is None:
+        return logits[:, -1:]
+    blk = zoo.logits_layout((logits.shape[0], seq_len, cfg.vocab_padded),
+                            mesh, params.rules)
+    if not blk.axes:
+        return logits[:, -1:]
+    last = seq_len - 1 - blk.start
+    row = (logits[:, last:last + 1] if 0 <= last < blk.size
+           else torch.zeros_like(logits[:, :1]))
+    for a in blk.axes:
+        row = cl.psum(row, mesh, axis=a)
+    return row
+
+
 def make_prefill(cfg: ModelConfig):
     def prefill(params, batch):
-        logits = zoo.forward(params, cfg, batch["tokens"],
+        tokens = batch["tokens"]
+        logits = zoo.forward(params, cfg, tokens,
                              frontend=batch.get("frontend"))
-        return greedy(logits[:, -1:], params, cfg)
+        return greedy(last_logits(logits, params, cfg, tokens.shape[1]),
+                      params, cfg)
     return prefill
 
 
@@ -52,6 +79,16 @@ def make_decode_step(cfg: ModelConfig):
         next_tok = greedy(logits[:, -1], params, cfg)[:, None]
         return next_tok.to(torch.int32), cache
     return decode_step
+
+
+def decode_input_specs(cfg: ModelConfig, seq_len: int, global_batch: int):
+    """The inputs of one decode step with a ``seq_len`` KV/SSM cache, on
+    the meta device (shapes only): the ids ``[B, 1]``, the cache and
+    ``cache_len`` (an int)."""
+    tokens = torch.empty((global_batch, 1), dtype=torch.int32,
+                         device="meta")
+    cache = zoo.init_cache(cfg, global_batch, seq_len, device="meta")
+    return tokens, cache, 0
 
 
 def prefill_loop(decode_fn, params, tokens, cache, cache_len0: int = 0):

@@ -5,8 +5,8 @@ compression hook (the twin of ``repro.train.train_step``, meshless).
 ``launch/train.py`` runs.  Gradients come from ``torch.autograd.grad``
 over the parameter leaves; microbatches are a Python loop that
 accumulates float32 gradients in order, as the reference's scan does.
-The dry-run's abstract ``input_specs`` and ``batch_axes`` are not
-ported yet (ROADMAP queue A, A13).
+The dry-run's inputs of a cell are :func:`input_specs` (meta tensors:
+shapes only) and their logical axes :func:`batch_axes`.
 """
 
 from __future__ import annotations
@@ -99,3 +99,32 @@ def make_train_step(cfg: ModelConfig, microbatch: int = 1,
         return new_params, new_opt, metrics
 
     return step
+
+
+def input_specs(cfg: ModelConfig, seq_len: int, global_batch: int,
+                kind: str = "train"):
+    """Stand-ins for every model input of a cell, on the meta device (no
+    memory): the ids (and the labels for ``train``) ``[B, S]`` int32,
+    and whisper's frames or paligemma's patches ``[B, n, d]`` bf16."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    batch = {"tokens": meta((global_batch, seq_len), torch.int32)}
+    if kind == "train":
+        batch["labels"] = meta((global_batch, seq_len), torch.int32)
+    if cfg.family == "encdec":
+        batch["frontend"] = meta((global_batch, cfg.enc_positions,
+                                  cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        batch["frontend"] = meta((global_batch, cfg.img_tokens,
+                                  cfg.d_model), torch.bfloat16)
+    return batch
+
+
+def batch_axes(cfg: ModelConfig, kind: str = "train"):
+    """The logical axes of :func:`input_specs`' tensors."""
+    ax = {"tokens": ("batch", "seq")}
+    if kind == "train":
+        ax["labels"] = ("batch", "seq")
+    if cfg.family in ("encdec", "vlm"):
+        ax["frontend"] = ("batch", "frames", None)
+    return ax

@@ -924,6 +924,243 @@ def family_mesh_rank(mesh, job) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sequence layouts (tests/test_torch_seq_layouts.py)
+# ---------------------------------------------------------------------------
+
+DENSE6 = "minitron-8b-h6"         # the dense smoke with 6 heads, 2 kv heads
+DENSE_Q8 = "minitron-8b-q8"       # the dense smoke with the int8 cache
+SEQ_ARCHS = FAMILY_ARCHS + (DENSE_ARCH, DENSE6)
+SEQ_STEPS = (1, 2, 3)             # decode steps: 2 starts a rank's block
+SEQ_CACHE = {"kvseq": 8, "seq_data": 4}    # 2 positions a rank either way
+# (layout, model, part): the dry-run's four rule sets, forward ("fwd")
+# on 1 x 4 under cp_seq and cp_seq + cp_q, decode ("dec") on 1 x 4 with
+# kvseq over model, and both on 2 x 2 with seq/kvseq over data (batch 1)
+SEQ_CASES = ([("cp_seq", n, "fwd") for n in SEQ_ARCHS]
+             + [("cp_q", n, "fwd") for n in SEQ_ARCHS]
+             + [("kvseq", n, "dec") for n in SEQ_ARCHS + (DENSE_Q8,)]
+             + [("seq_data", n, part) for n in SEQ_ARCHS
+                for part in ("fwd", "dec")])
+BLOCKWISE_CASES = ("causal", "prefix")
+
+
+def seq_cfg(registry, name: str):
+    """:func:`family_cfg`, and the two dense variants of the sequence
+    layouts' cases."""
+    import dataclasses
+    if name == DENSE6:
+        return dataclasses.replace(registry.get_smoke(DENSE_ARCH),
+                                   n_heads=6, n_kv=2)
+    if name == DENSE_Q8:
+        return dataclasses.replace(registry.get_smoke(DENSE_ARCH),
+                                   kv_cache_dtype="int8")
+    return family_cfg(registry, name)
+
+
+def seq_batch(layout: str) -> int:
+    """The global batch of a layout's cases: 1 where ``seq`` takes
+    ``data`` (the dry-run's ``seq_sharded`` rules), else 2."""
+    return 1 if layout == "seq_data" else FAMILY_SHAPE[0]
+
+
+def seq_rules(layout: str):
+    """The rule table of a layout."""
+    from repro_torch.parallel import sharding as shd
+    if layout == "seq_data":
+        return shd.default_rules(seq_sharded=True)
+    rules = shd.default_rules()
+    if layout in ("cp_seq", "cp_q"):
+        rules["cp_seq"] = ("model",)
+    if layout == "cp_q":
+        rules["cp_q"] = ("model",)
+    if layout == "kvseq":
+        rules["kvseq"] = ("model",)
+    return rules
+
+
+def seq_slice(b: int, max_seq: int, stages=None, cache=None):
+    """The references of a batch of ``b`` from those of the batch of 2
+    (rows are independent: attention, the MoE groups, the scan) and of
+    a cache of ``max_seq`` positions from a longer one (the positions
+    past the decode steps are empty and masked)."""
+    if stages is not None:
+        return {k: v[:b] for k, v in stages.items()}
+    return {k: (v[:, :b, :max_seq] if k in ("k", "v", "k_sc", "v_sc")
+                else v[:, :b]) for k, v in cache.items()}
+
+
+def blockwise_inputs(seed: int = 5):
+    """q, k, v ``[1, 16, 4, 8]`` of the blockwise case (2 kv heads)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, 16, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((1, 16, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((1, 16, 2, 8)).astype(np.float32)
+    return q, k, v
+
+
+def _seq_forward(mesh, cfg, tree, rules, toks, fr, stages) -> dict:
+    """The forward stage by stage: each stage gathered whole from this
+    rank's block of the stream, the pass continued from the JAX stage's
+    block; the tapped logits gathered whole."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    b, s = toks.shape
+    n_front = cfg.img_tokens if cfg.family == "vlm" else 0
+    dec = zoo.stream_layout((b, n_front + s, cfg.d_model), mesh, rules)
+    enc = (zoo.stream_layout((b, cfg.enc_positions, cfg.d_model), mesh,
+                             rules) if cfg.family == "encdec" else None)
+    out = {"stages": {}, "stream": dec.axes}
+
+    def tap(name, x):
+        blk = enc if name.startswith("enc") else dec
+        out["stages"][name] = shd.seq_gather(x, blk, 1, mesh).numpy()
+        return shd.seq_take(torch.as_tensor(stages[name]), blk)
+    t = torch.as_tensor(toks.astype(np.int64))
+    f = None if fr is None else torch.as_tensor(fr)
+    logits = zoo.forward(tree, cfg, t, frontend=f, tap=tap)
+    lblk = zoo.logits_layout((b, s, cfg.vocab_padded), mesh, rules)
+    out["logits"] = _whole(logits, (None, lblk.axes or None,
+                                    zoo.vocab_axes(tree, cfg) or None),
+                           mesh)
+    return out
+
+
+def _seq_decode(mesh, cfg, tree, rules, toks, caches, max_seq) -> dict:
+    """The decode steps ``SEQ_STEPS``: each from the JAX cache before it
+    laid out by ``cache_axes`` under ``rules``, and the same steps from
+    the rank's own cache (starting from the JAX cache before the first),
+    logits gathered whole; that cache's ``k`` gathered whole after the
+    last step; the block shapes ``init_cache`` gives."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    cax = zoo.cache_axes(cfg)
+    vspec = (None, None, zoo.vocab_axes(tree, cfg) or None)
+
+    def lay(c):
+        return shd.lay_out(c, {k: shd.resolve_spec(v.shape, cax[k], mesh,
+                                                   rules)
+                               for k, v in c.items()}, mesh, rules)
+    t = torch.as_tensor(toks.astype(np.int64))
+    out = {"dec": [], "free": []}
+    own = lay(caches[SEQ_STEPS[0]])
+    for i in SEQ_STEPS:
+        logits, _ = zoo.decode_step(tree, cfg, t[:, i:i + 1],
+                                    lay(caches[i]), i)
+        out["dec"].append(_whole(logits, vspec, mesh))
+        logits, own = zoo.decode_step(tree, cfg, t[:, i:i + 1], own, i)
+        out["free"].append(_whole(logits, vspec, mesh).argmax(-1))
+    if "k" in own:
+        out["k_after"] = shd.relayout(own["k"], own.specs["k"], (),
+                                      mesh)[0].float().numpy()
+    cache = zoo.init_cache(cfg, toks.shape[0], max_seq, "cpu", mesh=mesh,
+                           rules=rules)
+    out["cache_specs"] = dict(cache.specs)
+    out["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()}
+    return out
+
+
+def _blockwise_on(mesh, mask: str) -> dict:
+    """``blockwise_attention`` with ``kv_chunk`` 4 on this rank's block
+    of q positions under ``cp_q`` over ``model`` (global positions for
+    the mask; paligemma's prefix of 5 for ``prefix``)."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.parallel import sharding as shd
+    rules = seq_rules("cp_q")
+    q, k, v = (torch.as_tensor(a) for a in blockwise_inputs())
+    blk = shd.seq_block(q.shape, ("batch", "cp_q", "heads", None), 1,
+                        mesh, rules)
+    o = attn.blockwise_attention(shd.seq_take(q, blk), k, v, mask,
+                                 5 if mask == "prefix" else 0, kv_chunk=4,
+                                 q_offset=blk.start)
+    return {"block": (blk.start, blk.size), "axes": blk.axes,
+            "o": shd.seq_gather(o, blk, 1, mesh).numpy()}
+
+
+RS_DTYPES = ("float32", "bfloat16")
+
+
+def rs_input(rank: int, dtype: str):
+    """World rank ``rank``'s operand of the reduce-scatter cases."""
+    import torch
+    return (torch.arange(32.0).reshape(4, 8) * (rank + 1)).to(
+        getattr(torch, dtype))
+
+
+def _reduce_scatters(meshes: dict, rank: int) -> dict:
+    """``collectives.reduce_scatter`` of :func:`rs_input` over each axis
+    of each mesh, along each dimension, in each of ``RS_DTYPES``; and
+    this rank's coordinates on each mesh."""
+    from repro_torch.parallel import collectives as cl
+    out = {"coords": {k: dict(m.coords) for k, m in meshes.items()}}
+    for k, m in meshes.items():
+        for axis in m.shape:
+            for dim in (0, 1):
+                for dt in RS_DTYPES:
+                    y = cl.reduce_scatter(rs_input(rank, dt), m, axis, dim)
+                    out[k, axis, dim, dt] = (str(y.dtype),
+                                             y.float().numpy())
+    return out
+
+
+def seq_layout_rank(mesh, ref_dir: str) -> dict:
+    """The sequence layouts on one rank of a gloo world of 4 CPU ranks:
+    every case of ``SEQ_CASES`` (the 1 x 4 world mesh, or the 2 x 2
+    (data, model) mesh of ``elastic.remesh``), the blockwise cases and
+    the reduce-scatters.
+    The JAX parameters, stages (forward) and caches (decode) of the
+    batch of 2 are published under ``ref_dir`` while the world runs
+    (``params.pkl``, ``stages.pkl``, ``caches.pkl``, as ``{name:
+    ...}``); the forward cases run first."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import elastic
+    torch.set_grad_enabled(False)
+    meshes = {"1x4": mesh, "2x2": elastic.remesh(model_parallel=2,
+                                                  device="cpu")}
+    out = {"cases": {}, "blockwise": {},
+           "reduce_scatter": _reduce_scatters(meshes, mesh.index)}
+    for mask in BLOCKWISE_CASES:
+        out["blockwise"][mask] = _blockwise_on(mesh, mask)
+    ref = {"params": wait_pickle(os.path.join(ref_dir, "params.pkl"))}
+    for layout, name, part in sorted(SEQ_CASES, key=lambda c: c[2] != "fwd"):
+        m = meshes["2x2" if layout == "seq_data" else "1x4"]
+        rules = seq_rules(layout)
+        cfg = seq_cfg(registry, name)
+        params = convert.params_from_numpy(ref["params"][name],
+                                           device="cpu")
+        _, axes = zoo.param_axes(cfg)
+        tree = shd.lay_out(params, ly.axes_to_specs(params, axes, m, rules),
+                           m, rules)
+        b = seq_batch(layout)
+        toks, fr = family_inputs(cfg)
+        toks, fr = toks[:b], (None if fr is None else fr[:b])
+        key = (layout, name, part)
+        if part not in ref:
+            ref[part] = wait_pickle(os.path.join(
+                ref_dir, {"fwd": "stages.pkl", "dec": "caches.pkl"}[part]))
+        if part == "fwd":
+            out["cases"][key] = _seq_forward(
+                m, cfg, tree, rules, toks, fr,
+                seq_slice(b, 0, stages=ref["fwd"][name]))
+        else:
+            n = SEQ_CACHE[layout]
+            out["cases"][key] = _seq_decode(
+                m, cfg, tree, rules, toks,
+                [seq_slice(b, n, cache=c) for c in ref["dec"][name]], n)
+    return out
+
+
 def relay_rank(mesh, flat: dict, specs22: dict, specs12: dict) -> dict:
     """``elastic.reshard`` across a change of mesh shape, on a rank of a
     4-rank world: the flat host tree ``flat`` laid out on the ``2 x 2``

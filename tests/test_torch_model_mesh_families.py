@@ -20,9 +20,8 @@ a float64 witness, ``card_checks.Agreement``'s rule) and their greedy
 ids from the rank's own cache.  The MoE blocks run alone on the same inputs on
 both sides, so the routing, the kept mask and the drops are held
 equal.  ``Engine(mesh=...)`` with the laid-out moe smoke tree equals
-the JAX meshless engine field for field.  The sequence layouts
-(``seq``/``kvseq``/``cp_seq``/``cp_q`` over more than one rank) are
-refused.
+the JAX meshless engine field for field.  The sequence layouts are
+held in ``tests/test_torch_seq_layouts.py``.
 """
 
 import itertools
@@ -320,57 +319,6 @@ def test_engine_refuses_a_batch_split_over_data(runs):
     for out in runs[0][4]:
         assert out["engine_2x2"] is not None
         assert "split the batch over ('data',)" in out["engine_2x2"]
-
-
-# ---------------------------------------------------------------------------
-# the refusals: sequence layouts and an engine over a split batch
-# ---------------------------------------------------------------------------
-
-def _bad_rules(name):
-    rules = shd.default_rules()
-    rules[name] = ("model",)
-    return rules
-
-
-def _abstract_tree(cfg, mesh, rules):
-    p, axes = zoo.param_axes(cfg)
-    return shd.LaidOutTree(p, ly.axes_to_specs(p, axes, mesh, rules), mesh,
-                           rules)
-
-
-@pytest.mark.parametrize("name,entry", list(itertools.product(
-    zoo.SEQ_AXES, ("forward", "decode_step", "init_cache"))))
-def test_sequence_layouts_are_refused(name, entry):
-    """Rules that split ``seq``/``kvseq``/``cp_seq``/``cp_q`` over more
-    than one rank raise ``NotImplementedError`` naming ROADMAP queue A
-    item 3, before any computation, at every entry point."""
-    cfg = treg.get_smoke(mc.MOE_ARCH)
-    mesh = shd.AbstractMesh({"data": 1, "model": 2})
-    rules = _bad_rules(name)
-    tok = torch.zeros((1, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        if entry == "init_cache":
-            zoo.init_cache(cfg, 2, 8, "cpu", mesh=mesh, rules=rules)
-        elif entry == "forward":
-            zoo.forward(_abstract_tree(cfg, mesh, rules), cfg, tok)
-        else:
-            zoo.decode_step(_abstract_tree(cfg, mesh, rules), cfg, tok, {}, 0)
-
-
-@pytest.mark.parametrize("shape,refused", [
-    ({"data": 2, "model": 2}, True), ({"data": 1, "model": 4}, False)])
-def test_seq_sharded_rules_refused_where_data_splits(shape, refused):
-    """``default_rules(seq_sharded=True)`` puts ``seq``/``kvseq`` on
-    ``data``: refused on a mesh whose ``data`` holds two ranks, a
-    layout like any other where it holds one."""
-    mesh = shd.AbstractMesh(shape)
-    rules = shd.default_rules(seq_sharded=True)
-    cfg = treg.get_smoke("mamba2-1.3b")
-    if refused:
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
-            zoo.init_cache(cfg, 2, 8, "cpu", mesh=mesh, rules=rules)
-    else:
-        zoo.refuse_seq_layouts(mesh, rules)
 
 
 # ---------------------------------------------------------------------------

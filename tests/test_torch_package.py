@@ -92,7 +92,7 @@ def test_every_module_imports_without_jax_or_repro():
        "scripts/torch_fold_ab.py", "scripts/search_timing.py",
        "scripts/torch_search_ab.py", "scripts/engine_step_profile.py",
        "scripts/train_step_profile.py", "scripts/card_checks.py",
-       "tests/test_torch_cuda.py"]))
+       "scripts/count_model_ops.py", "tests/test_torch_cuda.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     names = []

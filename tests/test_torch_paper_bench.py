@@ -151,8 +151,10 @@ def test_concurrent_scaling_matches_reference(capsys):
 def test_run_cli_writes_json_only_where_asked(tmp_path, monkeypatch,
                                               capsys):
     """``run.main`` runs the modules asked for (here concurrent_scaling
-    at a tiny size on the CPU) and writes one JSON file per module under
-    ``--out``, and nothing without it."""
+    at a tiny size on the CPU, and roofline_table, which reads the
+    dry-run's JSONs under ``build/dryrun`` and finds none here) and
+    writes one JSON file per module under ``--out``, and nothing
+    without it; an unknown module is refused."""
     import json
     orig = tcs.run
     monkeypatch.setattr(tcs, "run", lambda quick, **kw: orig(
@@ -167,9 +169,10 @@ def test_run_cli_writes_json_only_where_asked(tmp_path, monkeypatch,
         out["concurrent_scaling"][("99-1", "splay", 256)]["batch_psums"]
     monkeypatch.chdir(tmp_path)
     trun.main(["--only", "concurrent_scaling", "--device", "cpu"])
+    assert trun.main(["--only", "roofline_table"]) == {"roofline_table": []}
     assert sorted(p.name for p in tmp_path.iterdir()) == ["o"]
     with pytest.raises(SystemExit):
-        trun.main(["--only", "roofline_table"])
+        trun.main(["--only", "no_such_module"])
 
 
 # ---------------------------------------------------------------------------
