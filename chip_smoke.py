@@ -89,8 +89,9 @@ Phases:
    steps, allclose(rtol=1e-4, atol=1e-5) and equal greedy tokens; then
    minitron-8b at full width in float32 (39.5 GB, built on the card):
    a left-padded batch of 4 through ``prefill_loop`` gives ``forward``'s
-   greedy tokens; then minitron-8b at full width in bfloat16 (19.8 GB)
-   served through ``Engine`` (max_batch 4, max_seq 128, 8 requests
+   greedy tokens; then minitron-8b at full width in bfloat16, the first
+   16 of its 32 layers (9.9 GB), served through ``Engine`` (max_batch
+   4, max_seq 128, 8 requests
    from ``poisson_zipf_arrivals(rate=inf, prompt_len=(2, 7), max_new=8,
    seed=0)``) with the device session index and again with the host
    one: generated ids, latencies, stalls, preemptions, retries, tokens
@@ -106,12 +107,13 @@ Phases:
    ``--resume``;
 5f. training: one ``make_train_step`` step of each of the ten
    architectures at smoke width in float32, and of qwen2-0.5b at full
-   width with float32 compute (batch 1 x 64), on the card against the
+   width, the first 4 of its 24 layers, with float32 compute (batch 1 x
+   64), on the card against the
    CPU (loss, grad_norm and each gradient leaf by ``Agreement``, the
    float64 witness being the CPU's run in float64); then qwen2-0.5b at
    full width as configured (bf16 compute, remat per block) through
    ``launch/train.main`` at batch 8 x 512: run A (10 steps), run B (6
-   steps, a checkpoint at 6) and run C (resumed at 6, to 10), into a
+   steps, its final checkpoint at 6) and run C (resumed at 6, to 10), into a
    temporary directory under ``build/`` that the phase removes.  Every
    loss finite, A's falling; step 6's checkpoint verified (SHA-256) and
    holding every parameter and AdamW moment under the reference's names
@@ -189,7 +191,7 @@ Phases:
    ``build/mesh13``, removed after), 4 gloo ranks on the card (``--phase13
    --backend nccl``: a card a rank) each cutting its blocks out of it
    (``elastic.reshard`` by ``axes_to_specs`` on the 1 x 4 mesh: about
-   4.94 GB a rank), every block's SHA-256 equal to the global tensor's
+   2.5 GB a rank), every block's SHA-256 equal to the global tensor's
    slice; one sharded decode step of phase 5e's left-padded batch, its
    logits at most twice as far from the float32 witness (the same
    weights computed in float32) as the meshless bf16 step's, the greedy
@@ -202,7 +204,7 @@ Phases:
    rank (path ``model_mesh``), tokens/s and ms a step; a rank lost
    (``elastic.remesh`` to the 1 x 2 mesh of ranks 0 and 1, the host tree
    re-laid, one decode step under the witness); GPipe over the ``pod``
-   axis of the 4 ranks (32 blocks in 4 stages, a bf16 8 x 128 batch in
+   axis of the 4 ranks (16 blocks in 4 stages, a bf16 8 x 128 batch in
    4 microbatches) against the meshless layers under the witness;
 14. the other model families on a mesh (:func:`family_phase`, run right
    after phase 13; ``--phase14`` alone, ``--backend nccl`` a card a
@@ -220,10 +222,11 @@ Phases:
    engine's, each differing sequence witnessed at its first differing
    id; B1/B2, F and W launched on every rank, path ``model_mesh_moe``;
    tokens/s and ms a step), one decode step on the 2 x 2 (data, model)
-   mesh with fsdp over data and each rank's rows; then zamba2-7b,
+   mesh with fsdp over data and each rank's rows, from the batch's last
+   two ids (its own witness); then zamba2-7b,
    whisper-large-v3 and paligemma-3b at full width and depth (bf16,
    built on the card one rank at a time and laid out 1 x 4), each a
-   prefill of a 2 x 4 prompt (whisper's frames and paligemma's patches
+   prefill of a 2 x 2 prompt (whisper's frames and paligemma's patches
    a seeded stub) and a decode step under the witness, the step's
    collectives from a trace;
 15. the benchmark twins (:func:`drivers_phase`, after phase 12;
@@ -236,10 +239,11 @@ Phases:
    battery with its four gates) on 4 gloo ranks of the card, each rank's
    launches read; the sharded search at the reference's defaults and
    the serving sweep of qwen2-0.5b at its published widths (bf16, seed
-   0) through ``Engine(mesh=...)`` on 1 x 4, parity true; then
-   ``kernels_bench.run(quick=True)`` on the card, its deterministic
-   columns equal to the same run with ``--device cpu`` in a child
-   process; the timing columns beside the card's name and power limit;
+   0) through ``Engine(mesh=...)`` on 1 x 4, 6 requests a rate, parity
+   true; then ``kernels_bench.run(quick=True)`` on the card, its
+   deterministic columns equal to the same run with ``--device cpu`` in
+   a child process started before phase 14; the timing columns beside
+   the card's name and power limit;
 16. the sequence layouts and the dry-run (:func:`seq_phase`, after
    phase 15; ``--phase16`` alone): qwen2-0.5b at published widths (bf16
    from seed 0) on 4 gloo ranks of the card under the dry-run's rules
@@ -252,11 +256,28 @@ Phases:
    cache of 32768 split over data), two decode steps; each within twice
    the meshless bf16 distance from the float32 witness, greedy ids
    equal on every rank, bytes a rank; then the dry-run (meta device, H100
-   constants) of qwen2-0.5b ``prefill_32k``/``decode_32k`` and zamba2-7b
-   ``long_500k`` with their roofline lines.  ``--phase16 --backend
-   nccl`` on 4 cards measures NCCL's all-reduce and all-gather bus
-   bandwidth at 256 MiB (``launch/mesh.py``'s ``LINK_BW``).  The path
-   launches none of the hand kernels.
+   constants) of qwen2-0.5b ``train_4k``/``prefill_32k``/``decode_32k``
+   and zamba2-7b ``long_500k`` with their roofline lines.  ``--phase16
+   --backend nccl`` on 4 cards measures NCCL's all-reduce and
+   all-gather bus bandwidth at 256 MiB (``launch/mesh.py``'s
+   ``LINK_BW``).  The path launches none of the hand kernels;
+17. the sharded train step (:func:`train_job`, :func:`_train17`, in
+   phase 16's world; ``--phase17`` alone): qwen2-0.5b at published
+   widths (bf16 from seed 0) on the 1 x 4 mesh under ``cell_rules`` of
+   a train shape (``cp_seq`` + ``cp_q``) and on the 2 x 2 mesh with
+   fsdp and the batch over ``data``, two ``make_train_step`` steps of 8
+   x 512 (``card_checks.train_batch``) on each, the second from the
+   float32 witness's state; each step's loss and each leaf's new
+   parameter blocks within twice the meshless bf16 step's distance
+   from the float32 witness (the bf16 ``grad_norm``'s distance read),
+   the loss and ``grad_norm`` equal on every rank; then on each mesh
+   the first step in float32, its loss and ``grad_norm`` within the
+   tests' rtol 1e-4 of the witness's and each leaf's new first moment
+   within 1% of the witness's, norm-wise (the gradients' scale and
+   direction); ms a step, the forward's and the rest's collectives by
+   kind, a rank's parameter, AdamW-state and peak bytes; launches by
+   rank (path ``train_mesh``, none).  A line of
+   seconds per phase (``[clock]``) precedes the kernels line.
 
 Each path reads its own launch counts: they are zeroed just before it
 (phase 3's prefill and serving run, phase 4's ``run_serving``, phase
@@ -278,7 +299,8 @@ phase 10's race for the skip-list); ``launches_by_path`` adds every
 other path, the engine's, ``snapshot`` and ``train`` (which launches none of them)
 among them, and the ranks of phase 9 (``sharded``), of phase 12's
 sharded demos (``examples_sharded``), of phase 13's engine
-(``model_mesh``), of phase 14's (``model_mesh_moe``) and of phase 15's
+(``model_mesh``), of phase 14's (``model_mesh_moe``), of phase 17's
+(``train_mesh``) and of phase 15's
 (``drivers_kernels`` in this process; ``drivers_refresh``,
 ``drivers_search``, ``drivers_ordered``, ``drivers_drift``,
 ``drivers_serving``, ``drivers_chaos``, ``drivers_search_default`` and
@@ -314,10 +336,40 @@ INT32_PER_SM_CLK = 64     # int32 adds/compares per SM per clock (cc 9.0)
 
 def fail(msg: str) -> None:
     """Print the failure on standard output and on standard error (whose
-    end a caller that keeps only the error stream still sees), exit 1."""
+    end a caller that keeps only the error stream still sees), and the
+    seconds per phase so far when the whole smoke runs; exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    if PhaseClock.running is not None:
+        print(PhaseClock.running.line(), flush=True)
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+class PhaseClock:
+    """Seconds per phase on the host clock: :meth:`start` closes the
+    phase that ran and opens the next; :meth:`line` is the one line
+    that lists them in run order with their sum.  ``running`` is the
+    whole smoke's, which :func:`fail` prints."""
+
+    running = None
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.name = None
+        self.seconds = {}
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.seconds[self.name] = (self.seconds.get(self.name, 0.0)
+                                       + now - self.t)
+        self.name, self.t = name, now
+
+    def line(self) -> str:
+        self.start(None)
+        return ("[clock] seconds per phase: " + json.dumps(
+            {k: round(v, 1) for k, v in self.seconds.items()})
+            + f"; total {time.perf_counter() - self.t0:.1f} s")
 
 
 def host_memory() -> str:
@@ -437,10 +489,15 @@ def snapshot_round_trip(torch, pool, dev, engine=None):
     return back, out
 
 
+TRAIN_CHECK_LAYERS = 4   # phase 5f: qwen2-0.5b's card-vs-CPU step, its first
+                         # layers of 24
+
+
 def train_phase(torch, dev, read_launches, card):
     """Phase 5f: training (host clocks and CUDA events only).  The ten
-    archs at smoke width and qwen2-0.5b at full width in float32, one
-    train step on the card against the CPU; then qwen2-0.5b at full
+    archs at smoke width and qwen2-0.5b at full width (the first
+    ``TRAIN_CHECK_LAYERS`` of its layers) in float32, one train step on
+    the card against the CPU; then qwen2-0.5b at full
     width as configured through ``launch/train.main``: runs A (10
     steps), B (6 steps, a checkpoint at 6) and C (resumed at 6 to 10).
     Removes the checkpoints and frees what it builds."""
@@ -479,13 +536,22 @@ def train_phase(torch, dev, read_launches, card):
     full = registry.get("qwen2-0.5b")
     cfg32 = dataclasses.replace(full, dtype="float32")
     p_cpu = zoo.build_params(cfg32, seed=0, device="cpu")
+    # the first layers of the published depth's weights: the init
+    # draws a stacked weight at 1/sqrt(n_layers), so a model built 4
+    # layers deep is another, worse conditioned one
+    depth = min(TRAIN_CHECK_LAYERS, cfg32.n_layers)
+    stacked = set(zoo._layer_keys(p_cpu, cfg32))
+    p_cpu = {k: (v[:depth].clone() if k in stacked else v)
+             for k, v in p_cpu.items()}
+    cfg32 = dataclasses.replace(cfg32, n_layers=depth)
     agree = Agreement(torch, "qwen2-0.5b full width float32")
     t = time.perf_counter()
     share, leaf = train_step_check(
         torch, cfg32, p_cpu, train_batch(cfg32, np.random.default_rng(5),
                                          1, 64), dev, agree)
     rows.append(("qwen2-0.5b full width", agree, share, leaf))
-    print(f"[5f] qwen2-0.5b at full width, float32 compute, batch 1 x 64: "
+    print(f"[5f] qwen2-0.5b at full width, its first {depth} of "
+          f"{full.n_layers} layers, float32 compute, batch 1 x 64: "
           f"card == CPU under the same rule in "
           f"{time.perf_counter() - t:.1f} s; largest difference of "
           f"loss, grad_norm and gradients {agree.worst:.3e}; of an updated "
@@ -556,8 +622,9 @@ def train_phase(torch, dev, read_launches, card):
         check(la[-1] < la[0], f"run A's loss did not fall: {la}")
         with mock.patch.object(tmain.ckpt_mod, "CheckpointManager",
                                TimedManager):
-            lb = tmain.main(base + ["--steps", "6", "--ckpt-dir", d,
-                                    "--ckpt-every", "6"])
+            # the final save writes step 6 (a periodic save at 6 would
+            # write the same checkpoint twice)
+            lb = tmain.main(base + ["--steps", "6", "--ckpt-dir", d])
             check(len(lb) == 6 and all(math.isfinite(x) for x in lb),
                   f"run B's losses {lb}")
             mgr = ckm.CheckpointManager(d)
@@ -609,10 +676,9 @@ def train_phase(torch, dev, read_launches, card):
           f"max_memory_allocated {peak} B; card {card}", flush=True)
     print(f"[5f] checkpoint of step 6: {nbytes} B, every parameter and "
           f"AdamW moment under the reference's names and shapes; save "
-          f"{[round(x, 1) for x in io['sync']]} ms to the host (the second "
-          f"of run B also waits for the first write), writes "
-          f"{[round(x, 1) for x in io['write']]} ms (runs B, B's final "
-          f"re-save, C), load with SHA-256 {load_ms:.1f} ms; run B losses "
+          f"{[round(x, 1) for x in io['sync']]} ms to the host, writes "
+          f"{[round(x, 1) for x in io['write']]} ms (runs B and C), load "
+          f"with SHA-256 {load_ms:.1f} ms; run B losses "
           f"{[round(x, 4) for x in lb]}; run C resumed at 6: first loss "
           f"{lc[0]!r} == one step from step 6's parameters on batch_at(6); "
           f"C's losses {[round(x, 4) for x in lc]} beside A's "
@@ -693,9 +759,8 @@ def models_phase(torch, dev, read_launches, path_launches, minitron):
     torch.cuda.empty_cache()
 
     # -- minitron-8b at full width in bfloat16, through the engine --------
-    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
     torch.cuda.reset_peak_memory_stats()
-    params = zoo.build_params(cfg16, seed=0, device=dev)
+    cfg16, params = minitron16(torch, dev, minitron)
     torch.cuda.synchronize()
     step_bound_ms = decode_bound_ms(params, 4)
 
@@ -769,7 +834,8 @@ def models_phase(torch, dev, read_launches, path_launches, minitron):
     el = path_launches["engine"]
     n_search = el["splay_search_tiered"] + el["splay_search_pipelined"]
     check(n_search > 0, "no descent (B1 or B2) launched on the engine path")
-    print(f"[5e] minitron-8b bf16 full width through the engine "
+    print(f"[5e] minitron-8b bf16 full width, {cfg16.n_layers} of 32 "
+          f"layers, through the engine "
           f"(max_batch 4, max_seq 128, 8 requests, prompts of 2-7, max_new "
           f"8, seed 0): device index == host index on generated ids, "
           f"latencies, stalls {de.stalls}, preemptions {de.preemptions}, "
@@ -1908,6 +1974,7 @@ def examples_phase(torch, dev, read_launches) -> dict:
 
 DRIVER_RANKS = 4          # phase 15: the probes' mesh (kernels_bench.N_DEV)
 SERVE_FULL_ARCH = "qwen2-0.5b"   # phase 15's serving sweep at published widths
+SERVE_FULL_REQUESTS = 6          # its requests a rate (run_bench's default 12)
 # phase 15: the jobs of its one 4-rank world, in order: ``(path, probe
 # twin module, rank function, arguments, kernels every rank must
 # launch)``.  The first nine are the mesh cases of kernels_bench's full
@@ -1944,13 +2011,13 @@ DRIVER_JOBS = (
 def serve_full(mesh, arch: str) -> dict:
     """``serving_probe.run_bench`` through ``Engine(mesh=...)`` with
     ``arch`` at its published widths, bf16 weights from seed 0 built on
-    this rank's card."""
+    this rank's card, ``SERVE_FULL_REQUESTS`` requests a rate."""
     import dataclasses
 
     from repro_torch.benchmarks import serving_probe as svp
     from repro_torch.configs import registry
     cfg = dataclasses.replace(registry.get(arch), param_dtype="bfloat16")
-    return svp.run_bench(mesh, cfg=cfg)
+    return svp.run_bench(mesh, n_requests=SERVE_FULL_REQUESTS, cfg=cfg)
 
 
 def drivers_rank(mesh, snap_dir: str) -> dict:
@@ -1980,8 +2047,32 @@ def drivers_rank(mesh, snap_dir: str) -> dict:
     return out
 
 
+def kernels_bench_cpu():
+    """Start ``kernels_bench``'s quick profile with ``--device cpu`` in a
+    child process (phase 15's CPU side, a few minutes of host work with
+    its own CPU ranks); phase 15 reads its last line.  The child leads a
+    process group of its own, which is killed, its ranks with it, if
+    this process exits first (a failed check)."""
+    import atexit
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.benchmarks.kernels_bench",
+         "--device", "cpu"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+    def stop():
+        try:
+            os.killpg(child.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    atexit.register(stop)
+    return child
+
+
 def drivers_phase(torch, dev, read_launches, card: str,
-                  backend: str = "gloo") -> dict:
+                  backend: str = "gloo", cpu=None) -> dict:
     """Phase 15: the benchmark twins on the card.
 
     One world of ``DRIVER_RANKS`` ranks (gloo on the card; nccl a card a
@@ -1997,21 +2088,18 @@ def drivers_phase(torch, dev, read_launches, card: str,
     same rank function and arguments (one spawn instead of ten: a
     launch of four ranks costs about 10 s on the card's machine).  The
     quick run's deterministic columns equal the same twin's quick run
-    with ``--device cpu``, which a child process runs meanwhile.  Prints
+    with ``--device cpu``, which a child process runs meanwhile
+    (:func:`kernels_bench_cpu`; ``cpu``: one started earlier).  Prints
     the timing columns beside the card's name and power limit; returns
     the launches of every path, by rank for the world's paths."""
-    import os
     import shutil
 
     from repro_torch.benchmarks import kernels_bench as kb
     from repro_torch.kernels import ops
     from repro_torch.launch import spmd
     t_phase = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
-    cpu = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.benchmarks.kernels_bench",
-         "--device", "cpu"], cwd=HERE, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+    if cpu is None:
+        cpu = kernels_bench_cpu()
     (HERE / "build").mkdir(exist_ok=True)
     snap_dir = tempfile.mkdtemp(prefix="chaos15-", dir=HERE / "build")
     t = time.perf_counter()
@@ -2188,6 +2276,28 @@ PIPE_MB = 4               # phase 13: GPipe's microbatches
 PIPE_SHAPE = (8, 128)     # phase 13: GPipe's batch x sequence
 
 
+MINITRON_LAYERS = 16     # phases 5e (engine) and 13: minitron-8b's first layers
+
+
+def minitron16(torch, dev, minitron):
+    """Phases 5e and 13's minitron-8b: bf16 weights from seed 0 at full
+    width, the first ``MINITRON_LAYERS`` of its layers, and the config
+    of that depth.  The weights are the published depth's (the init
+    draws a stacked weight at 1/sqrt(n_layers): a model built less deep
+    is another, worse conditioned one).  Returns ``(cfg, params)``."""
+    import dataclasses
+
+    from repro_torch.models import model_zoo as zoo
+    full = dataclasses.replace(minitron, param_dtype="bfloat16")
+    params = zoo.build_params(full, seed=0, device=dev)
+    depth = min(MINITRON_LAYERS, full.n_layers)
+    stacked = set(zoo._layer_keys(params, full))
+    params = {k: (v[:depth].clone() if k in stacked else v)
+              for k, v in params.items()}
+    torch.cuda.empty_cache()
+    return dataclasses.replace(full, n_layers=depth), params
+
+
 def _slice_for(shape, spec, coords, sizes):
     """The index of the block a rank at ``coords`` holds of a tensor of
     ``shape`` laid out by ``spec`` (read here independently of the
@@ -2214,6 +2324,33 @@ def _digest(t) -> str:
         torch.uint8).numpy()).hexdigest()
 
 
+def write_host_tree(torch, params, specs, sizes, d):
+    """The flat tree ``params`` written under ``d`` (a file a tensor,
+    ``torch.save`` of its host copy) and the SHA-256 digest of each
+    rank's block of each tensor on the ``(data, model)`` mesh ``sizes``
+    laid out by ``specs``; the writes and the digests run on 8 threads
+    (both release the interpreter lock), the host copies made in turn.
+    Returns ``(files, {rank: {name: digest}})``."""
+    from concurrent.futures import ThreadPoolExecutor
+    files = {name: str(d / f"{name}.pt") for name in params}
+    futs = {}
+    with ThreadPoolExecutor(8) as ex:
+        for name, v in params.items():
+            host = v.cpu()
+            futs[name] = ex.submit(torch.save, host, files[name])
+            for r in range(sizes["model"]):
+                futs[r, name] = ex.submit(_digest, host[_slice_for(
+                    host.shape, specs[name], {"data": 0, "model": r},
+                    sizes)])
+            del host
+    digests = {r: {} for r in range(sizes["model"])}
+    for key, f in futs.items():
+        out = f.result()
+        if isinstance(key, tuple):
+            digests[key[0]][key[1]] = out
+    return files, digests
+
+
 def mesh_job(torch, dev, params, cfg16, arr, de, dres, card) -> dict:
     """Phase 13's inputs, from phase 5e's bf16 minitron-8b weights and
     its device-indexed engine ``de`` (results ``dres``): the weights as
@@ -2225,7 +2362,6 @@ def mesh_job(torch, dev, params, cfg16, arr, de, dres, card) -> dict:
     the engine's length-driven outputs."""
     import dataclasses
     import shutil
-    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.models import layers as ly
     from repro_torch.models import model_zoo as zoo
     from repro_torch.parallel import sharding as shd
@@ -2242,18 +2378,7 @@ def mesh_job(torch, dev, params, cfg16, arr, de, dres, card) -> dict:
     sizes = {"data": 1, "model": MESH_RANKS}
     specs = ly.axes_to_specs(params, axes, shd.AbstractMesh(sizes),
                              shd.default_rules())
-    files, digests = {}, {r: {} for r in range(MESH_RANKS)}
-    with ThreadPoolExecutor(8) as ex:
-        for name, v in params.items():
-            host = v.cpu()
-            files[name] = str(d / f"{name}.pt")
-            torch.save(host, files[name])
-            futs = {r: ex.submit(_digest, host[_slice_for(
-                host.shape, specs[name], {"data": 0, "model": r}, sizes)])
-                for r in range(MESH_RANKS)}
-            for r, f in futs.items():
-                digests[r][name] = f.result()
-            del host
+    files, digests = write_host_tree(torch, params, specs, sizes, d)
     write_s = time.perf_counter() - t
     # the decode step of phase 5e's float32 check, on the bf16 weights:
     # meshless in bf16, and the witness in float32
@@ -2284,7 +2409,7 @@ def mesh_job(torch, dev, params, cfg16, arr, de, dres, card) -> dict:
                     stalls=de.stalls, preemptions=de.preemptions,
                     retries=de.degraded_retries, tokens_out=de.tokens_out,
                     chains=dict(de.pool.chains)),
-        write_s=write_s, nbytes=need, n_layers=cfg16.n_layers)
+        write_s=write_s, nbytes=need, cfg16=cfg16)
     print(f"[13] host weights written in {write_s:.1f} s ({need} B, "
           f"{len(files)} files under build/{MESH_DIR}); meshless bf16 step "
           f"vs the float32 witness: max |logit diff| {job['e_step']:.4e}; "
@@ -2337,12 +2462,11 @@ def mesh_rank(mesh, job) -> dict:
     under the float32 witness; ``Engine(mesh=...)`` on phase 5e's 8
     requests; the re-lay onto the 1 x 2 mesh of ranks 0 and 1 after a
     rank is lost, and its decode step; GPipe over the ``pod`` mesh of
-    the 4 ranks, the 32 blocks in 4 stages."""
+    the 4 ranks, the 16 blocks in 4 stages."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs.minitron_8b import CONFIG as minitron
     from repro_torch.core import workload as wl
     from repro_torch.kernels import ops
     from repro_torch.models import layers as ly
@@ -2356,7 +2480,7 @@ def mesh_rank(mesh, job) -> dict:
     torch.set_grad_enabled(False)
     dev = mesh.device
     me = mesh.index
-    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    cfg16 = job["cfg16"]
     cfg32w = dataclasses.replace(cfg16, dtype="float32")
     host = {k: torch.load(f, mmap=True, weights_only=True)
             for k, f in job["files"].items()}
@@ -2430,7 +2554,7 @@ def mesh_rank(mesh, job) -> dict:
     del c
 
     # -- 3. the engine on the mesh -----------------------------------------
-    arr = wl.poisson_zipf_arrivals(8, float("inf"), minitron.vocab,
+    arr = wl.poisson_zipf_arrivals(8, float("inf"), cfg16.vocab,
                                    prompt_len=(2, 7), max_new=8, seed=0)
     eng = Engine(cfg16, tree, max_batch=4, max_seq=128, device_index=True,
                  index_width=1024, mesh=mesh, device=dev)
@@ -2549,7 +2673,8 @@ def engine_witness(torch, dev, job, cases, cfg16=None,
     """The float32 witness of each sequence whose ids on the mesh differ
     from the meshless engine's (``cases``, from :func:`mesh_rank` or
     :func:`family_rank`): the weights of ``cfg16`` (phase 13's bf16
-    minitron-8b when omitted) loaded whole onto the card from the host
+    minitron-8b, ``job["cfg16"]``, when omitted) loaded whole onto the
+    card from the host
     tree, the history's logits meshless in bf16 and, the witness, in
     float32 on the same weights; the mesh's bf16 logits must lie at most
     twice as far from the witness as the meshless bf16 ones
@@ -2557,11 +2682,9 @@ def engine_witness(torch, dev, job, cases, cfg16=None,
     meshless id, mesh distance, meshless distance)`` for each."""
     import dataclasses
 
-    from repro_torch.configs.minitron_8b import CONFIG as minitron
     if not cases:
         return []
-    if cfg16 is None:
-        cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
+    cfg16 = job["cfg16"] if cfg16 is None else cfg16
     cfg32w = dataclasses.replace(cfg16, dtype="float32")
     params = {k: torch.load(f, mmap=True, weights_only=True).to(dev)
               for k, f in job["files"].items()}
@@ -2703,7 +2826,7 @@ def mesh_phase(torch, dev, job, backend: str) -> dict:
           + f"; scale_microbatch(8, 4, 2, 1) = {r0['scale_microbatch']} "
           f"({card})", flush=True)
     print(f"[13] GPipe over the pod axis: {MESH_RANKS} stages of "
-          f"{job['n_layers'] // MESH_RANKS} blocks "
+          f"{job['cfg16'].n_layers // MESH_RANKS} blocks "
           f"({r0['pipe_stage_bytes']} B a rank), "
           f"bf16 {PIPE_SHAPE[0]}x{PIPE_SHAPE[1]} in {PIPE_MB} microbatches: "
           f"{[round(r['pipe_ms'], 3) for r in ranks]} ms a call, bubble "
@@ -2722,7 +2845,8 @@ def mesh_phase(torch, dev, job, backend: str) -> dict:
 FAMILY_DIR = "mesh14"         # phase 14: phi's host weights, under build/
 PHI_LAYERS = 8                # phase 14: phi3.5-moe's depth (of 32)
 FAMILY_ARCHS = ("zamba2-7b", "whisper-large-v3", "paligemma-3b")
-FAMILY_PROMPT = (2, 4)        # phase 14: their prefill's batch x prompt
+FAMILY_PROMPT = (2, 2)        # phase 14: their prefill's batch x prompt
+PHI22_PROMPT = 2              # phase 14: phi's 2 x 2 decode, the last ids
 
 
 def family_configs():
@@ -2805,7 +2929,6 @@ def family_job(torch, dev, phi, others, card) -> dict:
     bf16 and in float32 on the same weights."""
     import dataclasses
     import shutil
-    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core import workload as wl
     from repro_torch.models import layers as ly
@@ -2835,9 +2958,16 @@ def family_job(torch, dev, phi, others, card) -> dict:
     l16, _, _, r16 = _decode_last(torch, params, phi, toks, dev)
     l32, _, _, r32 = _decode_last(torch, params, phi32, toks, dev)
     l16, l32 = l16[:, 0].float().cpu(), l32[:, 0].float().cpu()
+    # the 2 x 2 mesh's decode (fsdp gathers every weight over gloo each
+    # step) from the batch's last PHI22_PROMPT ids, with its own witness
+    t22 = toks[:, -PHI22_PROMPT:]
+    w16, w32 = (_decode_last(torch, params, c, t22, dev)[0][:, 0]
+                .float().cpu() for c in (phi, phi32))
     job = dict(card=card, phi=phi, others=others, toks=toks,
                l16=l16.numpy(), l32=l32.numpy(),
                e_step=float((l16 - l32).abs().max()), routes32=r32,
+               toks22=t22, l32_22=w32.numpy(),
+               e_step22=float((w16 - w32).abs().max()),
                routes_differ=expert_sets_differ(r16, r32),
                engine=dict(ids=res, latencies=dict(eng.latencies),
                            stalls=eng.stalls, preemptions=eng.preemptions,
@@ -2858,19 +2988,8 @@ def family_job(torch, dev, phi, others, card) -> dict:
     sizes = {"data": 1, "model": MESH_RANKS}
     specs = ly.axes_to_specs(params, axes, shd.AbstractMesh(sizes),
                              shd.default_rules())
-    files, digests = {}, {r: {} for r in range(MESH_RANKS)}
     t_w = time.perf_counter()
-    with ThreadPoolExecutor(8) as ex:
-        for name, v in params.items():
-            host = v.cpu()
-            files[name] = str(d / f"{name}.pt")
-            torch.save(host, files[name])
-            futs = {r: ex.submit(_digest, host[_slice_for(
-                host.shape, specs[name], {"data": 0, "model": r}, sizes)])
-                for r in range(MESH_RANKS)}
-            for r, f in futs.items():
-                digests[r][name] = f.result()
-            del host
+    files, digests = write_host_tree(torch, params, specs, sizes, d)
     job.update(files=files, digests=digests, nbytes=need,
                write_s=time.perf_counter() - t_w)
     del params
@@ -2960,7 +3079,13 @@ def family_rank(mesh, job) -> dict:
     host = {k: torch.load(f, mmap=True, weights_only=True)
             for k, f in job["files"].items()}
     _, axes = zoo.param_axes(phi)
-    out = {"rank": me, "device": str(dev)}
+    out = {"rank": me, "device": str(dev), "part_s": {}}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        out["part_s"][name] = round(now - t_part[0], 1)
+        t_part[0] = now
     l32 = torch.as_tensor(job["l32"])
     toks = job["toks"]
 
@@ -3016,6 +3141,7 @@ def family_rank(mesh, job) -> dict:
     del c, cache
     out["peak_after_lay"] = torch.cuda.max_memory_allocated(dev)
 
+    part("phi 1x4 step")
     # -- 2. Engine(mesh=...) on the 8 requests -------------------------------
     arr = wl.poisson_zipf_arrivals(8, float("inf"), phi.vocab,
                                    prompt_len=(2, 7), max_new=8, seed=0)
@@ -3071,6 +3197,7 @@ def family_rank(mesh, job) -> dict:
     del eng, tree, pad, decode, recorded_pad, timed_decode
     torch.cuda.empty_cache()
 
+    part("phi engine")
     # -- 3. phi on 2 x 2: fsdp over data, the batch's rows over it -----------
     torch.cuda.reset_peak_memory_stats(dev)
     m22 = elastic.remesh(model_parallel=2, device=dev)
@@ -3079,24 +3206,30 @@ def family_rank(mesh, job) -> dict:
     lay_ms = sync_ms(t0)
     rows = shd.block_slices((toks.shape[0],), shd.resolve_spec(
         (toks.shape[0],), ("batch",), m22, rules), m22)[0]
-    logits, c, last, _ = _decode_last(torch, tree, phi, toks, dev, m22,
-                                      rules, rows)
-    whole = _whole_rows(torch, logits[:, 0], tree, phi, m22, rules,
-                        toks.shape[0]).float().cpu()
+    t22 = job["toks22"]
+    # _decode_last's prefill and step, the step timed (each step gathers
+    # every weight over data: one is all the path needs)
+    c = zoo.init_cache(phi, t22.shape[0], 16, dev, mesh=m22, rules=rules)
+    _, c, _ = ss.prefill_loop(ss.make_decode_step(phi), tree,
+                              t22[rows, :-1], c)
     e0.record()
-    zoo.decode_step(tree, phi, last, c, toks.shape[1] - 1)
+    logits, _ = zoo.decode_step(tree, phi, torch.as_tensor(
+        t22[rows, -1:], device=dev), c, t22.shape[1] - 1)
     e1.record()
     torch.cuda.synchronize(dev)
+    whole = _whole_rows(torch, logits[:, 0], tree, phi, m22, rules,
+                        t22.shape[0]).float().cpu()
     out["mesh22"] = dict(
         shape=dict(m22.shape), coords=dict(m22.coords), rows=(rows.start,
                                                               rows.stop),
         lay_ms=lay_ms, param_bytes=sum(v.numel() * v.element_size()
                                        for v in tree.values()),
-        e_step=float((whole - l32).abs().max()), step_ms=e0.elapsed_time(e1),
-        peak=torch.cuda.max_memory_allocated(dev))
+        e_step=float((whole - torch.as_tensor(job["l32_22"])).abs().max()),
+        step_ms=e0.elapsed_time(e1), peak=torch.cuda.max_memory_allocated(dev))
     del tree, host, c
     torch.cuda.empty_cache()
 
+    part("phi 2x2")
     # -- 4. the other families on 1 x 4 -------------------------------------
     out["others"] = {}
     for arch, cfg in job["others"].items():
@@ -3141,6 +3274,7 @@ def family_rank(mesh, job) -> dict:
             cache_shapes={k: tuple(v.shape) for k, v in c.items()})
         del tree, c
         torch.cuda.empty_cache()
+        part(arch)
     return out
 
 
@@ -3182,9 +3316,9 @@ def family_phase(torch, dev, job, backend: str) -> dict:
         check(r["e_step"] <= 2 * e_ref, f"{me}: phi's sharded step lies "
               f"{r['e_step']:.4e} from the float32 witness, more than twice "
               f"the meshless bf16 step's {e_ref:.4e}")
-        check(r["mesh22"]["e_step"] <= 2 * e_ref, f"{me}: phi's 2 x 2 "
-              f"step lies {r['mesh22']['e_step']:.4e} from the witness, "
-              f"more than twice {e_ref:.4e}")
+        check(r["mesh22"]["e_step"] <= 2 * job["e_step22"], f"{me}: phi's "
+              f"2 x 2 step lies {r['mesh22']['e_step']:.4e} from the "
+              f"witness, more than twice {job['e_step22']:.4e}")
         check(r["greedy_equal_on_ranks"], f"{me}: greedy ids differ "
               f"between the ranks")
         for k in ("latencies", "stalls", "preemptions", "retries",
@@ -3255,7 +3389,11 @@ def family_phase(torch, dev, job, backend: str) -> dict:
           + "; ".join(f"{r['rank']} "
                       f"{[r['launches'][k] for k in SHARDED_KERNELS]}"
                       for r in ranks) + f" ({card})", flush=True)
-    print(f"[14] phi on the 2 x 2 (data, model) mesh, fsdp over data: "
+    print(f"[14] seconds by part, rank 0: {ranks[0]['part_s']} ({card})",
+          flush=True)
+    print(f"[14] phi on the 2 x 2 (data, model) mesh, fsdp over data, the "
+          f"batch's last {PHI22_PROMPT} ids (meshless bf16 "
+          f"{job['e_step22']:.6f} from its witness; limit twice it): "
           + "; ".join(f"rank {r['rank']} {r['mesh22']['coords']} rows "
                       f"{r['mesh22']['rows']} {r['mesh22']['param_bytes']} B"
                       f" in {r['mesh22']['lay_ms']:.1f} ms, peak "
@@ -3298,8 +3436,8 @@ SEQ_PREFILL = (2, 4096)       # phase 16: its prefill's batch x positions
 SEQ_CACHE, SEQ_FILL = 8192, 4095   # its cache; positions the meshless fills
 SEQ_HYBRID = "zamba2-7b"      # phase 16: 2 x 2, seq/kvseq over data
 SEQ_HCACHE, SEQ_HFILL = 32768, 16383
-SEQ_DRY = (("qwen2-0.5b", "prefill_32k"), ("qwen2-0.5b", "decode_32k"),
-           ("zamba2-7b", "long_500k"))
+SEQ_DRY = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "prefill_32k"),
+           ("qwen2-0.5b", "decode_32k"), ("zamba2-7b", "long_500k"))
 
 
 def seq_configs():
@@ -3453,7 +3591,7 @@ def _one_at_a_time(torch, fn):
     return out
 
 
-def seq_rank(mesh, job) -> dict:
+def _seq16(mesh, m22, job, out) -> None:
     """Phase 16 on one rank of 4 (gloo, every rank on the card).
     qwen2-0.5b on the 1 x 4 world mesh under ``cell_rules`` of a
     prefill of ``SEQ_PREFILL`` (``cp_seq`` + ``cp_q``): the prefill's
@@ -3462,8 +3600,8 @@ def seq_rank(mesh, job) -> dict:
     ``model``) three steps from the meshless cache laid out, the second
     writing rank 2's first position.  zamba2-7b on the 2 x 2 mesh under
     ``seq``/``kvseq`` over ``data`` (batch 1): two steps from its
-    shared cache laid out, built one rank at a time.  Returns the
-    rank's readings."""
+    shared cache laid out, built one rank at a time.  The rank's
+    readings go into ``out``."""
     import torch
     import torch.distributed as dist
 
@@ -3476,11 +3614,9 @@ def seq_rank(mesh, job) -> dict:
     from repro_torch.parallel import collectives as cl
     from repro_torch.parallel import sharding as shd
     from repro_torch.serve import serve_step as ss
-    from repro_torch.train import elastic
     torch.set_grad_enabled(False)
     ops.reset_launch_counts()
     dev, me = mesh.device, mesh.index
-    out = {"rank": me, "device": str(dev)}
     cfgs = job["cfgs"]
     cfg = cfgs[SEQ_ARCH]
     am = shd.AbstractMesh(dict(mesh.shape))
@@ -3549,7 +3685,6 @@ def seq_rank(mesh, job) -> dict:
     torch.cuda.empty_cache()
     # -- zamba2-7b decode on 2 x 2, seq/kvseq over data ----------------------
     hcfg = cfgs[SEQ_HYBRID]
-    m22 = elastic.remesh(model_parallel=2, device=dev.type)
     h_rules = dryrun.cell_rules(hcfg, ShapeConfig("h16", SEQ_HCACHE, 1,
                                                   "decode"),
                                 shd.AbstractMesh(dict(m22.shape)), False)
@@ -3592,32 +3727,279 @@ def seq_rank(mesh, job) -> dict:
         out["h_ids"].append(ids.cpu().tolist())
     out["h_colls"] = len(rec)
     out["launches"] = ops.launch_counts()
+
+
+def seq_rank(mesh, job) -> dict:
+    """Phases 16 and 17 on one rank of the same world of 4 (gloo, every
+    rank on the card), the parts ``job["parts"]`` names: phase 16's
+    sequence layouts (:func:`_seq16`), then phase 17's sharded train
+    steps (:func:`_train17`).  Returns the rank's readings."""
+    import torch
+
+    from repro_torch.train import elastic
+    t0 = time.perf_counter()
+    out = {"rank": mesh.index, "device": str(mesh.device), "part_s": {}}
+    m22 = elastic.remesh(model_parallel=2, device=mesh.device.type)
+    for part, fn in (("16", _seq16), ("17", _train17)):
+        if part in job["parts"]:
+            fn(mesh, m22, job, out)
+            torch.cuda.empty_cache()
+            out["part_s"][part] = time.perf_counter() - t0
+            t0 = time.perf_counter()
     return out
 
 
-def seq_phase(torch, dev, card) -> list:
-    """Phase 16: :func:`seq_job` here, :func:`seq_rank` on ``SEQ_RANKS``
-    gloo ranks of the card, each rank's readings checked against the
-    witness (within twice the meshless bf16 distance from the float32
-    run, greedy ids equal on every rank), then the dry-run of
-    ``SEQ_DRY`` on the meta device with its roofline lines.  Returns the
-    ranks' readings."""
-    import gc
+TRAIN_MESH_BATCH = (8, 512)    # phase 17: phase 5f's batch x sequence
+TRAIN_MESH_STEPS = 2           # phase 17: steps on each mesh
+TRAIN_MESH_DIR = "train17"     # phase 17: the witness's states, under build/
+F32_RTOL = 1e-4     # phase 17's float32 step: loss and grad_norm (the tests')
+F32_MU_REL = 1e-2   # and each leaf's new first moment, norm-wise
 
-    from repro_torch.launch import dryrun
-    from repro_torch.launch import spmd
-    from repro_torch.launch.mesh import LINK_BW
-    t_all = time.perf_counter()
-    job = seq_job(torch, dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+
+def train_job(torch, dev, card) -> dict:
+    """Phase 17's references, meshless on the card: from qwen2-0.5b's
+    bf16 weights (seed 0, phase 16's) and ``TRAIN_MESH_BATCH`` from
+    ``card_checks.train_batch``, the float32 witness's
+    ``TRAIN_MESH_STEPS`` ``make_train_step`` steps (the weights cast,
+    computed and updated in float32) and, for each step, the meshless
+    bf16 step from the witness's parameters (cast to bf16) and AdamW
+    state before it: two bf16 runs part ways within a step, so each
+    step is held from a common start and its distance is that step's
+    own.  Each witness step's new parameters (and, where a step
+    follows, its AdamW state) are written under ``build/TRAIN_MESH_DIR``
+    for the ranks; returned: each step's loss and ``grad_norm`` of both,
+    the bf16 step's distance from the witness (loss, ``grad_norm``,
+    each leaf's largest difference of the new parameters), the batch
+    and the files."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
     t = time.perf_counter()
-    try:
-        ranks = spmd.spawn(seq_rank, SEQ_RANKS, job, backend="gloo",
-                           device="cuda", timeout=900)
-    except RuntimeError as e:
-        fail(f"phase 16: {e}")
-    wall = time.perf_counter() - t
+    cfg = seq_configs()[SEQ_ARCH]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    batch = train_batch(cfg, np.random.default_rng(17), *TRAIN_MESH_BATCH)
+    tb = {k: torch.as_tensor(v.astype(np.int64), device=dev)
+          for k, v in batch.items()}
+    d = HERE / "build" / TRAIN_MESH_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    p = zoo.build_params(cfg, seed=0, device=dev)
+    job = {"batch": batch, "files": [], "param_sum": _bits_sum(p["embed"]),
+           "loss": {"16": [], "32": []}, "grad_norm": {"16": [], "32": []},
+           "e_loss": [], "e_norm": [], "e_leaf": []}
+    p = tree_map(lambda x: x.float(), p)
+    st = opt.init(p)
+    cpu = (lambda tree: {k: v.cpu() for k, v in tree.items()})
+    for j in range(TRAIN_MESH_STEPS):
+        b, _, m16 = ts.make_train_step(cfg)(
+            tree_map(lambda x: x.to(torch.bfloat16), p), st, tb)
+        p, st, m32 = ts.make_train_step(cfg32)(p, st, tb)
+        for key, m in (("16", m16), ("32", m32)):
+            job["loss"][key].append(float(m["loss"]))
+            job["grad_norm"][key].append(float(m["grad_norm"]))
+        job["e_leaf"].append({k: float((b[k].float() - p[k]).abs().max())
+                              for k in p})
+        for key, e in (("loss", "e_loss"), ("grad_norm", "e_norm")):
+            job[e].append(abs(job[key]["16"][j] - job[key]["32"][j]))
+        del b, m16
+        f = d / f"step{j}.pt"
+        torch.save({"params": cpu(p)} if j + 1 == TRAIN_MESH_STEPS else
+                   {"params": cpu(p), "mu": cpu(st.mu), "nu": cpu(st.nu),
+                    "step": int(st.step)}, f)
+        job["files"].append(str(f))
+    del p, st
+    torch.cuda.empty_cache()
+    print(f"[17] meshless references: {SEQ_ARCH} (bf16, published widths) "
+          f"{TRAIN_MESH_STEPS} make_train_step steps of "
+          f"{TRAIN_MESH_BATCH}, each from the float32 witness's state "
+          f"before it: loss bf16 {job['loss']['16']}, witness "
+          f"{job['loss']['32']}; grad_norm bf16 {job['grad_norm']['16']}, "
+          f"witness {job['grad_norm']['32']}; largest leaf distance bf16 - "
+          f"witness by step {[max(e.values()) for e in job['e_leaf']]}; "
+          f"{time.perf_counter() - t:.1f} s ({card})", flush=True)
+    return job
+
+
+def _train17(mesh, m22, job, out) -> None:
+    """Phase 17 on one rank: qwen2-0.5b (bf16, seed 0) laid out on the
+    1 x 4 world mesh under ``cell_rules`` of a train shape of
+    ``TRAIN_MESH_BATCH`` (``cp_seq`` + ``cp_q``) and on the 2 x 2 mesh
+    under the default rules (fsdp and the batch over ``data``, whole
+    heads over ``model``); on each, ``TRAIN_MESH_STEPS``
+    ``make_train_step`` steps of the rank's rows, the first from the
+    seed's weights, each later one from the float32 witness's
+    parameters (cast to bf16) and AdamW state before it, laid out
+    (:func:`train_job`), each timed by CUDA events with its collectives
+    recorded; each step's loss, ``grad_norm`` and each new parameter
+    block's largest difference from the witness's block; then the
+    first step in float32 (the seed's weights cast, as the witness
+    starts): its loss, ``grad_norm`` and each leaf's new first moment's
+    distance from the witness's and the witness's norm, both summed over
+    the axes that split the leaf (a replicated block counted once);
+    whether the seed's weights are phase 16's; the forward's collectives
+    counted on the meta device (the dry-run's count of the same
+    program); the rank's parameter, AdamW-state and peak bytes; the
+    launches (path ``train_mesh``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import collectives as cl
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    dev = mesh.device
+    tj = job["train"]
+    cfg = job["cfgs"][SEQ_ARCH]
+    b, s = TRAIN_MESH_BATCH
+    shape = ShapeConfig("t17", s, b, "train")
+    meshes = {"1x4": (mesh, dryrun.cell_rules(
+                  cfg, shape, shd.AbstractMesh(dict(mesh.shape)), False)),
+              "2x2": (m22, shd.default_rules())}
+    _, axes = zoo.param_axes(cfg)
+    step = ts.make_train_step(cfg)
+    ops.reset_launch_counts()
+    for key, (m, rules) in meshes.items():
+        r = {"rules": {k: rules[k] for k in dryrun.SEQ_NAMES if rules[k]},
+             "coords": dict(m.coords), "ms": [], "loss": [], "grad_norm": [],
+             "e_leaf": [], "colls": []}
+        p = zoo.build_params(cfg, seed=0, device=dev)
+        r["param_sum_equal"] = _bits_sum(p["embed"]) == tj["param_sum"]
+        specs = ly.axes_to_specs(p, axes, m, rules)
+        tree = shd.lay_out(p, specs, m, rules)
+        del p
+        state = opt.init(tree)
+        spec = shd.resolve_spec((b,), ("batch",), m, rules)
+        rows = shd.block_slices((b,), spec, m)[0]
+        tb = {k: torch.as_tensor(v[rows].astype(np.int64), device=dev)
+              for k, v in tj["batch"].items()}
+        r["rows"] = (rows.start or 0, rows.stop or b)
+        r["param_bytes"] = sum(x.numel() * x.element_size()
+                               for x in leaves(tree))
+        r["state_bytes"] = sum(x.numel() * x.element_size()
+                               for x in leaves(state))
+        # the forward's collectives: the same program on the meta device
+        am = shd.AbstractMesh(dict(m.shape))
+        meta = shd.LaidOutTree(dryrun._blocks(zoo.param_axes(cfg)[0],
+                                              specs, am), specs, am, rules)
+        mrows = {k: torch.empty(tuple(v.shape), dtype=v.dtype,
+                                device="meta") for k, v in tb.items()}
+
+        def forward():
+            with torch.no_grad():
+                ts.loss_fn(meta, cfg, mrows)
+        r["fwd_colls"] = {k: v["count"] for k, v in
+                          dryrun.count(forward)["collectives"].items()}
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for j in range(TRAIN_MESH_STEPS):
+            if j:                    # the witness's state before step j
+                w = torch.load(tj["files"][j - 1], mmap=True)
+
+                def cut(t, dtype):
+                    return tree.with_blocks({
+                        k: shd.shard_tensor(v, specs[k], m).to(dtype)
+                        for k, v in t.items()})
+                tree = cut(w["params"], tree[next(iter(tree))].dtype)
+                state = opt.AdamWState(
+                    torch.tensor(w["step"], dtype=torch.int32, device=dev),
+                    cut(w["mu"], torch.float32), cut(w["nu"], torch.float32))
+                del w
+            dist.barrier()
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            with cl.recording() as rec:
+                tree, state, met = step(tree, state, tb)
+            z.record()
+            torch.cuda.synchronize(dev)
+            r["ms"].append(a.elapsed_time(z))
+            r["colls"].append({k: v["count"] for k, v in
+                               rf.tally(rec).items()})
+            r["loss"].append(float(met["loss"]))
+            r["grad_norm"].append(float(met["grad_norm"]))
+            w = torch.load(tj["files"][j], mmap=True)["params"]
+            r["e_leaf"].append({
+                k: float((tree[k].float()
+                          - shd.shard_tensor(v, specs[k], m)).abs().max())
+                for k, v in w.items()})
+            del w
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        r["laid_out"] = all(isinstance(t, shd.LaidOutTree)
+                            for t in (tree, state.mu, state.nu))
+        del tree, state, met
+        torch.cuda.empty_cache()
+        r["f32"] = _train17_f32(m, rules, job, tb)
+        out["t17_" + key] = r
+    out["t17_launches"] = ops.launch_counts()
+
+
+def _train17_f32(m, rules, job, tb) -> dict:
+    """Phase 17's float32 step on one rank of mesh ``m``: the seed's
+    weights cast to float32 and laid out by ``rules``, a fresh AdamW
+    state, one ``make_train_step`` step of the rank's rows ``tb`` (as
+    the witness's first step starts), timed by CUDA events; its loss,
+    ``grad_norm`` and, by leaf, the new first moment's squared distance
+    from the witness's and the witness's squared norm, summed over the
+    axes that split the leaf."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    dev = m.device
+    cfg = job["cfgs"][SEQ_ARCH]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    _, axes = zoo.param_axes(cfg)
+    p = tree_map(lambda x: x.float(), zoo.build_params(cfg, seed=0,
+                                                       device=dev))
+    specs = ly.axes_to_specs(p, axes, m, rules)
+    tree = shd.lay_out(p, specs, m, rules)
+    del p
+    dist.barrier()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    _, state, met = ts.make_train_step(cfg32)(tree, opt.init(tree), tb)
+    z.record()
+    torch.cuda.synchronize(dev)
+    w = torch.load(job["train"]["files"][0], mmap=True)["mu"]
+    names = sorted(w)
+    sq = []
+    for k in names:
+        ref = shd.shard_tensor(w[k], specs[k], m).to(dev)
+        d = state.mu[k] - ref
+        sq.append(torch.stack([torch.sum(d * d), torch.sum(ref * ref)]))
+    sq = shd.psum_grouped(sq, [
+        tuple(x for x in shd.spec_axes(specs[k]) if m.shape[x] > 1)
+        for k in names], m)
+    out = {"ms": a.elapsed_time(z), "loss": float(met["loss"]),
+           "grad_norm": float(met["grad_norm"]),
+           "mu_rel": {k: math.sqrt(float(v[0]) / max(float(v[1]), 1e-30))
+                      for k, v in zip(names, sq)}}
+    del tree, state, met, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_report(ranks, job, card) -> None:
+    """Phase 16's checks of the ranks' readings, and its lines."""
     ref, href = job["ref"], job["href"]
     for r in ranks:
         me = f"phase 16 rank {r['rank']}"
@@ -3686,6 +4068,155 @@ def seq_phase(torch, dev, card) -> list:
           f"collectives a step ({card})", flush=True)
     print(f"[16] launches on the ranks (the sequence layouts run none of the "
           f"hand kernels): {[r['launches'] for r in ranks]}", flush=True)
+
+
+def train_report(ranks, job, card) -> None:
+    """Phase 17's lines, then its checks of the ranks' readings: on
+    each mesh every step's loss and each leaf's new parameter blocks
+    (the largest difference over the ranks) within twice the meshless
+    bf16 step's distance from the float32 witness (:func:`train_job`);
+    the loss and ``grad_norm`` equal on every rank; the seed's weights
+    phase 16's; the outputs laid out; the rules as asked; the float32
+    step's loss and ``grad_norm`` within ``F32_RTOL`` of the witness's
+    first step (and so within twice the meshless bf16 distance) and
+    each leaf's new first moment within ``F32_MU_REL`` of the
+    witness's, norm-wise.  The bf16 steps' ``grad_norm`` distance is
+    read, not held: at these widths and this seed the meshless bf16
+    gradient lies 118-146% of the float32 one's norm from it in every
+    leaf but ``ln_f``, and the meshes' bf16 gradients 64-93% from the
+    meshless one, so one meshless draw of its norm bounds no other
+    layout's; the float32 steps hold the gradients' scale and direction
+    (PERF.md §6, ``scripts/torch_train_mesh_grads.py``)."""
+    tj = job["train"]
+    want = {"1x4": {"cp_seq": ("model",), "cp_q": ("model",)}, "2x2": {}}
+    checks = []
+    for key in ("1x4", "2x2"):
+        rs = [r["t17_" + key] for r in ranks]
+        r0 = rs[0]
+        checks.append((all(r["param_sum_equal"] for r in rs),
+                       f"phase 17 {key}: a rank's weights differ from the "
+                       f"parent's"))
+        checks.append((all(r["laid_out"] for r in rs)
+                       and r0["rules"] == want[key],
+                       f"phase 17 {key}: outputs laid out "
+                       f"{[r['laid_out'] for r in rs]}, rules {r0['rules']}"))
+        ratio = []
+        for j in range(TRAIN_MESH_STEPS):
+            for what in ("loss", "grad_norm"):
+                vals = {r[what][j] for r in rs}
+                checks.append((len(vals) == 1, f"phase 17 {key} step {j}: "
+                               f"{what} differs over the ranks: "
+                               f"{sorted(vals)}"))
+            d = abs(r0["loss"][j] - tj["loss"]["32"][j])
+            checks.append((d <= 2 * tj["e_loss"][j], f"phase 17 {key} step "
+                           f"{j}: the loss {r0['loss'][j]} lies {d:.4e} from "
+                           f"the float32 witness, more than twice the "
+                           f"meshless bf16's {tj['e_loss'][j]:.4e}"))
+            ratio.append(0.0)
+            for leaf, lim in tj["e_leaf"][j].items():
+                d = max(r["e_leaf"][j][leaf] for r in rs)
+                ratio[-1] = max(ratio[-1], d / lim if lim else 0.0)
+                checks.append((d <= 2 * lim, f"phase 17 {key} step {j}: "
+                               f"{leaf}'s new blocks lie {d:.4e} from the "
+                               f"witness, more than twice the meshless "
+                               f"bf16's {lim:.4e}"))
+        f = [r["f32"] for r in rs]
+        for what in ("loss", "grad_norm"):
+            vals = {x[what] for x in f}
+            w32 = tj[what]["32"][0]
+            checks.append((len(vals) == 1, f"phase 17 {key} float32 step: "
+                           f"{what} differs over the ranks: {sorted(vals)}"))
+            checks.append((abs(f[0][what] - w32)
+                           <= 1e-5 + F32_RTOL * abs(w32),
+                           f"phase 17 {key} float32 step: {what} "
+                           f"{f[0][what]} against the witness's {w32}, "
+                           f"past rtol {F32_RTOL}"))
+        mu_rel = max(f[0]["mu_rel"].values())
+        checks.append((mu_rel <= F32_MU_REL, f"phase 17 {key} float32 step:"
+                       f" a leaf's new first moment lies {mu_rel:.3e} of the "
+                       f"witness's norm from it: {f[0]['mu_rel']}"))
+        e_norm = [round(abs(g - w), 6) for g, w in
+                  zip(r0["grad_norm"], tj["grad_norm"]["32"])]
+        step_colls = [{k: v - r0["fwd_colls"].get(k, 0)
+                       for k, v in c.items()} for c in r0["colls"]]
+        print(f"[17] {SEQ_ARCH} (bf16, published widths) {key}, rules "
+              f"{r0['rules']}, rows {[r['rows'] for r in rs]} of "
+              f"{TRAIN_MESH_BATCH}: {TRAIN_MESH_STEPS} make_train_step "
+              f"steps (the second from the witness's state), ms a step by "
+              f"rank (events) "
+              f"{[[round(x, 1) for x in r['ms']] for r in rs]}; loss "
+              f"{r0['loss']} (witness {tj['loss']['32']}, meshless bf16 "
+              f"{tj['loss']['16']}); grad_norm {r0['grad_norm']}, "
+              f"|grad_norm - witness| {e_norm} (meshless bf16 "
+              f"{[round(e, 6) for e in tj['e_norm']]}, ratio "
+              f"{[round(e / x, 3) for e, x in zip(e_norm, tj['e_norm'])]}; "
+              f"read); the largest "
+              f"ratio of a leaf's new blocks' distance from the witness to "
+              f"the meshless bf16's, by step {ratio} (limit 2); "
+              f"collectives of a step {r0['colls']}: the forward's "
+              f"{r0['fwd_colls']} (the same program counted on the meta "
+              f"device), the rest (backward, the remat's recompute, the "
+              f"gradient and norm sums) {step_colls}; a rank's bytes: "
+              f"parameters {r0['param_bytes']}, AdamW state "
+              f"{r0['state_bytes']}, peak by rank "
+              f"{[r['peak_bytes'] for r in rs]} ({card})", flush=True)
+        print(f"[17] {SEQ_ARCH} {key} float32 step from the seed's weights "
+              f"(the witness's first step): ms by rank (events) "
+              f"{[round(x['ms'], 1) for x in f]}; loss {f[0]['loss']} "
+              f"(witness {tj['loss']['32'][0]}), grad_norm "
+              f"{f[0]['grad_norm']} (witness {tj['grad_norm']['32'][0]}; "
+              f"rtol {F32_RTOL}); each leaf's new first moment's distance "
+              f"from the witness's over its norm "
+              f"{ {k: round(v, 6) for k, v in f[0]['mu_rel'].items()} } "
+              f"(limit {F32_MU_REL}) ({card})", flush=True)
+    print(f"[17] launches on the ranks (the train step runs none of the "
+          f"hand kernels): {[r['t17_launches'] for r in ranks]}",
+          flush=True)
+    for cond, msg in checks:
+        check(cond, msg)
+
+
+def seq_phase(torch, dev, card, parts=("16", "17")) -> list:
+    """Phases 16 and 17 (the parts ``parts`` names) in one world of
+    ``SEQ_RANKS`` gloo ranks of the card (:func:`seq_rank`): phase 16's
+    references (:func:`seq_job`) and phase 17's (:func:`train_job`)
+    here first; each rank's readings checked against the float32
+    witness (within twice the meshless bf16 distance from it, greedy
+    ids equal on every rank); then phase 16's dry-run of ``SEQ_DRY`` on
+    the meta device with its roofline lines.  Returns the ranks'
+    readings."""
+    import gc
+    import shutil
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import LINK_BW
+    t_all = time.perf_counter()
+    job = (seq_job(torch, dev, card) if "16" in parts
+           else {"cfgs": seq_configs(), "card": card})
+    job["parts"] = tuple(parts)
+    if "17" in parts:
+        job["train"] = train_job(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        ranks = spmd.spawn(seq_rank, SEQ_RANKS, job, backend="gloo",
+                           device="cuda", timeout=900)
+    except RuntimeError as e:
+        fail(f"phases {'/'.join(parts)}: {e}")
+    finally:
+        shutil.rmtree(HERE / "build" / TRAIN_MESH_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t
+    parts_s = [{k: round(v, 1) for k, v in r["part_s"].items()}
+               for r in ranks]
+    print(f"[16] the world of {SEQ_RANKS} ranks: {wall:.1f} s; seconds "
+          f"by part and rank {parts_s} ({card})", flush=True)
+    if "17" in parts:
+        train_report(ranks, job, card)
+    if "16" not in parts:
+        return ranks
+    seq_report(ranks, job, card)
     t = time.perf_counter()
     for arch, shape in SEQ_DRY:
         meta = dryrun.run_cell(arch, shape, False, None)
@@ -3695,9 +4226,9 @@ def seq_phase(torch, dev, card) -> list:
               f"{meta['bytes_per_device']:.4e}, wire "
               f"{meta['wire_bytes_per_device']:.4e} a rank; roofline "
               f"{meta['roofline']}; rules {meta['rules']}", flush=True)
-    print(f"[16] phase 16: {time.perf_counter() - t_all:.1f} s ({wall:.1f} s "
-          f"for the ranks, {time.perf_counter() - t:.1f} s for the dry-run)"
-          f" ({card})", flush=True)
+    print(f"[16] phases 16-17: {time.perf_counter() - t_all:.1f} s "
+          f"({wall:.1f} s for the ranks, {time.perf_counter() - t:.1f} s "
+          f"for the dry-run) ({card})", flush=True)
     return ranks
 
 
@@ -3795,6 +4326,7 @@ def main() -> None:
     from repro_torch.kernels.ref import take_index
     from repro_torch.serve.kv_cache import PagedKVPool
 
+    clock = PhaseClock.running = PhaseClock()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3802,6 +4334,7 @@ def main() -> None:
           "cuda", torch.version.cuda, flush=True)
 
     # ---- phase 1: build ------------------------------------------------
+    clock.start("1")
     t = time.perf_counter()
     logs = build.build()
     print(f"[1] built {sorted(logs)} in {time.perf_counter() - t:.1f} s",
@@ -3813,6 +4346,7 @@ def main() -> None:
                 print(f"    {name}: {line.strip()}")
 
     # ---- phase 2: each kernel against its plain version ----------------
+    clock.start("2")
     errs = {}
 
     def fixture_plane(width, n_levels, nq, seed):
@@ -4072,6 +4606,7 @@ def main() -> None:
                   f"path {path}")
 
     # ---- phase 3: the main path at the paper's scale -------------------
+    clock.start("3")
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     E, B, N = ft.PAPER_E, ft.PAPER_B, ft.PAPER_N
@@ -4139,6 +4674,7 @@ def main() -> None:
     print(f"    overflow per epoch: {out[4].tolist()}")
 
     # ---- phase 4: membership epochs -------------------------------------
+    clock.start("4")
     E4 = 4
     fresh = np.arange(N, N + E4 * B // 10 + 64, dtype=np.int32)
     victims = rng.permutation(stream.populate)[:E4 * B // 20 + 64]
@@ -4218,6 +4754,7 @@ def main() -> None:
           f"{len(probe)} inserted/deleted keys exact", flush=True)
 
     # ---- phase 5: serving at W=16384, answered by B2 --------------------
+    clock.start("5")
     E5, B5, N5 = 8, 2048, 10_000
     s5 = wl.zipf_workload(n=N5, ops=E5 * B5, s=1.0, p=0.01, seed=5)
     ops.reset_launch_counts()
@@ -4266,6 +4803,7 @@ def main() -> None:
           f"equal to its plain version and to B2", flush=True)
 
     # ---- phase 5b: the splay vocab tier at minitron-8b width ------------
+    clock.start("5b")
     V, D, H = minitron.vocab_padded, minitron.d_model, minitron.hot_vocab
     check(minitron.dtype == "bfloat16", "minitron-8b dtype changed")
     torch.cuda.reset_peak_memory_stats()
@@ -4339,6 +4877,7 @@ def main() -> None:
           f"max_memory_allocated {vocab_peak} B", flush=True)
 
     # ---- phase 5c: ordered ops and the audit at paper scale -------------
+    clock.start("5c")
     # phase 3's served state and plane (10^5 live keys, L=24, W=131072);
     # host clocks and CUDA events only: a profiler session before phases
     # 7 and 8 has lost device activity there
@@ -4538,6 +5077,7 @@ def main() -> None:
           f"epoch: {'; '.join(flips)}", flush=True)
 
     # ---- phase 5d: the KV page index at a real size -------------------
+    clock.start("5d")
     # the pool as the JAX package sizes it for minitron-8b on this card:
     # 32 layers x 8 kv heads x 128 x (K, V) x bf16 = 128 KiB a token;
     # 28672 pages of 16 tokens (56 GiB of KV beside 16 GB of weights);
@@ -4643,22 +5183,30 @@ def main() -> None:
           f"synchronised); stats {st5d}", flush=True)
 
     # ---- phase 5e: the model zoo and the serving engine -----------------
+    clock.start("5e")
     job13 = models_phase(torch, dev, read_launches, path_launches, minitron)
 
     # ---- phase 13: the models on a mesh (on 5e's weights) ---------------
+    clock.start("13")
     mesh_by_rank = mesh_phase(torch, dev, job13, "gloo")
     del job13
 
+    # phase 15's CPU side runs from here, beside phases 14 to 12
+    cpu15 = kernels_bench_cpu()
+
     # ---- phase 14: the other model families on a mesh -------------------
+    clock.start("14")
     phi14, others14 = family_configs()
     moe_by_rank = family_phase(
         torch, dev, family_job(torch, dev, phi14, others14, card),
         "gloo")
 
     # ---- phase 5f: training ---------------------------------------------
+    clock.start("5f")
     train_phase(torch, dev, read_launches, card)
 
     # ---- phase 6: timings at the main path's shapes ---------------------
+    clock.start("6")
     kernels = []
 
     int_ops, n_sm, max_mhz = int_rate(torch)
@@ -4937,6 +5485,7 @@ def main() -> None:
     vst = cache._stream_st
 
     # ---- phase 7: where a paper-scale serving epoch's time goes ---------
+    clock.start("7")
     k0 = torch.as_tensor(keys[0], device=dev)
     u0 = torch.as_tensor(upd[0], device=dev)
     work = sx.clone(st3)
@@ -4982,6 +5531,7 @@ def main() -> None:
                round(1e3 * (time.perf_counter() - t) / 5, 4))
 
     # ---- phase 8: kernel F on its three paths, traced ------------------
+    clock.start("8")
     # Last, after phase 7's traces: on the H100 a profiler session that
     # follows earlier ones in the process has missed its first device
     # activity (one launch of ten here; phase 7's one-kernel lookup
@@ -5075,6 +5625,7 @@ def main() -> None:
           f"full list's equal the subset's", flush=True)
 
     # ---- phase 5f's traced train step, after the other traces -----------
+    clock.start("5f trace")
     import train_step_profile as tsp
     tr = tsp.profile_train_step(torch, dev)
     busy = ("not measured (the trace held no device activity)"
@@ -5090,25 +5641,34 @@ def main() -> None:
           f"6NT bound {tr['bound_ms']:.4f} ms", flush=True)
 
     # ---- phase 9: the width-sharded index -------------------------------
+    clock.start("9")
     job = sharded_job(torch, dev, served3, kv_log, dict(hpool.chains))
     by_rank = sharded_phase(torch, dev, job, "gloo")
 
     # ---- phase 10: the paper's Figs. 3-5 on the card --------------------
+    clock.start("10")
     sc10 = scaling_phase(torch, dev, read_launches)
 
     # ---- phase 11: kernel W, the state walk -----------------------------
+    clock.start("11")
     w11 = walk_phase(torch, dev, st3, k0, sc10["starts"], chase["l2"],
                      stm.graph_ms, stm.eager_ms)
     errs.update(w11["errs"])
 
     # ---- phase 12: the example entry points ------------------------------
+    clock.start("12")
     ex_by_rank = examples_phase(torch, dev, read_launches)
 
     # ---- phase 15: the benchmark twins ---------------------------------
-    drivers_by_path = drivers_phase(torch, dev, read_launches, card)
+    clock.start("15")
+    drivers_by_path = drivers_phase(torch, dev, read_launches, card,
+                                    cpu=cpu15)
 
-    # ---- phase 16: the sequence layouts and the dry-run ------------------
-    seq_phase(torch, dev, card)
+    # ---- phases 16-17: the sequence layouts, the dry-run, the sharded
+    # train step (one world) ------------------------------------------------
+    clock.start("16+17")
+    seq_ranks = seq_phase(torch, dev, card)
+    clock.start("entries")
 
     pop, mix = sc10["populate"], sc10["mixed"]
     for k in kernels:
@@ -5171,7 +5731,11 @@ def main() -> None:
         for path, ranks in drivers_by_path.items():
             k["launches_by_path"][path] = {
                 f"rank{i}": c[k["name"]] for i, c in enumerate(ranks)}
+        k["launches_by_path"]["train_mesh"] = {
+            f"rank{r['rank']}": r["t17_launches"].get(k["name"], 0)
+            for r in seq_ranks}
 
+    print(clock.line(), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5203,11 +5767,9 @@ def phase9_only(backend: str) -> None:
 
 def phase13_only(backend: str) -> None:
     """Phase 13 alone (``--phase13``), its inputs computed here as phase
-    5e computes them (minitron-8b bf16 from seed 0, its device-indexed
+    5e computes them (:func:`minitron16`, its device-indexed
     engine on the 8 requests): with ``--backend nccl`` one rank a card,
     so the machine needs four."""
-    import dataclasses
-
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -5215,7 +5777,6 @@ def phase13_only(backend: str) -> None:
     from repro_torch.configs.minitron_8b import CONFIG as minitron
     from repro_torch.core import workload as wl
     from repro_torch.kernels import build
-    from repro_torch.models import model_zoo as zoo
     from repro_torch.serve.engine import Engine, Request
     card = card_line()
     print(f"card: {card}; {torch.cuda.device_count()} device(s)", flush=True)
@@ -5223,8 +5784,7 @@ def phase13_only(backend: str) -> None:
         fail(f"--backend nccl needs {MESH_RANKS} cards")
     build.build()
     dev = torch.device("cuda")
-    cfg16 = dataclasses.replace(minitron, param_dtype="bfloat16")
-    params = zoo.build_params(cfg16, seed=0, device=dev)
+    cfg16, params = minitron16(torch, dev, minitron)
     arr = wl.poisson_zipf_arrivals(8, float("inf"), minitron.vocab,
                                    prompt_len=(2, 7), max_new=8, seed=0)
     eng = Engine(cfg16, params, max_batch=4, max_seq=128,
@@ -5326,7 +5886,26 @@ def phase16_only(backend: str) -> None:
     else:
         from repro_torch.kernels import build
         build.build()
-        seq_phase(torch, torch.device("cuda"), card)
+        seq_phase(torch, torch.device("cuda"), card, parts=("16",))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def phase17_only() -> None:
+    """Phase 17 alone (``--phase17``): its references, then the sharded
+    train steps in a world of ``SEQ_RANKS`` gloo ranks of the card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t = time.perf_counter()
+    seq_phase(torch, torch.device("cuda"), card, parts=("17",))
+    print(f"[17] phase 17 alone: {time.perf_counter() - t:.1f} s ({card})",
+          flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5348,6 +5927,8 @@ if __name__ == "__main__":
     ap.add_argument("--phase16", action="store_true",
                     help="run only phase 16, the sequence layouts and the "
                          "dry-run (--backend nccl: the link bandwidth)")
+    ap.add_argument("--phase17", action="store_true",
+                    help="run only phase 17, the sharded train step")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                     help="the process-group backend of --phase9, --phase13, "
                          "--phase14, --phase15 and --phase16: gloo (every "
@@ -5364,6 +5945,8 @@ if __name__ == "__main__":
             phase15_only(cli.backend)
         elif cli.phase16:
             phase16_only(cli.backend)
+        elif cli.phase17:
+            phase17_only()
         else:
             main()
     except CheckFailed as e:      # a failed check of scripts/card_checks.py

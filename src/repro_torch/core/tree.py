@@ -1,7 +1,10 @@
 """Nested parameter trees (dicts, NamedTuples, lists of tensors) walked
 in the JAX package's leaf order: dict keys sorted, NamedTuple fields and
 sequence items in order.  Sums over the leaves (the global gradient
-norm) run in that order in both packages."""
+norm) run in that order in both packages.  A dict of another kind that
+carries a layout (``parallel.sharding.LaidOutTree``: its blocks' mesh,
+specs and rules) comes back as that kind: :func:`tree_map` and
+:func:`unflatten` rebuild it through its ``with_blocks``."""
 
 from __future__ import annotations
 
@@ -22,12 +25,18 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def _like(tree: dict, items: dict) -> dict:
+    """``items`` as a dict of ``tree``'s kind (its layout kept)."""
+    rebuild = getattr(tree, "with_blocks", None)
+    return items if rebuild is None else rebuild(items)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf over trees of one structure; the
     result has the structure of ``tree``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
+        return _like(tree, {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                            for k in tree})
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
@@ -43,7 +52,7 @@ def unflatten(tree, flat):
     def rebuild(t):
         if isinstance(t, dict):
             out = {k: rebuild(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
+            return _like(t, {k: out[k] for k in t})
         if _is_namedtuple(t):
             return type(t)(*(rebuild(v) for v in t))
         if isinstance(t, (list, tuple)):

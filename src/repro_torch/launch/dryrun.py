@@ -1,6 +1,6 @@
-"""The dry-run: every (arch x shape) serving cell on the production
-meshes, counted on the meta device, with its roofline terms at the
-H100's constants (the twin of ``repro.launch.dryrun``).
+"""The dry-run: every (arch x shape) cell on the production meshes,
+counted on the meta device, with its roofline terms at the H100's
+constants (the twin of ``repro.launch.dryrun``).
 
 The reference lowers and compiles each cell for 256 or 512 placeholder
 TPU devices and reads XLA's cost and memory analyses.  The port has no
@@ -9,9 +9,13 @@ compiler: it runs rank 0's step of the production mesh
 ``torch.device("meta")``, the parameters ``param_axes`` gives laid out
 as that rank's blocks (``layers.axes_to_specs`` under
 :func:`cell_rules`) and the inputs ``train_step.input_specs`` /
-``serve_step.decode_input_specs`` give, cut to its rows.  No process
-group and no device memory: every collective on meta tensors is
-recorded and returns a shaped result.  The step runs under
+``serve_step.decode_input_specs`` give, cut to its rows.  A ``train_4k``
+cell runs the whole train step (``train_step.make_train_step``: value
+and grad with the reference's ``microbatch``, ``remat`` and
+``compress`` options, then AdamW), its AdamW state ``optimizer.init``
+of the rank's blocks.  No process group and no device memory: every
+collective on meta tensors, the backward pass's too, is recorded and
+returns a shaped result.  The step runs under
 
 * ``torch.utils.flop_counter.FlopCounterMode``: matmul-class flops;
 * :class:`OpBytes`, a dispatch mode that sums each aten op's input and
@@ -24,13 +28,11 @@ The full-depth run gives the collectives (``collectives_fullscan``);
 with ``probes`` (the single mesh), the 1-unit and 2-unit runs give the
 per-unit costs, extrapolated to the depth as the reference does.
 ``memory_analysis`` holds the rank's argument bytes (parameters,
-inputs, cache); temporaries are not counted.  ``train_4k`` cells raise
-``NotImplementedError``: the sharded train step is ROADMAP queue A
-item 4.
+the AdamW state, inputs, cache); temporaries are not counted.
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k \\
-      --mesh single --out build/dryrun
+  python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k \\
+      --mesh single --out build/dryrun [--microbatch M] [--remat none]
   python -m repro_torch.launch.dryrun --list-cells
 """
 
@@ -55,12 +57,11 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.parallel import collectives as cl
 from repro_torch.parallel import sharding as shd
 from repro_torch.serve import serve_step as ss
+from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as ts
 
 # the logical names of the sequence layouts a cell may turn on
 SEQ_NAMES = ("seq", "kvseq", "cp_seq", "cp_q")
-TRAIN_ITEM = ("the sharded train step (ROADMAP queue A item 4): the "
-              "port's train step is meshless")
 
 
 def cells():
@@ -160,14 +161,42 @@ def _rows(x, mesh, rules):
                        device="meta")
 
 
+def cell_inputs(cfg, shape, mesh, rules) -> list:
+    """Rank 0's inputs of a cell's step on ``mesh`` under ``rules``, on
+    the meta device: the parameters ``param_axes`` gives laid out as its
+    blocks (a ``sharding.LaidOutTree``), then for ``train`` the AdamW
+    state of those blocks and its rows of the batch, for ``prefill`` its
+    rows of the batch, for ``decode`` its rows of the ids, the cache
+    ``init_cache(..., mesh=)`` lays out and the filled length."""
+    p_meta, p_axes = zoo.param_axes(cfg)
+    specs = ly.axes_to_specs(p_meta, p_axes, mesh, rules)
+    tree = shd.LaidOutTree(_blocks(p_meta, specs, mesh), specs, mesh, rules)
+    if shape.kind == "decode":
+        toks, _, cache_len = ss.decode_input_specs(cfg, shape.seq_len,
+                                                   shape.global_batch)
+        cache = zoo.init_cache(cfg, shape.global_batch, shape.seq_len,
+                               device="meta", mesh=mesh, rules=rules)
+        return [tree, _rows(toks, mesh, rules), cache, cache_len]
+    batch = ts.input_specs(cfg, shape.seq_len, shape.global_batch,
+                           shape.kind)
+    rows = {k: _rows(v, mesh, rules) for k, v in batch.items()}
+    if shape.kind == "train":
+        return [tree, opt.init(tree), rows]
+    return [tree, rows]
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
-               fsdp: bool = True, kv_dtype=None, param_dtype=None,
-               probe_layers=None):
+               microbatch: int = 1, fsdp: bool = True,
+               remat: str = "block", compress=None, kv_dtype=None,
+               param_dtype=None, probe_layers=None):
     """Returns ``(step, meta, cfg, shape)``: ``step()`` runs rank 0's
-    step of the cell on the meta device and returns its outputs.  The
-    reference's train-step options (microbatches, remat, compression)
-    have no serving cell to act on: the JSON records its defaults."""
+    step of the cell on the meta device (:func:`cell_inputs`) and
+    returns its outputs.  The reference's options: ``microbatch``,
+    ``remat`` (set on the config, as the reference sets it) and
+    ``compress`` act on a train cell."""
     cfg = registry.get(arch)
+    if remat != cfg.remat:
+        cfg = dataclasses.replace(cfg, remat=remat)
     if kv_dtype:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype)
     if param_dtype:
@@ -175,29 +204,19 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     if probe_layers is not None:
         cfg = _probe_cfg(cfg, probe_layers)
     shape = SHAPES[shape_name]
-    if shape.kind == "train":
-        raise NotImplementedError(f"{arch} {shape_name}: {TRAIN_ITEM}")
     mesh = make_production_mesh(multi_pod=multi_pod)
     rules = cell_rules(cfg, shape, mesh, multi_pod, fsdp)
-    p_meta, p_axes = zoo.param_axes(cfg)
-    specs = ly.axes_to_specs(p_meta, p_axes, mesh, rules)
-    tree = shd.LaidOutTree(_blocks(p_meta, specs, mesh), specs, mesh, rules)
-    args = [tree]
-    if shape.kind == "prefill":
-        batch = ts.input_specs(cfg, shape.seq_len, shape.global_batch,
-                               "prefill")
-        args.append({k: _rows(v, mesh, rules) for k, v in batch.items()})
+    args = cell_inputs(cfg, shape, mesh, rules)
+    if shape.kind == "train":
+        fn = ts.make_train_step(cfg, microbatch=microbatch,
+                                compress=compress)
+    elif shape.kind == "prefill":
         fn = ss.make_prefill(cfg)
     else:
-        toks, _, cache_len = ss.decode_input_specs(cfg, shape.seq_len,
-                                                   shape.global_batch)
-        cache = zoo.init_cache(cfg, shape.global_batch, shape.seq_len,
-                               device="meta", mesh=mesh, rules=rules)
-        args += [_rows(toks, mesh, rules), cache, cache_len]
         fn = ss.make_decode_step(cfg)
 
     def step():
-        with torch.no_grad():
+        with torch.set_grad_enabled(shape.kind == "train"):
             return fn(*args)
 
     meta = {"arch": arch, "shape": shape_name,
@@ -207,7 +226,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             "global_batch": shape.global_batch,
             "n_params": cfg.n_params(),
             "n_active_params": cfg.n_active_params(),
-            "microbatch": 1, "fsdp": fsdp, "remat": cfg.remat,
+            "microbatch": microbatch, "fsdp": fsdp, "remat": remat,
+            "compress": compress,
             "rules": {k: list(v) for k, v in rules.items()
                       if k in SEQ_NAMES and v},
             "argument_bytes": _nbytes(args)}
@@ -247,8 +267,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         "count_s": full["run_s"],
         "memory_analysis": {
             "argument_size_in_bytes": meta.pop("argument_bytes"),
-            "note": "rank 0's parameters, inputs and cache; temporaries "
-                    "are not counted"},
+            "note": "rank 0's parameters, AdamW state, inputs and "
+                    "cache; temporaries are not counted"},
         "collectives_fullscan": full["collectives"],
         "hlo_bytes": 0,
         "counted_by": "a meta-device run of rank 0's step: "
@@ -307,7 +327,10 @@ def main(argv=None):
                     default="single")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--remat", default="block")
+    ap.add_argument("--compress", default=None)
     ap.add_argument("--kv-dtype", default=None)
     ap.add_argument("--param-dtype", default=None)
     ap.add_argument("--no-probes", action="store_true")
@@ -322,7 +345,9 @@ def main(argv=None):
               "both": [False, True]}[args.mesh]
     for mp in meshes:
         run_cell(args.arch, args.shape, mp, args.out, tag=args.tag,
-                 probes=not args.no_probes, fsdp=not args.no_fsdp,
+                 probes=not args.no_probes,
+                 microbatch=args.microbatch, fsdp=not args.no_fsdp,
+                 remat=args.remat, compress=args.compress,
                  kv_dtype=args.kv_dtype, param_dtype=args.param_dtype)
 
 

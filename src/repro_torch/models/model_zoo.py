@@ -534,9 +534,18 @@ def _no_tap(name, x):
 
 def _remat(cfg, fn, *args):
     """``fn(*args)``, under activation checkpointing when ``cfg.remat``
-    asks for it and a backward pass can follow."""
+    asks for it and a backward pass can follow.  The recomputation
+    runs in the backward pass, outside this call's (mesh, rules) and
+    on the autograd engine's thread for a card: it re-enters them, so
+    on a laid-out tree it issues the forward's collectives again, in
+    the same order on every rank."""
     if cfg.remat != "none" and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        mesh, rules = shd.active_mesh(), shd.active_rules()
+
+        def run(*a):
+            with shd.use_mesh(mesh, rules):
+                return fn(*a)
+        return torch.utils.checkpoint.checkpoint(run, *args,
                                                  use_reentrant=False)
     return fn(*args)
 

@@ -46,21 +46,50 @@ kinds' operand; ``launch.roofline`` prices them).  A collective on
 of the right shape, so the dry-run counts a rank's step without a world
 (``launch/dryrun.py``); a tensor on a real device over a mesh of no
 process group (``sharding.AbstractMesh``) is refused.
+
+**Gradients.**  :func:`all_gather`, :func:`all_gather_tiled`,
+:func:`psum`, :func:`reduce_scatter`, :func:`all_to_all` and
+:func:`ppermute` are differentiable: each is a
+``torch.autograd.Function`` whose backward is its linear transpose,
+over the same axis and through the same recorder (on ``meta`` tensors
+the dry-run counts the backward's collectives too):
+
+==================  ==============================================
+forward             backward (of the cotangent ``g``)
+==================  ==============================================
+``all_gather``      ``reduce_scatter`` of ``g`` along the stack
+``reduce_scatter``  ``all_gather`` of ``g``, tiled along ``dim``
+``psum``            ``psum`` of ``g``
+``all_to_all``      ``all_to_all`` of ``g`` (a permutation's inverse
+                    is the same exchange)
+``ppermute``        ``ppermute`` of ``g`` by the inverse pairs
+==================  ==============================================
+
+So a rank's backward pass gives, for each value it holds, its share of
+the gradient of the sum over ranks of what each rank's loss was seeded
+with: seeded with ``1/N`` on each of ``N`` ranks that hold the same
+replicated loss, the gradient of a value every rank holds alike is the
+sum of the ranks' shares, and that of a block is the sum over the axes
+the block is not split over (``train.train_step`` takes these sums).
+:func:`pmax` carries no gradient: its uses (the softmax's shift, the
+flash-decoding combine's max) are shifts the result does not depend
+on.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 
 import torch
 
 _HALF = (torch.bfloat16, torch.float16)
 
 
-class _Rec(threading.local):
-    def __init__(self):
-        self.log = None
+class _Rec:
+    """The list :func:`recording` collects into, for the whole process:
+    the autograd engine runs a CUDA backward pass on threads of its own,
+    and their collectives belong to the recording the step runs in."""
+    log = None
 
 
 _REC = _Rec()
@@ -74,7 +103,8 @@ def recording():
     ``reduce-scatter``, ``all-to-all``, ``collective-permute``),
     ``bytes`` what moves as that op's sized type (an all-gather's
     gathered result, a reduce-scatter's scattered result, the operand
-    of the others).  Reentrant; thread-local."""
+    of the others).  Reentrant; process-wide (a backward pass's
+    collectives on the autograd engine's threads are recorded too)."""
     old, _REC.log = _REC.log, []
     try:
         yield _REC.log
@@ -121,9 +151,8 @@ def _axis(mesh, axis, x: torch.Tensor):
     return n, mesh.axis_group(axis)
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
-    """``[S, *x.shape]``: every rank's ``x`` along ``axis``, in axis
-    order."""
+def _all_gather(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """The plain :func:`all_gather`: no gradient."""
     import torch.distributed as dist
     n, group = _axis(mesh, axis, x)
     x = _wire(x)
@@ -138,15 +167,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     return torch.stack([_unbytes(p, x) for p in parts])
 
 
-def all_gather_tiled(x: torch.Tensor, mesh, axis: str = None
-                     ) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0, in axis order."""
-    return all_gather(x, mesh, axis).reshape(-1, *x.shape[1:])
-
-
-def psum(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
-    """The elementwise sum of every rank's ``x`` along ``axis`` (a new
-    tensor; 16-bit floats summed in float32, then rounded once)."""
+def _psum(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """The plain :func:`psum`: no gradient."""
     import torch.distributed as dist
     n, group = _axis(mesh, axis, x)
     x = _wire(x)
@@ -160,10 +182,10 @@ def psum(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
 
 def pmax(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     """The elementwise max of every rank's ``x`` along ``axis`` (a new
-    tensor; exact in any dtype)."""
+    tensor; exact in any dtype).  It carries no gradient."""
     import torch.distributed as dist
     n, group = _axis(mesh, axis, x)
-    out = _wire(x).clone()
+    out = _wire(x.detach()).clone()
     if n > 1:
         _record("all-reduce", out, n)
         if not out.is_meta:
@@ -171,15 +193,9 @@ def pmax(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     return out
 
 
-def reduce_scatter(x: torch.Tensor, mesh, axis: str = None,
+def _reduce_scatter(x: torch.Tensor, mesh, axis: str = None,
                    dim: int = 0) -> torch.Tensor:
-    """The elementwise sum of every rank's ``x`` along ``axis``, cut
-    into ``S`` blocks along ``dim`` (which ``S`` must divide), this
-    rank's block: the tiled ``psum_scatter``.  16-bit floats are summed
-    in float32 and rounded once, as :func:`psum`.  NCCL and gloo on CPU
-    tensors reduce-scatter; gloo on CUDA tensors, whose reduce-scatter
-    the port does not rely on, sums whole (one all-reduce) and takes
-    the block."""
+    """The plain :func:`reduce_scatter`: no gradient."""
     import torch.distributed as dist
     n, group = _axis(mesh, axis, x)
     x = _wire(x)
@@ -193,7 +209,9 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str = None,
     me = mesh.coords[mesh.axis if axis is None else axis]
     _record("reduce-scatter", acc, n, 1 / n)
     if x.is_meta:
-        return acc.narrow(dim, me * size, size).to(x.dtype)
+        shape = list(x.shape)
+        shape[dim] = size
+        return x.new_empty(shape)
     if mesh.backend == "gloo" and x.device.type != "cpu":
         whole = acc.clone()
         dist.all_reduce(whole, group=group)
@@ -204,10 +222,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str = None,
     return res.movedim(0, dim).contiguous().to(x.dtype)
 
 
-def all_to_all(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
-    """Tiled all-to-all over dim 0: ``x`` is ``[S * k, ...]``; block j
-    (rows ``j*k .. j*k+k``) goes to rank j, and block i of the result
-    came from rank i."""
+def _all_to_all(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """The plain :func:`all_to_all`: no gradient."""
     import torch.distributed as dist
     n, group = _axis(mesh, axis, x)
     x = _wire(x)
@@ -222,13 +238,8 @@ def all_to_all(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
     return _unbytes(out, x)
 
 
-def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
-    """Each rank's ``x`` sent along ``axis`` by the ``(source,
-    destination)`` index pairs ``perm``: a rank receives its source's
-    ``x``, or zeros when no pair names it as a destination (each index
-    at most once a side, as ``jax.lax.ppermute`` requires).  One
-    all-to-all with split sizes: a rank sends all of ``x`` to its
-    destination and nothing to the others."""
+def _ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """The plain :func:`ppermute`: no gradient."""
     import torch.distributed as dist
     n, group = _axis(mesh, axis, x)
     axis = mesh.axis if axis is None else axis
@@ -257,3 +268,112 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
     if me not in src:
         return torch.zeros_like(x)
     return _unbytes(out, x).reshape(x.shape)
+
+
+# -- the differentiable collectives -------------------------------------------
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_gather(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axis, 0)[0], None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = _all_gather(g, ctx.mesh, ctx.axis)
+        return torch.cat(list(parts), ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.back = [(d, s) for s, d in perm]
+        return _ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.mesh, ctx.axis, ctx.back), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """``[S, *x.shape]``: every rank's ``x`` along ``axis``, in axis
+    order.  Its backward is :func:`reduce_scatter` along the stack."""
+    return _AllGather.apply(x, mesh, axis)
+
+
+def all_gather_tiled(x: torch.Tensor, mesh, axis: str = None
+                     ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0, in axis order."""
+    return all_gather(x, mesh, axis).reshape(-1, *x.shape[1:])
+
+
+def psum(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """The elementwise sum of every rank's ``x`` along ``axis`` (a new
+    tensor; 16-bit floats summed in float32, then rounded once).  Its
+    backward is the same sum of the cotangents."""
+    return _Psum.apply(x, mesh, axis)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str = None,
+                   dim: int = 0) -> torch.Tensor:
+    """The elementwise sum of every rank's ``x`` along ``axis``, cut
+    into ``S`` blocks along ``dim`` (which ``S`` must divide), this
+    rank's block: the tiled ``psum_scatter``.  16-bit floats are summed
+    in float32 and rounded once, as :func:`psum`.  NCCL and gloo on CPU
+    tensors reduce-scatter; gloo on CUDA tensors, whose reduce-scatter
+    the port does not rely on, sums whole (one all-reduce) and takes
+    the block.  Its backward all-gathers the cotangents along ``dim``."""
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str = None) -> torch.Tensor:
+    """Tiled all-to-all over dim 0: ``x`` is ``[S * k, ...]``; block j
+    (rows ``j*k .. j*k+k``) goes to rank j, and block i of the result
+    came from rank i.  The exchange is its own inverse, and so its
+    backward."""
+    return _AllToAll.apply(x, mesh, axis)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """Each rank's ``x`` sent along ``axis`` by the ``(source,
+    destination)`` index pairs ``perm``: a rank receives its source's
+    ``x``, or zeros when no pair names it as a destination (each index
+    at most once a side, as ``jax.lax.ppermute`` requires).  One
+    all-to-all with split sizes: a rank sends all of ``x`` to its
+    destination and nothing to the others.  Its backward sends the
+    cotangents back by the inverse pairs."""
+    return _Ppermute.apply(x, mesh, axis, perm)

@@ -480,6 +480,47 @@ class LaidOutTree(dict):
         self.mesh = mesh
         self.rules = rules if rules is not None else default_rules()
 
+    def with_blocks(self, blocks: dict) -> "LaidOutTree":
+        """Other blocks of the same keys in this tree's layout (the
+        gradients, the optimizer's moments): ``core.tree``'s maps keep
+        the layout through it."""
+        return LaidOutTree(blocks, self.specs, self.mesh, self.rules)
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree (nested dicts of specs, the keys of a
+    parameter tree) in ``core.tree.leaves`` order: sorted keys."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [tuple(specs)]
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a spec splits its tensor over, in dimension
+    order."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def psum_grouped(tensors: Sequence[torch.Tensor], axes: Sequence[tuple],
+                 mesh) -> list:
+    """``tensors[i]`` summed over the mesh axes ``axes[i]`` (none for an
+    empty tuple).  The tensors that sum over the same axes in one dtype
+    go in one float32 buffer, summed an axis at a time and rounded once
+    to their dtype."""
+    groups: Dict[tuple, list] = {}
+    for i, (t, ax) in enumerate(zip(tensors, axes)):
+        if ax:
+            groups.setdefault((tuple(ax), t.dtype), []).append(i)
+    out = list(tensors)
+    for (ax, dtype), idx in groups.items():
+        buf = torch.cat([tensors[i].reshape(-1).float() for i in idx])
+        for a in ax:
+            buf = cl.psum(buf, mesh, a)
+        sizes = [tensors[i].numel() for i in idx]
+        for i, part in zip(idx, buf.split(sizes)):
+            out[i] = part.reshape(tensors[i].shape).to(dtype)
+    return out
+
 
 def tree_mesh(tree) -> Optional[Mesh]:
     """The mesh a parameter tree is laid out on, or ``None`` for a

@@ -1,11 +1,13 @@
-"""AdamW with global-norm clipping: the twin of ``repro.train.optimizer``
-(meshless).
+"""AdamW with global-norm clipping: the twin of ``repro.train.optimizer``.
 
 Plain functions over the parameter tree, not ``torch.optim.AdamW``,
 which puts ``eps`` and the bias correction in another order and decays
 the parameter before the step.  ``AdamWState`` has the reference's
 fields, so a checkpoint's ``opt/step``, ``opt/mu/...`` and
-``opt/nu/...`` names match.
+``opt/nu/...`` names match.  On a ``sharding.LaidOutTree`` the moments
+are laid out like the parameters (the reference's ZeRO-style state,
+each rank its blocks), ``step`` is replicated, and the clipping norm is
+the whole gradient's, equal on every rank (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.tree import leaves, tree_map
+from repro_torch.parallel import sharding as shd
 
 
 class AdamWState(NamedTuple):
@@ -24,7 +27,9 @@ class AdamWState(NamedTuple):
 
 
 def init(params) -> AdamWState:
-    """Zero moments in float32 beside each parameter, step 0."""
+    """Zero moments in float32 beside each parameter, step 0 (on a
+    laid-out tree the moments laid out like it, on the meta device
+    shapes only)."""
     def z(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     dev = leaves(params)[0].device
@@ -34,9 +39,18 @@ def init(params) -> AdamWState:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares over the leaves, in float32, summed
-    leaf by leaf in the tree's (sorted-key) order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(grads)))
+    leaf by leaf in the tree's (sorted-key) order.  On a laid-out tree
+    each leaf's sum of squares is summed over the mesh axes its spec
+    splits (``sharding.psum_grouped``), a
+    replicated leaf counted once: the whole gradient's norm, the same on
+    every rank."""
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(grads)]
+    mesh = shd.tree_mesh(grads)
+    if mesh is not None:
+        sq = shd.psum_grouped(sq, [
+            tuple(a for a in shd.spec_axes(spec) if mesh.shape[a] > 1)
+            for spec in shd.spec_leaves(grads.specs)], mesh)
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()

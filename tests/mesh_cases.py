@@ -1251,6 +1251,182 @@ def pipeline_rank(mesh, cases) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the sharded train step (tests/test_torch_train_mesh.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPE = (2, 16)             # the step's batch x sequence
+# (case, arch, mesh, layout, microbatch, compress): the 1 x 2 cases run
+# on a world of 2 ranks, the 1 x 4 and 2 x 2 ones on a world of 4
+TRAIN_CASES = (
+    ("dense_heads", "qwen2-0.5b", "1x2", "default", 1, None),
+    ("encdec", "whisper-large-v3", "1x2", "default", 1, None),
+    ("vlm", "paligemma-3b", "1x2", "default", 1, None),
+    ("int8", "qwen2-0.5b", "1x2", "default", 1, "int8"),
+    ("dense_cp_q", "qwen2-0.5b", "1x4", "cp_q", 1, None),
+    ("moe", "phi3.5-moe-42b-a6.6b", "1x4", "default", 1, None),
+    ("hybrid", "zamba2-7b", "1x4", "default", 1, None),
+    ("dense_fsdp", "qwen2-0.5b", "2x2", "default", 1, None),
+    ("microbatch", "qwen2-0.5b", "2x2", "default", 2, None),
+    ("topk", "phi3.5-moe-42b-a6.6b", "2x2", "default", 1, "topk"),
+)
+TRANSPOSE_KINDS = ("all_gather", "all_gather_tiled", "psum",
+                   "reduce_scatter_0", "reduce_scatter_1", "all_to_all",
+                   "ppermute")
+
+
+def train_batch_of(cfg, microbatch: int, seed: int = 7) -> dict:
+    """The step's batch (numpy): ``TRAIN_SHAPE`` ids from ``seed``, the
+    labels the ids, the stub frontend where the family has one (as
+    ``tests/test_torch_train.py`` draws them); for ``microbatch`` 2 a
+    batch of 4 rows whose labels hold -1 at a few positions inside rows
+    (the microbatches then hold different label counts)."""
+    rng = np.random.default_rng(seed)
+    b, s = TRAIN_SHAPE[0] * (2 if microbatch > 1 else 1), TRAIN_SHAPE[1]
+    toks = rng.integers(1, cfg.vocab, (b, s)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks.copy()}
+    if microbatch > 1:
+        batch["labels"][0, 3:9] = -1
+        batch["labels"][3, 5] = -1
+    n = {"encdec": cfg.enc_positions, "vlm": cfg.img_tokens}.get(cfg.family)
+    if n is not None:
+        batch["frontend"] = (0.02 * rng.standard_normal(
+            (b, n, cfg.d_model))).astype(np.float32)
+    return batch
+
+
+def train_rules(layout: str):
+    from repro_torch.parallel import sharding as shd
+    rules = shd.default_rules()
+    if layout == "cp_q":
+        rules["cp_seq"] = ("model",)
+        rules["cp_q"] = ("model",)
+    return rules
+
+
+def _train_case(mesh, case, params_np) -> dict:
+    """One case of ``TRAIN_CASES`` on this rank: the JAX parameters laid
+    out on ``mesh``, the gradients (``train_step._value_and_grad``) and
+    one step of ``make_train_step``; each leaf of the gradients, the new
+    parameters and the moments gathered whole, this rank's gradient
+    blocks and the leaves' specs."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    name, arch, _, layout, mb, compress = case
+    cfg = registry.get_smoke(arch)
+    rules = train_rules(layout)
+    params = convert.params_from_numpy(params_np, device="cpu")
+    _, axes = zoo.param_axes(cfg)
+    tree = shd.lay_out(params, ly.axes_to_specs(params, axes, mesh, rules),
+                       mesh, rules)
+    batch = train_batch_of(cfg, mb)
+    rows, _ = _rows(mesh, rules, batch["tokens"].shape[0])
+    tb = {k: torch.as_tensor(v[rows].astype(np.int64) if v.dtype == np.int32
+                             else v[rows]) for k, v in batch.items()}
+    loss, grads = ts._value_and_grad(tree, cfg, tb, mb)
+    out = ts.make_train_step(cfg, microbatch=mb, compress=compress)(
+        tree, opt.init(tree), tb)
+    new, state, metrics = out[:3]
+    specs = shd.spec_leaves(tree.specs)
+
+    def whole(t):
+        return [_whole(x, sp, mesh) for x, sp in zip(leaves(t), specs)]
+    return {"loss": float(loss), "m_loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grads": whole(grads), "params": whole(new),
+            "mu": whole(state.mu), "nu": whole(state.nu),
+            "step": int(state.step), "specs": specs,
+            "blocks": [g.numpy() for g in leaves(grads)],
+            "is_laid_out": [isinstance(t, shd.LaidOutTree)
+                            for t in (grads, new, state.mu, state.nu)]
+            + ([isinstance(out[3], shd.LaidOutTree)] if compress else [])}
+
+
+def transpose_input(kind: str, rank: int, dtype: str, shape=(4, 8)):
+    """World rank ``rank``'s operand and cotangent of one transpose
+    case: small integers (exact in bfloat16, their sums too) scaled to
+    halves."""
+    rng = np.random.default_rng(100 * rank + TRANSPOSE_KINDS.index(kind))
+    x = rng.integers(-4, 5, shape).astype(np.float64) / 2
+    ct = rng.integers(-4, 5, (4,) + shape if kind == "all_gather"
+                      else shape).astype(np.float64) / 2
+    return x.astype(dtype), ct.astype(dtype)
+
+
+def _transposes(meshes: dict, rank: int) -> dict:
+    """For each differentiable collective (``TRANSPOSE_KINDS``) over each
+    axis of more than one rank of each mesh, in float64 and bfloat16:
+    ``<ct, f(x)>`` and ``<f^T(ct), x>`` on this rank (float64 sums), with
+    ``f^T(ct)`` from ``torch.autograd.grad``."""
+    import torch
+
+    from repro_torch.parallel import collectives as cl
+    out = {}
+    for key, m in meshes.items():
+        for axis, n in m.shape.items():
+            if n == 1:
+                continue
+            ring = [(i, (i + 1) % n) for i in range(n)]
+            fns = {"all_gather": lambda x: cl.all_gather(x, m, axis),
+                   "all_gather_tiled": lambda x: cl.all_gather_tiled(
+                       x, m, axis),
+                   "psum": lambda x: cl.psum(x, m, axis),
+                   "reduce_scatter_0": lambda x: cl.reduce_scatter(
+                       x, m, axis, 0),
+                   "reduce_scatter_1": lambda x: cl.reduce_scatter(
+                       x, m, axis, 1),
+                   "all_to_all": lambda x: cl.all_to_all(x, m, axis),
+                   "ppermute": lambda x: cl.ppermute(x, m, axis, ring)}
+            for kind in TRANSPOSE_KINDS:
+                for dt in ("float64", "bfloat16"):
+                    xa, cta = transpose_input(kind, rank, "float64")
+                    tdt = getattr(torch, dt)
+                    x = torch.as_tensor(xa).to(tdt).requires_grad_(True)
+                    y = fns[kind](x)
+                    ct = torch.as_tensor(cta).to(tdt)
+                    if kind == "all_gather":
+                        ct = ct[:n]
+                    elif kind == "all_gather_tiled":
+                        ct = ct.repeat(n, 1)
+                    elif kind.startswith("reduce_scatter"):
+                        ct = ct.narrow(int(kind[-1]), 0, ct.shape[
+                            int(kind[-1])] // n)
+                    xt, = torch.autograd.grad(y, x, ct)
+                    out[key, axis, kind, dt] = (
+                        float((ct.double() * y.double()).sum()),
+                        float((xt.double() * x.double()).sum()),
+                        str(y.dtype), str(xt.dtype))
+    return out
+
+
+def train_mesh_rank(mesh, params_np: dict) -> dict:
+    """The sharded train step on one rank of a gloo world of 2 or 4 CPU
+    ranks: the transpose cases of every differentiable collective, then
+    each case of ``TRAIN_CASES`` on this world's meshes (``1 x S``, and
+    with 4 ranks the ``2 x 2`` (data, model) mesh), from the JAX
+    parameters ``params_np[arch]``."""
+    from repro_torch.train import elastic
+    S = mesh.shape["model"]
+    meshes = {f"1x{S}": mesh}
+    if S == 4:
+        meshes["2x2"] = elastic.remesh(model_parallel=2, device="cpu")
+    out = {"coords": {k: dict(m.coords) for k, m in meshes.items()},
+           "transpose": _transposes(meshes, mesh.index), "cases": {}}
+    for case in TRAIN_CASES:
+        if case[2] in meshes:
+            out["cases"][case[0]] = _train_case(meshes[case[2]], case,
+                                                params_np[case[1]])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the benchmark twins (tests/test_torch_probes.py, test_torch_chaos_probe.py,
 # test_torch_serving_probe.py)
 # ---------------------------------------------------------------------------

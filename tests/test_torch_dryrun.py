@@ -15,6 +15,7 @@ for the port's), ``model_flops`` and ``build_table`` must equal the
 reference's.  One meta dry-run of a real cell runs in-process.
 """
 
+import contextlib
 import json
 import os
 import pickle
@@ -24,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -63,18 +65,37 @@ def _reference_main(out_path: str) -> None:
                                              ("pod", "data", "model"))
         return jax.sharding.AbstractMesh((16, 16), ("data", "model"))
 
+    jitted = []
+
+    def capture(fn, in_shardings=None, **kw):
+        jitted.append(in_shardings)
+        raise Stop
+
     rd.shd.default_rules = keep
     rd.zoo.build_params = stop
     rd.make_production_mesh = abstract
-    out = {"cells": rd.cells(), "pairs": {}}
+    rd.jax.jit = capture
+    # the rules and the mesh reach the specs as arguments; an abstract
+    # mesh cannot be entered
+    rd.shd.use_mesh = lambda *a, **kw: contextlib.nullcontext()
+    out = {"cells": rd.cells(), "pairs": {}, "train": {}}
     for arch, shape_name in out["cells"]:
         for mp in (False, True):
             kept.clear()
+            # a train cell runs on to its jit, whose shardings are kept
+            rd.zoo.build_params = build if shape_name == "train_4k" \
+                else stop
             try:
                 rd.lower_cell(arch, shape_name, mp)
             except Stop:
                 pass
             rules = kept[-1]
+            if shape_name == "train_4k":
+                _, o_sh, b_sh = jitted.pop()
+                spec = (lambda t: jax.tree.map(lambda s: tuple(s.spec), t))
+                out["train"][arch, mp] = (
+                    (tuple(o_sh.step.spec), spec(o_sh.mu), spec(o_sh.nu)),
+                    spec(b_sh))
             mesh = abstract(mp)
             cfg, shape = registry.get(arch), SHAPES[shape_name]
             avals, axes = build(cfg, abstract=True)
@@ -236,10 +257,95 @@ def test_model_flops_equal_the_reference():
                                 kind), (arch, kind)
 
 
-def test_train_cells_raise_naming_the_roadmap_item():
+@pytest.mark.parametrize("multi_pod", (False, True))
+def test_train_state_and_batch_specs_equal_the_reference(reference,
+                                                         multi_pod):
+    """On every ``train_4k`` cell of one production mesh: the AdamW
+    state's specs (``step`` replicated, ``mu`` and ``nu`` laid out like
+    the parameters) and the batch's equal the shardings the reference's
+    ``lower_cell`` hands its jit, and rank 0's inputs
+    (``dryrun.cell_inputs``) are the blocks of those layouts."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.tree import leaves
     from repro_torch.launch import dryrun
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        dryrun.lower_cell("qwen2-0.5b", "train_4k", False)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import train_step as ts
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    shape = SHAPES["train_4k"]
+    cells = [(a, mp) for a, mp in reference["train"] if mp == multi_pod]
+    assert len(cells) == 10
+    for arch, _ in cells:
+        (step, mu, nu), bspecs = reference["train"][arch, multi_pod]
+        cfg = registry.get(arch)
+        rules = dryrun.cell_rules(cfg, shape, mesh, multi_pod)
+        tree, state, rows = dryrun.cell_inputs(cfg, shape, mesh, rules)
+        assert step == () and state.step.shape == (), arch
+        assert isinstance(state.mu, shd.LaidOutTree), arch
+        assert _spec_tree(state.mu.specs) == _spec_tree(mu), arch
+        assert _spec_tree(state.nu.specs) == _spec_tree(nu), arch
+        p_meta, _ = zoo.param_axes(cfg)
+        for m, w, sp in zip(leaves(state.mu), leaves(p_meta),
+                            shd.spec_leaves(state.mu.specs)):
+            assert m.dtype == torch.float32 and tuple(m.shape) == \
+                shd.local_shape(w.shape, sp, mesh), arch
+        batch = ts.input_specs(cfg, shape.seq_len, shape.global_batch)
+        assert sorted(rows) == sorted(bspecs) == sorted(batch), arch
+        for k, v in batch.items():
+            assert tuple(rows[k].shape) == shd.local_shape(
+                v.shape, bspecs[k], mesh), (arch, k)
+
+
+def test_meta_train_cell_counts_the_backward_and_the_remat():
+    """qwen2-0.5b ``train_4k``'s 1-layer probe on the single mesh: the
+    whole step's matmul flops are 3x the same cell's forward (the loss)
+    within 2% with remat off, between 3x and 4x with block remat (the
+    blocks' forward again); its collectives include the backward's
+    transposes; its argument bytes count the AdamW state."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import train_step as ts
+    step, meta, cfg, shape = dryrun.lower_cell(
+        "qwen2-0.5b", "train_4k", False, probe_layers=1, remat="none")
+    mesh = make_production_mesh()
+    tree, state, rows = dryrun.cell_inputs(
+        cfg, SHAPES["train_4k"], mesh,
+        dryrun.cell_rules(cfg, shape, mesh, False))
+
+    def forward():
+        with torch.no_grad():
+            ts.loss_fn(tree, cfg, rows)
+    fwd = dryrun.count(forward)
+    off = dryrun.count(step)
+    on = dryrun.count(dryrun.lower_cell("qwen2-0.5b", "train_4k", False,
+                                        probe_layers=1)[0])
+    assert abs(off["flops"] / fwd["flops"] - 3) <= 0.06
+    assert 3 < on["flops"] / fwd["flops"] < 4
+    assert meta["remat"] == "none" and meta["rules"] == {
+        "cp_seq": ["model"], "cp_q": ["model"]}
+    for kind in ("all-gather", "reduce-scatter"):
+        assert off["collectives"][kind]["count"] > \
+            fwd["collectives"][kind]["count"], kind
+    assert meta["argument_bytes"] == dryrun._nbytes([tree, state, rows])
+    assert dryrun._nbytes(state) == 2 * sum(
+        4 * p.numel() for p in leaves(tree)) + 4
+
+
+def test_dryrun_all_sweeps_the_64_pairs(tmp_path, capsys):
+    """``dryrun_all`` runs every (cell, mesh) pair, the 20 ``train_4k``
+    ones included: with each pair's JSON present it skips all 64."""
+    from repro_torch.launch import dryrun, dryrun_all
+    pairs = dryrun_all.pairs("both")
+    assert len(pairs) == 64 == 2 * len(dryrun.cells())
+    assert sum(s == "train_4k" for _, s, _ in pairs) == 20
+    for arch, shape, mesh in pairs:
+        (tmp_path / f"{arch}__{shape}__{mesh}.json").write_text("{}")
+    out = dryrun_all.main(["--out", str(tmp_path)])
+    assert out == {"done": [], "skipped": pairs}
 
 
 def test_meta_dry_run_of_a_decode_cell(tmp_path):
