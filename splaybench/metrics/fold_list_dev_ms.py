@@ -1,0 +1,11 @@
+"""Device ms a batch of the fold list (the sort and segment sums after
+the state walk): the activities enqueued inside the program's
+``splay.fold_list`` spans over the traced slice."""
+
+from splaybench import program_trace
+
+program_trace.arm()        # the program opens its spans only while tracing
+
+
+def read(ctx):
+    return program_trace.span_dev_ms(ctx, "splay.fold_list")

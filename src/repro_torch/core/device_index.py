@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import splaylist as sx
+from repro_torch.core import trace
 
 PAD_KEY = sx.POS_INF_32
 
@@ -261,6 +262,7 @@ def refresh_device(st: sx.SplayState, prev: DeviceLevelArrays,
     # ---- old keys: gather through the slot map
     sc = torch.clamp(prev.slots, 0, cap - 1).long()
     match = lane & (st.key[sc] == bottom)
+    trace.count("waits.refresh.stale")
     stale = bool((lane & ~match).any())
 
     # state-side classification: which alive slots are inserts
@@ -270,6 +272,7 @@ def refresh_device(st: sx.SplayState, prev: DeviceLevelArrays,
 
     if stale:
         # stale/absent slot map: re-derive it for this epoch
+        trace.count("refresh.stale")
         is_old = alive & ~is_new
         dst = torch.where(is_old, pc, width)
         surv = torch.zeros((width + 1,), dtype=torch.bool, device=dev)
@@ -286,14 +289,20 @@ def refresh_device(st: sx.SplayState, prev: DeviceLevelArrays,
 
     # ---- new keys: the kk smallest, sorted
     kk = min(max_new, cap)
+    trace.count("waits.refresh.new")
     n_new_raw = int(is_new.sum())
     n_new = min(n_new_raw, kk)
     ns, new_h, new_slots = _top_new(is_new, k_slot, top_rel, kk, n_new)
 
     # height-only epoch (the common serving case): the merge is the
     # identity over the previous bottom row
+    trace.count("waits.refresh.old")
     n_old = int(surv.sum())
-    if n_new == 0 and n_old == int(w_bot):
+    unmoved = n_new == 0
+    if unmoved:
+        trace.count("waits.refresh.width")
+        unmoved = n_old == int(w_bot)
+    if unmoved:
         merged = bottom, old_h, slots_eff
     else:
         merged = _merge_rows(bottom, surv, old_h, slots_eff, ns, new_h,
@@ -302,6 +311,7 @@ def refresh_device(st: sx.SplayState, prev: DeviceLevelArrays,
     if not return_overflow:
         return plane
     overflow = (n_new_raw - n_new) + max(n_old + n_new - width, 0)
+    trace.count("waits.refresh.overflow")     # an upload from the host
     return plane, torch.tensor(overflow, dtype=torch.int32, device=dev)
 
 
@@ -561,8 +571,10 @@ def plane_is_segmented(plane) -> bool:
     live = keys[-1] != PAD_KEY
     n = live.sum()
     # the live lanes form a prefix exactly when none sits past their count
+    trace.count("waits.plane.live")
     gap = live[int(n):].any()
     mesh = shd.plane_mesh(plane)
+    trace.count("waits.plane.gap")          # one read, with a mesh or not
     if mesh is None:
         return bool(gap)
     wl = keys.shape[1]

@@ -49,6 +49,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import state_walk
 
 NEG_INF_32 = -(2 ** 31) + 1
@@ -154,7 +155,8 @@ def make(capacity: int, max_level: int = 32, count_dtype=torch.int32,
 
 
 def clone(st: SplayState) -> SplayState:
-    return SplayState(*(t.clone() for t in st))
+    with trace.span("splay.clone"):
+        return SplayState(*(t.clone() for t in st))
 
 
 # ---------------------------------------------------------------------------
@@ -171,8 +173,9 @@ def find_batch(st: SplayState, ks) -> Tuple[torch.Tensor, torch.Tensor]:
     ``>= POS_INF_32`` raise ``ValueError`` and leave the state as it
     was (W refuses them in its status word, the plain loop's host check
     before it starts)."""
-    ks = _op_tensor(ks, torch.int32, st.device)
-    return state_walk.splay_walk(st, ks)
+    with trace.span("splay.walk"):
+        ks = _op_tensor(ks, torch.int32, st.device)
+        return state_walk.splay_walk(st, ks)
 
 
 def find(st: SplayState, k) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,8 +198,19 @@ def _shift(x: int, e: int, bits: int) -> int:
     return x >> e
 
 
+_plain_steps = 0
+
+
+def plain_steps() -> int:
+    """Successor reads (:func:`_eff_next` calls) of the plain fold since
+    the process started: its walk steps, as F counts them."""
+    return _plain_steps
+
+
 def _eff_next(st: SplayState, i: int, h: int) -> int:
     """Successor of slot i at level h under lazy expansion."""
+    global _plain_steps
+    _plain_steps += 1
     return int(st.nxt[max(h, int(st.nzero[i])), i])
 
 
@@ -342,9 +356,17 @@ def _link_bottom(st: SplayState, k: int) -> None:
     st.n_alloc.add_(1)
 
 
-def _rebuild_due(st: SplayState) -> bool:
+def _rebuild_due(st: SplayState, counted: bool = False) -> bool:
+    """Whether deleted hits reach half the mass.  ``counted``: each host
+    read of the state is counted as a wait (``waits.rebuild.*``)."""
+    if counted:
+        trace.count("waits.rebuild.m")
     m = int(st.m)
-    return m > 0 and 2 * int(st.dhits) >= m
+    if m <= 0:
+        return False
+    if counted:
+        trace.count("waits.rebuild.dhits")
+    return 2 * int(st.dhits) >= m
 
 
 def _contains_step(st: SplayState, k: int, upd: bool) -> Tuple[int, int]:
@@ -437,6 +459,12 @@ def _rev_cummin(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def rebuild(st: SplayState) -> SplayState:
+    with trace.span("splay.rebuild"):
+        trace.count("rebuilds.state")
+        return _rebuild(st)
+
+
+def _rebuild(st: SplayState) -> SplayState:
     C = st.capacity
     L = st.max_level
     ml1 = L - 1
@@ -453,8 +481,10 @@ def rebuild(st: SplayState) -> SplayState:
     keys_s = st.key[order]
     alive_s = alive[order]
     sh_s = torch.where(alive_s, st.selfhits[order], 0)
+    trace.count("waits.rebuild.alive")
     n = int(alive_s.sum())
     big_m_t = sh_s.sum(dtype=cdt)
+    trace.count("waits.rebuild.mass")
     big_m = int(big_m_t)
 
     k_new = min(max((big_m.bit_length() if big_m > 0 else 0) - 1, 0), ml1)
@@ -544,6 +574,7 @@ def rebuild(st: SplayState) -> SplayState:
     new_hits[:, HEAD] = torch.where(head_lvl_mask, head_hits, 0).to(cdt)
 
     def scalar(v, dt):
+        trace.count("waits.rebuild.scalar")      # an upload from the host
         return torch.tensor(v, dtype=dt, device=dev)
 
     return SplayState(
@@ -556,7 +587,7 @@ def rebuild(st: SplayState) -> SplayState:
 
 
 def _maybe_rebuild(st: SplayState) -> SplayState:
-    return rebuild(st) if _rebuild_due(st) else st
+    return rebuild(st) if _rebuild_due(st, counted=True) else st
 
 
 # ---------------------------------------------------------------------------
@@ -590,9 +621,11 @@ def run_ops(st: SplayState, kinds, keys, upd_mask):
     if not (keys.shape[0] == n and upd.shape[0] == n):
         raise ValueError(f"ragged op stream: kinds={n}, "
                          f"keys={keys.shape[0]}, upd={upd.shape[0]}")
-    if n and bool(((kinds < OP_CONTAINS) | (kinds > OP_RANGE)).any()):
-        raise ValueError("op kinds must be OP_CONTAINS, OP_INSERT, "
-                         "OP_DELETE, OP_PRED or OP_RANGE")
+    if n:
+        trace.count("waits.run_ops.kinds")
+        if bool(((kinds < OP_CONTAINS) | (kinds > OP_RANGE)).any()):
+            raise ValueError("op kinds must be OP_CONTAINS, OP_INSERT, "
+                             "OP_DELETE, OP_PRED or OP_RANGE")
     st = clone(st)
     res = torch.zeros((n,), dtype=torch.int32, device=dev)
     plen = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -680,28 +713,29 @@ def fold_entries(st: SplayState, keys, upd_mask, aggregate: bool = False):
     upd = _op_tensor(upd_mask, torch.bool, dev)
     cdt = st.m.dtype
     slots, steps = find_batch(st, keys)
-    present = slots >= 0
-    marked = present & st.deleted[torch.clamp(slots, min=0).long()]
-    do = upd & present
-    if aggregate:
-        B = keys.shape[0]
-        order = torch.sort(keys, stable=True)[1]
-        ks = keys[order]
-        do_s = do[order]
-        mk = marked[order]
-        first = torch.ones((B,), dtype=torch.bool, device=dev)
-        first[1:] = ks[1:] != ks[:-1]
-        seg = torch.cumsum(first, 0, dtype=torch.int32).long() - 1
-        w = torch.zeros((B,), dtype=cdt, device=dev).scatter_add_(
-            0, seg, do_s.to(cdt))
-        wm = torch.zeros((B,), dtype=cdt, device=dev).scatter_add_(
-            0, seg, (do_s & mk).to(cdt))
-        uk = torch.full((B,), torch.iinfo(torch.int32).max,
-                        dtype=torch.int32, device=dev).scatter_reduce_(
-            0, seg, ks, reduce="amin")
-    else:
-        uk, w, wm = keys, do.to(cdt), (do & marked).to(cdt)
-    return (uk, w, wm), present & ~marked, steps
+    with trace.span("splay.fold_list"):
+        present = slots >= 0
+        marked = present & st.deleted[torch.clamp(slots, min=0).long()]
+        do = upd & present
+        if aggregate:
+            B = keys.shape[0]
+            order = torch.sort(keys, stable=True)[1]
+            ks = keys[order]
+            do_s = do[order]
+            mk = marked[order]
+            first = torch.ones((B,), dtype=torch.bool, device=dev)
+            first[1:] = ks[1:] != ks[:-1]
+            seg = torch.cumsum(first, 0, dtype=torch.int32).long() - 1
+            w = torch.zeros((B,), dtype=cdt, device=dev).scatter_add_(
+                0, seg, do_s.to(cdt))
+            wm = torch.zeros((B,), dtype=cdt, device=dev).scatter_add_(
+                0, seg, (do_s & mk).to(cdt))
+            uk = torch.full((B,), torch.iinfo(torch.int32).max,
+                            dtype=torch.int32, device=dev).scatter_reduce_(
+                0, seg, ks, reduce="amin")
+        else:
+            uk, w, wm = keys, do.to(cdt), (do & marked).to(cdt)
+        return (uk, w, wm), present & ~marked, steps
 
 
 def run_contains_batch(st: SplayState, keys, upd_mask,
@@ -767,6 +801,16 @@ def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
                rebuild, plane_search, ordered, mesh=None, axis="model",
                split="lanes", route_capacity=None, route_slack=None,
                routed=True):
+    # the span's args: the process-wide epoch number
+    with trace.span("splay.epoch", trace.count("epochs")):
+        return _epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
+                      rebuild, plane_search, ordered, mesh, axis, split,
+                      route_capacity, route_slack, routed)
+
+
+def _epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new, rebuild,
+           plane_search, ordered, mesh, axis, split, route_capacity,
+           route_slack, routed):
     from repro_torch.core import device_index as dix
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import splay_search as ssk
@@ -785,30 +829,32 @@ def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
             raise ValueError("plane_search answers the batch from the "
                              "index plane — read-only batches only, "
                              "i.e. aggregate=True")
-        if sharded:
-            res, rank, plen, rstats = kops.splay_search_sharded(
-                plane, keys, mesh=mesh, axis=axis, routed=routed,
-                capacity=route_capacity,
-                slack=(route_slack if route_slack is not None
-                       else ssk.DEFAULT_ROUTE_SLACK),
-                return_stats=True)
-            spill, occupancy = rstats.spill, rstats.occupancy
-        else:
-            res, rank, plen = kops.splay_search(plane, keys, sharded=False)
-        upd_eff = _op_tensor(upd_mask, torch.bool, dev)
-        if ordered:
-            # ordered lanes answer off the same descent's bottom-row
-            # rank; pure reads, so they fold no hit weight
-            kinds = _op_tensor(kinds, torch.int32, dev)
-            pred_keys = kops.splay_select(plane, rank, sharded=sharded,
-                                          mesh=mesh if sharded else None,
-                                          axis=axis)
-            res = torch.where(
-                kinds == OP_PRED,
-                torch.where(rank >= 0, pred_keys, NEG_INF_32),
-                torch.where(kinds == OP_RANGE, rank + 1,
-                            res.to(torch.int32)))
-            upd_eff = upd_eff & (kinds == OP_CONTAINS)
+        with trace.span("splay.search"):
+            if sharded:
+                res, rank, plen, rstats = kops.splay_search_sharded(
+                    plane, keys, mesh=mesh, axis=axis, routed=routed,
+                    capacity=route_capacity,
+                    slack=(route_slack if route_slack is not None
+                           else ssk.DEFAULT_ROUTE_SLACK),
+                    return_stats=True)
+                spill, occupancy = rstats.spill, rstats.occupancy
+            else:
+                res, rank, plen = kops.splay_search(plane, keys,
+                                                    sharded=False)
+            upd_eff = _op_tensor(upd_mask, torch.bool, dev)
+            if ordered:
+                # ordered lanes answer off the same descent's bottom-row
+                # rank; pure reads, so they fold no hit weight
+                kinds = _op_tensor(kinds, torch.int32, dev)
+                pred_keys = kops.splay_select(
+                    plane, rank, sharded=sharded,
+                    mesh=mesh if sharded else None, axis=axis)
+                res = torch.where(
+                    kinds == OP_PRED,
+                    torch.where(rank >= 0, pred_keys, NEG_INF_32),
+                    torch.where(kinds == OP_RANGE, rank + 1,
+                                res.to(torch.int32)))
+                upd_eff = upd_eff & (kinds == OP_CONTAINS)
         st, _, _ = run_contains_batch(st, keys, upd_eff, aggregate=True)
     elif aggregate:
         st, res, plen = run_contains_batch(st, keys, upd_mask,
@@ -819,20 +865,24 @@ def _run_epoch(st, plane, kinds, keys, upd_mask, aggregate, max_new,
     if max_new is None:
         # an epoch cannot insert more keys than it has ops
         max_new = keys.shape[0]
-    if rebuild:
-        plane = dix.from_state_device(st, n_levels=n_levels, width=width)
-        # a full build drops nothing the plane can hold; only alive
-        # counts beyond the width remain unrepresentable
-        overflow = torch.clamp(st.size - width, min=0).to(torch.int32)
-        if sharded:
-            # the rebuild is replicated math: lay its result out again
-            plane = shd.shard_index_plane(plane, mesh, axis)
-    elif sharded:
-        plane, overflow = dix.refresh_device_sharded(
-            st, plane, max_new=max_new, mesh=mesh, axis=axis, split=split)
-    else:
-        plane, overflow = dix.refresh_device(st, plane, max_new=max_new,
-                                             return_overflow=True)
+    with trace.span("splay.refresh", "full" if rebuild else "incremental"):
+        if rebuild:
+            trace.count("rebuilds.plane")
+            plane = dix.from_state_device(st, n_levels=n_levels,
+                                          width=width)
+            # a full build drops nothing the plane can hold; only alive
+            # counts beyond the width remain unrepresentable
+            overflow = torch.clamp(st.size - width, min=0).to(torch.int32)
+            if sharded:
+                # the rebuild is replicated math: lay its result out again
+                plane = shd.shard_index_plane(plane, mesh, axis)
+        elif sharded:
+            plane, overflow = dix.refresh_device_sharded(
+                st, plane, max_new=max_new, mesh=mesh, axis=axis,
+                split=split)
+        else:
+            plane, overflow = dix.refresh_device(
+                st, plane, max_new=max_new, return_overflow=True)
     return st, plane, res, plen, overflow, spill, occupancy
 
 
@@ -906,26 +956,33 @@ def run_serving(st: SplayState, plane, kinds, keys, upd_mask,
     plane-search path)."""
     from repro_torch.core.route_controller import overflow_machine_step
     from repro_torch.parallel import sharding as shd
-    _check_plane_dispatch(plane, mesh, axis, split)
-    _check_route_args(route_capacity, route_slack)
-    dev = st.device
-    kinds = _op_tensor(kinds, torch.int32, dev)
-    keys = _op_tensor(keys, torch.int32, dev)
-    upd = _op_tensor(upd_mask, torch.bool, dev)
-    width = shd.plane_width(plane)
-    B = keys.shape[1]
-    pending = pressed = False
-    outs = []
-    for e in range(keys.shape[0]):
-        st, plane, *out = _run_epoch(
-            st, plane, kinds[e], keys[e], upd[e], aggregate, max_new,
-            pending, plane_search, ordered, mesh, axis, split,
-            route_capacity, route_slack, routed)
-        pending, pressed = overflow_machine_step(
-            int(out[2]), int(st.size), B, width, pressed)
-        outs.append(out)
-    res, plen, ovf, spl, occ = (torch.stack(x) for x in zip(*outs))
-    return st, plane, res, plen, ovf, spl, occ
+    with trace.span("splay.serving"):
+        _check_plane_dispatch(plane, mesh, axis, split)
+        _check_route_args(route_capacity, route_slack)
+        dev = st.device
+        kinds = _op_tensor(kinds, torch.int32, dev)
+        keys = _op_tensor(keys, torch.int32, dev)
+        upd = _op_tensor(upd_mask, torch.bool, dev)
+        width = shd.plane_width(plane)
+        B = keys.shape[1]
+        pending = pressed = False
+        outs = []
+        for e in range(keys.shape[0]):
+            st, plane, *out = _run_epoch(
+                st, plane, kinds[e], keys[e], upd[e], aggregate, max_new,
+                pending, plane_search, ordered, mesh, axis, split,
+                route_capacity, route_slack, routed)
+            with trace.span("splay.overflow_step"):
+                trace.count("waits.serving.overflow")
+                overflow = int(out[2])
+                trace.count("waits.serving.size")
+                pending, pressed = overflow_machine_step(
+                    overflow, int(st.size), B, width, pressed)
+            if pending:
+                trace.count("overflow.armed")
+            outs.append(out)
+        res, plen, ovf, spl, occ = (torch.stack(x) for x in zip(*outs))
+        return st, plane, res, plen, ovf, spl, occ
 
 
 # ---------------------------------------------------------------------------

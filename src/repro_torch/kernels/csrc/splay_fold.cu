@@ -43,6 +43,13 @@
 // every path; and prefetching each reached node's fields into L1 in one
 // batch, slower on the op lists.
 //
+// Counters: the walker counts its walks (a weighted entry visited, an
+// op run) and steps (calls of Walk::next: the node's lowest level, its
+// link there and the key it leads to, three dependent loads) in
+// registers; at the end of a launch it adds both to the caller's
+// int64[2] counter with one atomicAdd each, when the caller passes one
+// (null: tracing off).
+//
 // The kernel reports where a rebuild is due (after a contains or delete
 // that leaves 2*dhits >= m) and stops there; the wrapper runs the
 // vectorised rebuild and relaunches from the next op.  An insert that
@@ -110,8 +117,11 @@ struct Walk {
   int L, C;
   T m, dhits;
   int zl, n_alloc, size;
+  unsigned long long walks, steps;
 
   __device__ void load(const State<T>& st) {
+    walks = 0;
+    steps = 0;
     s = st;
     L = st.L;
     C = st.C;
@@ -137,6 +147,7 @@ struct Walk {
   __device__ bool del(int i) { return s.deleted[s.sl(i)]; }
   // the successor of i at level h under lazy expansion, and its key
   __device__ int next(int i, int h, int& k) {
+    ++steps;
     const int v = nxt(max(h, nz(i)), i);
     k = key(v);
     return v;
@@ -388,11 +399,13 @@ __device__ int ordered_reduce(const State<T>& st, int kind, int k,
 // mode 1: the weighted fold list of run_contains_batch (keys/w/wm).
 // status[0] = index of the op where the kernel stopped (n: ran to the
 // end); status[1] = 1 when an insert found the capacity exhausted.
+// counts (or null) += {walks, steps}.
 template <typename T>
 __global__ void __launch_bounds__(32)
     fold_kernel(State<T> st, int mode, int start, int n, const int* kinds,
                 const int* keys, const bool* upd, const T* w, const T* wm,
-                int* res, int* plen, int* status) {
+                int* res, int* plen, int* status,
+                unsigned long long* counts) {
   const int lane = threadIdx.x;
   const bool walker = lane == 0;
   Walk<T> s;
@@ -421,6 +434,7 @@ __global__ void __launch_bounds__(32)
           if (walker) {
             update(s, kj, wj);
             s.dhits += wmj;
+            ++s.walks;
           }
           __syncwarp();
         }
@@ -445,6 +459,7 @@ __global__ void __launch_bounds__(32)
       }
       const int kind_w = __shfl_sync(kFull, kind, 0);
       int r = 0, steps = 0, stop = 0;   // stop: 1 exhausted, 2 rebuild due
+      if (walker) ++s.walks;
       if (kind_w == OP_PRED || kind_w == OP_RANGE) {
         int slot;
         if (walker) find(s, k, slot, steps);
@@ -478,6 +493,10 @@ __global__ void __launch_bounds__(32)
     s.store();
     status[0] = stop_at;
     status[1] = exhausted;
+    if (counts != nullptr) {
+      atomicAdd(counts, s.walks);
+      atomicAdd(counts + 1, s.steps);
+    }
   }
 }
 
@@ -486,7 +505,8 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
            bool* deleted, T* m, T* dhits, int* zl, int* n_alloc, int* size,
            int C, int L, int mode, int start, int n, const int* kinds,
            const int* keys, const bool* upd, const T* w, const T* wm,
-           int* res, int* plen, int* status, void* stream) {
+           int* res, int* plen, int* status, unsigned long long* counts,
+           void* stream) {
   // the largest L1 carveout
   const cudaError_t err = cudaFuncSetAttribute(
       fold_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -495,7 +515,8 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
   State<T> s{key, nxt, hits, selfhits, top, nzero, deleted, m, dhits,
              zl, n_alloc, size, C, L};
   fold_kernel<T><<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, mode, start, n, kinds, keys, upd, w, wm, res, plen, status);
+      s, mode, start, n, kinds, keys, upd, w, wm, res, plen, status,
+      counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,10 +528,12 @@ int launch(int* key, int* nxt, T* hits, T* selfhits, int* top, int* nzero,
                       int* n_alloc, int* size, int C, int L, int mode,     \
                       int start, int n, const int* kinds, const int* keys, \
                       const bool* upd, const T* w, const T* wm, int* res,  \
-                      int* plen, int* status, void* stream) {              \
+                      int* plen, int* status, unsigned long long* counts, \
+                      void* stream) {                                      \
     return launch<T>(key, nxt, hits, selfhits, top, nzero, deleted, m,     \
                      dhits, zl, n_alloc, size, C, L, mode, start, n,       \
-                     kinds, keys, upd, w, wm, res, plen, status, stream);  \
+                     kinds, keys, upd, w, wm, res, plen, status, counts,   \
+                     stream);                                              \
   }
 
 FOLD_ENTRY(splay_fold_i32, int32_t)

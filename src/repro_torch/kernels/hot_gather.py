@@ -30,11 +30,13 @@ import functools
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gather_rows_ref, hot_gather_ref
 
 # launches of the CUDA kernel per entry point (plain CPU runs do not count)
-LAUNCHES = {"gather_hot": 0, "gather_rows": 0, "hot_gather": 0}
+LAUNCHES = trace.register("launches", {"gather_hot": 0, "gather_rows": 0,
+                                        "hot_gather": 0})
 # the copy path each entry point's last launch took (see copy_path)
 LAST_PATH = {"gather_hot": None, "gather_rows": None, "hot_gather": None}
 

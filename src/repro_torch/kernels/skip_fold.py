@@ -20,10 +20,11 @@ import ctypes
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 
 # launches of the CUDA kernel (plain CPU runs do not count)
-LAUNCHES = {"skip_fold": 0}
+LAUNCHES = trace.register("launches", {"skip_fold": 0})
 
 MAX_LEVELS = 64          # two levels a lane of the kernel's one warp
 

@@ -61,6 +61,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 from repro_torch.parallel import collectives as cl
 from repro_torch.parallel import sharding as shd
@@ -85,8 +86,9 @@ _TIERED_BLOCK = 64
 _PIPE_CTA = 64
 
 # launches of the CUDA kernels (plain CPU runs do not count)
-LAUNCHES = {"splay_search_tiered": 0, "splay_search_pipelined": 0,
-            "splay_search_full": 0}
+LAUNCHES = trace.register("launches", {
+    "splay_search_tiered": 0, "splay_search_pipelined": 0,
+    "splay_search_full": 0})
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -146,6 +148,8 @@ def _reject_segmented(level_keys: torch.Tensor) -> None:
     interior +INF runs, which break the sorted-row invariant of the
     single-device descent (wrong answers, not slower ones)."""
     live = level_keys[-1] != PAD_KEY
+    trace.count("waits.search.live")
+    trace.count("waits.search.gap")
     if bool(live[int(live.sum()):].any()):   # live lanes not a prefix
         raise ValueError(
             "segmented (mass-split) plane on the replicated search "

@@ -36,10 +36,11 @@ import ctypes
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 
 # launches of the CUDA kernel (plain CPU runs do not count)
-LAUNCHES = {"splay_walk": 0, "skip_walk": 0}
+LAUNCHES = trace.register("launches", {"splay_walk": 0, "skip_walk": 0})
 
 HEAD = 0
 POS_INF_32 = 2 ** 31 - 1
@@ -63,8 +64,10 @@ def check_keys(keys: torch.Tensor) -> None:
     """Refuse walk keys ``>= POS_INF_32`` on the host (one read of the
     device): the plain loop, and the folds that write state, run it
     before they start."""
-    if keys.numel() and bool((keys >= POS_INF_32).any()):
-        raise ValueError(REFUSAL)
+    if keys.numel():
+        trace.count("waits.walk.keys")
+        if bool((keys >= POS_INF_32).any()):
+            raise ValueError(REFUSAL)
 
 
 def status_error(name: str, word: int):
@@ -178,6 +181,7 @@ def _launch(name: str, st, ks):
     status = torch.zeros((1,), dtype=torch.int32, device=dev)
     _bind(name, st)(ks, slot, steps, status)
     LAUNCHES[name] += 1
+    trace.count("waits.walk.status")
     err = status_error(name, int(status.item()))
     if err is not None:
         raise err

@@ -572,6 +572,115 @@ def test_fold_ordered_kinds_match_plain(count_dtype):
     _equal(g, tsx.run_ops(_cpu(st0), kinds, keys, upd))
 
 
+@pytest.fixture
+def _tracing():
+    from repro_torch.core import trace
+    trace.enable(True)
+    trace.reset_counts()
+    yield trace
+    trace.enable(False)
+    trace.reset_counts()
+
+
+def _walk_counts(trace):
+    c = trace.counts()
+    return c.get("fold.walks", 0), c.get("fold.steps", 0)
+
+
+@pytest.mark.parametrize("path", ["weighted", "ops"])
+def test_fold_counts_walks_and_steps_as_plain(path, _tracing):
+    """While tracing is on, F and the plain fold count the same walks
+    (entries visited, ops run) and steps, on a weighted list and on an
+    op list of all five kinds with a rebuild stop inside it."""
+    if path == "weighted":
+        st, pool, rng = _prefilled(torch.int32)
+        n = 3000
+        keys = torch.as_tensor(rng.choice(pool, n), device="cuda")
+        w = torch.as_tensor(np.where(rng.random(n) < 0.1,
+                                     rng.integers(1, 4, n), 0),
+                            device="cuda").to(torch.int32)
+        wm = torch.zeros_like(w)
+        card, cpu = tsx.clone(st), _cpu(st)
+        _tracing.reset_counts()
+        fold.fold_weighted(card, keys, w, wm)
+        got = _walk_counts(_tracing)
+        _tracing.reset_counts()
+        fold.fold_weighted(cpu, keys.cpu(), w.cpu(), wm.cpu())
+        assert got == _walk_counts(_tracing)
+        assert got[0] == int((w > 0).sum())
+        _equal(card, cpu)
+        return
+    rng = np.random.default_rng(4)
+    pool = rng.permutation(3000)[:700].astype(np.int32)
+    n = 1500
+    kinds = np.concatenate([np.full(700, 1, np.int32),
+                            rng.choice(5, n - 700,
+                                       p=[0.1, 0.05, 0.55, 0.15, 0.15])])
+    keys = np.concatenate([pool, rng.choice(pool, n - 700)]).astype(np.int32)
+    upd = rng.random(n) < 0.6
+    st0 = tsx.make(1024, 16, device="cuda")
+    before = fold.LAUNCHES["splay_fold"]
+    g = tsx.run_ops(st0, kinds, keys, upd)
+    assert fold.LAUNCHES["splay_fold"] > before + 1     # a rebuild stop
+    got = _walk_counts(_tracing)
+    _tracing.reset_counts()
+    _equal(g, tsx.run_ops(_cpu(st0), kinds, keys, upd))
+    assert got == _walk_counts(_tracing) and got[0] == n
+
+
+# host waits of one serving batch on the card, by site: the read path
+# (plane search, state walk, weighted fold, a height-only refresh) and
+# the op-list path (inserts merged by the refresh)
+CARD_WAITS = {
+    "read": {"plane.live": 1, "plane.gap": 1, "search.live": 1,
+             "search.gap": 1, "walk.status": 1, "rebuild.m": 1,
+             "rebuild.dhits": 1, "refresh.stale": 1, "refresh.new": 1,
+             "refresh.old": 1, "refresh.width": 1, "refresh.overflow": 1,
+             "serving.overflow": 1, "serving.size": 1},
+    "ops": {"plane.live": 1, "plane.gap": 1, "run_ops.kinds": 1,
+            "fold.status": 1, "refresh.stale": 1, "refresh.new": 1,
+            "refresh.old": 1, "refresh.overflow": 1, "serving.overflow": 1,
+            "serving.size": 1}}
+
+
+@pytest.mark.parametrize("path", ["read", "ops"])
+def test_serving_waits_and_launches_with_tracing_on_and_off(path):
+    """One ``run_serving`` batch on the card makes the same waits (the
+    table above) and the same launches with tracing on as off."""
+    from repro_torch.core import trace
+    st, pool, rng = _prefilled(torch.int32, n_keys=2000, cap=4096)
+    plane = tdix.from_state_device(st, n_levels=16, width=4096)
+    B = 512
+    keys = torch.as_tensor(rng.choice(pool, B).astype(np.int32)[None],
+                           device="cuda")
+    kinds = torch.zeros((1, B), dtype=torch.int32, device="cuda")
+    if path == "ops":
+        kinds[0, :8] = 1
+        keys[0, :8] = torch.arange(8000, 8008, dtype=torch.int32)
+    upd = torch.as_tensor(rng.random((1, B)) < 0.3, device="cuda")
+    seen = []
+    try:
+        for on in (False, True):
+            trace.enable(on)
+            tsx.run_serving(st, plane, kinds, keys, upd,
+                            aggregate=path == "read",
+                            plane_search=path == "read")    # warm
+            trace.reset_counts()
+            tsx.run_serving(st, plane, kinds, keys, upd,
+                            aggregate=path == "read",
+                            plane_search=path == "read")
+            c = trace.counts()
+            seen.append(({k[6:]: v for k, v in c.items()
+                          if k.startswith("waits.")},
+                         {k: v for k, v in c.items()
+                          if k.startswith("launches.")}))
+    finally:
+        trace.enable(False)
+        trace.reset_counts()
+    assert seen[0] == seen[1]
+    assert seen[0][0] == CARD_WAITS[path]
+
+
 def test_ordered_ops_on_card_match_oracle():
     st, live, rng = _ordered_state()
     plane = tdix.from_state_device(st, n_levels=16, width=2048)
